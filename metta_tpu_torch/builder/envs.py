@@ -1,0 +1,139 @@
+"""Environment factories, the port's own copy of ``metta_tpu/builder/envs.py``.
+
+Parity: reference ``mettagrid/builder/envs.py`` (``make_arena``,
+``make_navigation``). Trimmed to the configs the port runs: navigation, and
+the combat map with the arena it is built on.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from metta_tpu_torch.builder import building
+from metta_tpu_torch.config.mettagrid_config import (
+    ActionsConfig,
+    AgentConfig,
+    AgentRewards,
+    AttackActionConfig,
+    AttackOutcome,
+    ChangeVibeActionConfig,
+    GameConfig,
+    InventoryConfig,
+    MettaGridConfig,
+    MoveActionConfig,
+    NoopActionConfig,
+    ResourceLimitsConfig,
+    TransferActionConfig,
+)
+from metta_tpu_torch.config.vibes import TRAINING_VIBES
+from metta_tpu_torch.map_builder.random_map import RandomMapBuilder
+
+
+def make_navigation(num_agents: int = 1, width: int = 16, height: int = 16) -> MettaGridConfig:
+    """Stage 1: navigation to a heart-producing assembler (envs.py:101-131)."""
+    return MettaGridConfig(
+        label="navigation",
+        game=GameConfig(
+            num_agents=num_agents,
+            resource_names=["heart"],
+            objects={"assembler": building.nav_assembler.model_copy(), "wall": building.wall.model_copy()},
+            actions=ActionsConfig(
+                move=MoveActionConfig(),
+                noop=NoopActionConfig(),
+                change_vibe=ChangeVibeActionConfig(enabled=False),
+            ),
+            agent=AgentConfig(rewards=AgentRewards(inventory={"heart": 1})),
+            map_builder=RandomMapBuilder.Config(
+                agents=num_agents, width=width, height=height, border_width=1,
+                objects={"assembler": max(num_agents, 1), "wall": (width * height) // 20},
+            ),
+        ),
+    )
+
+
+def make_arena(
+    num_agents: int = 24,
+    combat: bool = True,
+    width: Optional[int] = None,
+    height: Optional[int] = None,
+) -> MettaGridConfig:
+    """Stages 3/5: the arena (envs.py:27-98): MapGen-tiled 25×25 instances of
+    6 agents + the mine/generator/assembler economy."""
+    from metta_tpu_torch.mapgen.mapgen import MapGen
+    from metta_tpu_torch.mapgen.scenes import Random
+
+    instances = max(num_agents // 6, 1)
+
+    actions = ActionsConfig(
+        noop=NoopActionConfig(),
+        move=MoveActionConfig(),
+        attack=AttackActionConfig(
+            consumed_resources={"laser": 1 if combat else 100},
+            defense_resources={"armor": 1},
+        ),
+        change_vibe=ChangeVibeActionConfig(enabled=False),
+    )
+    return MettaGridConfig(
+        label="arena" + (".combat" if combat else ""),
+        game=GameConfig(
+            num_agents=num_agents,
+            actions=actions,
+            objects={
+                "wall": building.wall.model_copy(),
+                "assembler": building.assembler_assembler.model_copy(),
+                "mine_red": building.assembler_mine_red.model_copy(),
+                "generator_red": building.assembler_generator_red.model_copy(),
+                "lasery": building.assembler_lasery.model_copy(),
+                "armory": building.assembler_armory.model_copy(),
+            },
+            agent=AgentConfig(
+                inventory=InventoryConfig(
+                    default_limit=50,
+                    limits={"heart": ResourceLimitsConfig(limit=255, resources=["heart"])},
+                ),
+                rewards=AgentRewards(inventory={"heart": 1}),
+            ),
+            map_builder=MapGen.Config(
+                num_agents=num_agents,
+                width=width or 25,
+                height=height or 25,
+                border_width=6,
+                instance_border_width=0,
+                instance=Random.Config(
+                    agents=6,
+                    objects={
+                        "wall": 10,
+                        "assembler": 5,
+                        "mine_red": 10,
+                        "generator_red": 5,
+                        "lasery": 1,
+                        "armory": 1,
+                    },
+                ),
+            ),
+        ),
+    )
+
+
+def make_combat(num_agents: int = 24) -> MettaGridConfig:
+    """Stage 3: combat map — vibe-triggered attack with freeze/armor/loot.
+
+    Unlike the latent arena attack (no trigger vibes configured upstream), this
+    config actually wires attack + transfer to vibes so the combat path is hot.
+    """
+    cfg = make_arena(num_agents=num_agents, combat=True)
+    cfg.label = "combat"
+    cfg.game.actions.change_vibe = ChangeVibeActionConfig(vibes=list(TRAINING_VIBES))
+    cfg.game.actions.attack = AttackActionConfig(
+        consumed_resources={"laser": 1},
+        defense_resources={"armor": 1},
+        weapon_resources={"laser": 1},
+        armor_resources={"armor": 1},
+        vibes=["gear"],
+        success=AttackOutcome(freeze=10, loot=["heart", "ore_red", "battery_red"]),
+    )
+    cfg.game.actions.transfer = TransferActionConfig(
+        enabled=True,
+        vibe_transfers=[],
+    )
+    return cfg

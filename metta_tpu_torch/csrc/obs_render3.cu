@@ -1,0 +1,132 @@
+// Token-observation render for Hopper (sm_90a), plain C interface for ctypes.
+//
+// Replaces metta_tpu/ops/obs_render3.py:_obs3_kernel (the Pallas TPU kernel
+// behind render_obs_pallas3). Same function: for every agent of every env,
+// global tokens first, then the tokens of the window cells in center-out
+// order (the rows of `scan`), each (loc=(wr<<4)|wc, feat, val), truncated at
+// T tokens; the remaining slots are 255. Its plain torch version is
+// metta_tpu_torch/ops/obs_render3.py:render_obs3_plain.
+//
+// Design: one thread block per env, one warp per agent (agents beyond 32 are
+// taken in turn). The warp walks the S window cells 32 at a time: each lane
+// reads its cell's block id from `sb` (cells outside the map are block 0,
+// which has no tokens), then the block's token count; a warp prefix sum
+// (__shfl_up_sync) gives each cell its first output slot, carried from chunk
+// to chunk, and the lane copies the cell's tokens there. The walk stops as
+// soon as T slots are taken. None of the TPU kernel's limits carry over:
+// the window, the block count NB and the map size are free (no 128-lane
+// tiles, no one-hot products, no second-chunk branch, no rank-repack GEMM).
+//
+// What bounds it: memory. At E=4096 on the combat map it writes 59 MB of
+// observations and its inputs are the block grid (63 MB as int32), the token
+// tables (14 MB) and the counts (2 MB); it does a few integer operations per
+// byte. The design writes the observations once: the env's [A, T, 3] tile is
+// assembled in shared memory (byte stores at scattered slots stay on chip)
+// and leaves in coalesced 16-byte stores. A warp reads only the grid cells
+// of its window, so the grid is read about A*S/(H*W) = 0.76 times per step
+// there; block tokens and counts are small and served from L1/L2.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__global__ void obs_render3_kernel(
+    const int32_t* __restrict__ sb,      // [E, H, W] combined block grid
+    const uint8_t* __restrict__ tok,     // [E, NB, K, 2] (feat, val) per block
+    const int32_t* __restrict__ counts,  // [E, NB] tokens per block
+    const int32_t* __restrict__ rc,      // [E, A, 2] agent (row, col)
+    const int32_t* __restrict__ gcnt,    // [E, A] global token count
+    const uint8_t* __restrict__ gtok,    // [E, A, G, 3] global tokens
+    const int32_t* __restrict__ scan,    // [S, 2] window offsets (dr, dc)
+    uint8_t* __restrict__ out,           // [E, A, T, 3]
+    int H, int W, int A, int NB, int K, int S, int G, int T, int ohr, int owr) {
+  extern __shared__ __align__(16) uint8_t tile[];  // [A, T, 3] of this env
+  const int e = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int32_t* sb_e = sb + (size_t)e * H * W;
+  const uint8_t* tok_e = tok + (size_t)e * NB * K * 2;
+  const int32_t* cnt_e = counts + (size_t)e * NB;
+  const size_t row = (size_t)T * 3;
+
+  for (int a = warp; a < A; a += nwarps) {
+    const size_t ea = (size_t)e * A + a;
+    uint8_t* o = tile + (size_t)a * row;
+    const int ar = __ldg(rc + 2 * ea);
+    const int ac = __ldg(rc + 2 * ea + 1);
+    const int g = min(__ldg(gcnt + ea), T);
+    const uint8_t* gt = gtok + ea * G * 3;
+    for (int i = lane; i < 3 * g; i += 32) o[i] = __ldg(gt + i);
+
+    int carry = g;  // next free output slot (warp-uniform)
+    for (int base = 0; base < S && carry < T; base += 32) {
+      const int s = base + lane;
+      int b = 0, n = 0, dr = 0, dc = 0;
+      if (s < S) {
+        dr = __ldg(scan + 2 * s);
+        dc = __ldg(scan + 2 * s + 1);
+        const int r = ar + dr, c = ac + dc;
+        if (r >= 0 && r < H && c >= 0 && c < W) {
+          b = __ldg(sb_e + r * W + c);
+          n = __ldg(cnt_e + b);
+        }
+      }
+      int incl = n;  // inclusive prefix sum of the counts over the warp
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += v;
+      }
+      const int start = carry + incl - n;
+      const int stop = min(n, T - start);
+      if (stop > 0) {
+        const uint8_t loc = (uint8_t)((((dr + ohr) << 4) | (dc + owr)) & 255);
+        const uint8_t* bt = tok_e + (size_t)b * K * 2;
+        uint8_t* p = o + (size_t)start * 3;
+        for (int k = 0; k < stop; ++k) {
+          p[3 * k] = loc;
+          p[3 * k + 1] = __ldg(bt + 2 * k);
+          p[3 * k + 2] = __ldg(bt + 2 * k + 1);
+        }
+      }
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    const int total = min(carry, T);
+    for (int i = 3 * total + lane; i < 3 * T; i += 32) o[i] = 255;
+  }
+  __syncthreads();
+
+  uint8_t* out_e = out + (size_t)e * A * row;
+  const size_t nbytes = (size_t)A * row;
+  if ((nbytes & 15) == 0 && (reinterpret_cast<uintptr_t>(out_e) & 15) == 0) {
+    const uint4* src = reinterpret_cast<const uint4*>(tile);
+    uint4* dst = reinterpret_cast<uint4*>(out_e);
+    for (size_t i = threadIdx.x; i < nbytes / 16; i += blockDim.x) dst[i] = src[i];
+  } else {
+    for (size_t i = threadIdx.x; i < nbytes; i += blockDim.x) out_e[i] = tile[i];
+  }
+}
+
+}  // namespace
+
+// Launches the render on `stream`; returns cudaGetLastError() (0 = launched).
+extern "C" int obs_render3_launch(
+    const void* sb, const void* tok, const void* counts, const void* rc,
+    const void* gcnt, const void* gtok, const void* scan, void* out,
+    int E, int H, int W, int A, int NB, int K, int S, int G, int T, int ohr,
+    int owr, void* stream) {
+  const int warps = A < 32 ? A : 32;
+  const size_t smem = (((size_t)A * T * 3) + 15) / 16 * 16;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        obs_render3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  obs_render3_kernel<<<E, 32 * warps, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)sb, (const uint8_t*)tok, (const int32_t*)counts,
+      (const int32_t*)rc, (const int32_t*)gcnt, (const uint8_t*)gtok,
+      (const int32_t*)scan, (uint8_t*)out, H, W, A, NB, K, S, G, T, ohr, owr);
+  return (int)cudaGetLastError();
+}

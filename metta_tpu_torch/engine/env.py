@@ -1,0 +1,238 @@
+"""Vectorized MettaGrid environment on one torch device.
+
+Counterpart of ``metta_tpu/engine/env.py:MettaGridEnv`` for
+``step_mode="batched"``. The batch is a real leading dimension of every
+state tensor; a step is the batched sim step in torch ops, the obs prep in
+torch ops, and the token render (the CUDA kernel of
+``csrc/obs_render3.cu`` on a GPU, its plain version on the CPU).
+
+Auto-reset: envs that terminate or truncate are reset in the same step call
+and return the new episode's initial observations. Episode desync
+(reference ``envs/early_reset_handler.py:6-20``): the first episode of each
+env is truncated at an independent random step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from metta_tpu_torch.config.mettagrid_config import MettaGridConfig
+from metta_tpu_torch.engine.compiler import compile_game
+from metta_tpu_torch.engine.state import EPISODE_INVARIANT, EnvState, VecEnvState
+from metta_tpu_torch.engine.step import make_reset_batch, make_reset_template
+from metta_tpu_torch.engine.step_batched import check_supported, step_env_batched
+from metta_tpu_torch.engine.tables import Tables, attach_static_block_grid
+from metta_tpu_torch.ops.obs_render3 import prep_env3, render_obs3
+
+
+class MettaGridEnv:
+    """Batched MettaGrid on a torch device.
+
+    Args:
+      cfg: environment config.
+      num_envs: batch size E.
+      seed: seed of the env's ``torch.Generator`` (agent orders, desync).
+      desync_episodes: truncate each env's first episode at a random step.
+      track_stats: keep the gained/lost/chest stat accumulators.
+      step_mode: only "batched" is ported.
+      device: where the state lives and the step runs; "cuda" by default.
+    """
+
+    def __init__(
+        self,
+        cfg: MettaGridConfig,
+        num_envs: int = 1,
+        seed: int = 0,
+        desync_episodes: Optional[bool] = None,
+        track_stats: bool = True,
+        step_mode: str = "batched",
+        device="cuda",
+    ):
+        self.cfg = cfg
+        self.num_envs = num_envs
+        self.device = torch.device(device)
+        self.game_map = cfg.game.map_builder.create().build()
+        self.compiled, self._init = compile_game(cfg.game, self.game_map)
+        self.tables = Tables(self.compiled, track_stats=track_stats, device=self.device)
+        check_supported(self.tables, step_mode)
+        self.step_mode = step_mode
+        self.desync = cfg.desync_episodes if desync_episodes is None else desync_episodes
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.single_observation_space_shape = (self.compiled.num_obs_tokens, 3)
+        self.num_agents = self.compiled.num_agents
+        self.action_names = self.compiled.action_names
+
+        self._template = make_reset_template(self.tables, self._init)
+        attach_static_block_grid(self.tables, self._template[0])
+        self._state: Optional[VecEnvState] = None
+
+    # ------------------------------------------------------------------
+    # functional API
+    # ------------------------------------------------------------------
+
+    def reset_state(self, desync_step=None):
+        """-> (VecEnvState, obs [E, A, T, 3] uint8).
+
+        ``desync_step`` [E] overrides the desync draws (tests pass the JAX
+        env's draws); by default they come from the env's generator."""
+        E = self.num_envs
+        t = self.tables
+        env, obs = make_reset_batch(self._template, E)
+        if desync_step is not None:
+            if not isinstance(desync_step, torch.Tensor):
+                desync_step = torch.as_tensor(np.array(desync_step))
+            desync = desync_step.to(device=self.device, dtype=torch.int32)
+        elif self.desync and t.max_steps > 0:
+            desync = torch.randint(1, t.max_steps, (E,), generator=self.generator,
+                                   device=self.device, dtype=torch.int32)
+        else:
+            desync = torch.zeros((E,), dtype=torch.int32, device=self.device)
+        return VecEnvState(
+            env=env,
+            desync_step=desync,
+            episode_len=torch.zeros((E,), dtype=torch.int32, device=self.device),
+            last_episode_reward=torch.zeros((E, t.num_agents), dtype=torch.float32,
+                                            device=self.device),
+            last_episode_gained=torch.zeros((E, t.num_resources), dtype=torch.float32,
+                                            device=self.device),
+        ), obs
+
+    def _stepped(self, env: EnvState, actions, perm=None):
+        """Batched sim step + batched obs render -> (env, obs)."""
+        env, rew_at_obs = step_env_batched(env, actions, self.tables, perm=perm,
+                                           generator=self.generator)
+        t = self.tables
+        obs = render_obs3(
+            *prep_env3(env, t, env.executed_action, rew_at_obs), t.obs_scan,
+            t.num_obs_tokens, t.obs_height // 2, t.obs_width // 2,
+        )
+        return env, obs
+
+    def step_state(self, vstate: VecEnvState, actions, perm=None):
+        """(VecEnvState, actions [E, A]) -> (VecEnvState, obs, rew, done, trunc),
+        auto-resetting ended envs."""
+        env, obs = self._stepped(vstate.env, actions, perm)
+        force_trunc = (vstate.desync_step > 0) & (env.step >= vstate.desync_step)
+        truncated = env.truncated | force_trunc
+        done = env.done
+        ended = done | truncated
+        rewards = env.reward
+        A = self.tables.num_agents
+        episode_len = torch.where(ended, env.step, vstate.episode_len)
+        last_reward = torch.where(ended[:, None], env.episode_reward,
+                                  vstate.last_episode_reward)
+        gained_mean = env.agent_gained.to(torch.float32).sum(1) / A
+        last_gained = torch.where(ended[:, None], gained_mean, vstate.last_episode_gained)
+
+        # auto-reset ended envs from the template; fields invariant across
+        # episodes of one map pass through
+        template, template_obs = self._template
+
+        def reset_field(name):
+            old = getattr(env, name)
+            if name in EPISODE_INVARIANT:
+                return old
+            mask = ended.reshape((-1,) + (1,) * (old.dim() - 1))
+            return torch.where(mask, getattr(template, name), old)
+
+        env = EnvState(**{f.name: reset_field(f.name) for f in dataclasses.fields(EnvState)})
+        obs = torch.where(ended[:, None, None, None], template_obs, obs)
+        vstate = VecEnvState(
+            env=env,
+            desync_step=torch.where(ended, torch.zeros_like(vstate.desync_step),
+                                    vstate.desync_step),
+            episode_len=episode_len,
+            last_episode_reward=last_reward,
+            last_episode_gained=last_gained,
+        )
+        return vstate, obs, rewards, done, truncated
+
+    def step_no_reset_state(self, vstate: VecEnvState, actions, perm=None):
+        """Evaluation stepping: no auto-reset; the terminal state (and its
+        episode stats) stays readable after the episode ends."""
+        env, obs = self._stepped(vstate.env, actions, perm)
+        return vstate.replace(env=env), obs, env.reward, env.done, env.truncated
+
+    # ------------------------------------------------------------------
+    # stateful API (tests, eval, play); tensors stay on the device
+    # ------------------------------------------------------------------
+
+    def _actions(self, actions):
+        actions = torch.as_tensor(actions, device=self.device).to(torch.int32)
+        return actions[None, :] if actions.dim() == 1 else actions
+
+    def reset(self, desync_step=None):
+        self._state, obs = self.reset_state(desync_step)
+        return obs
+
+    def _require_reset(self):
+        if self._state is None:
+            raise RuntimeError("call reset() first")
+
+    def step(self, actions, perm=None):
+        self._require_reset()
+        self._state, obs, rew, done, trunc = self.step_state(
+            self._state, self._actions(actions), perm)
+        return obs, rew, done, trunc
+
+    def step_no_reset(self, actions, perm=None):
+        self._require_reset()
+        self._state, obs, rew, done, trunc = self.step_no_reset_state(
+            self._state, self._actions(actions), perm)
+        return obs, rew, done, trunc
+
+    # --- inspection helpers (parity with MettaGrid debug accessors) ---
+
+    @property
+    def state(self) -> VecEnvState:
+        return self._state
+
+    def env_state(self, e: int = 0) -> dict:
+        """Single-env view of the batched state (host numpy copies)."""
+        return {f.name: getattr(self._state.env, f.name)[e].cpu().numpy()
+                for f in dataclasses.fields(EnvState)}
+
+    def action_success(self, e: int = 0):
+        return self._state.env.action_success[e].cpu().numpy()
+
+    def episode_rewards(self, e: int = 0):
+        return self._state.env.episode_reward[e].cpu().numpy()
+
+    def resource_id(self, name: str) -> int:
+        return self.compiled.resource_names.index(name)
+
+    def vibe_id(self, name: str) -> int:
+        return self.compiled.vibe_names.index(name)
+
+    def set_agent_inventory(self, agent: int, inventory: dict, e: int = 0):
+        """Replace the agent's inventory with {resource_name: amount}
+        (parity: MettaGrid::set_inventory)."""
+        row = np.zeros((self.compiled.num_resources,), np.int32)
+        for name, amt in inventory.items():
+            row[self.resource_id(name)] = amt
+        inv = self._state.env.agent_inv.clone()
+        inv[e, agent] = torch.as_tensor(row, device=self.device)
+        self._state = self._state.replace(env=self._state.env.replace(agent_inv=inv))
+
+    def agent_inventory(self, agent: int, e: int = 0) -> dict:
+        row = self._state.env.agent_inv[e, agent].cpu().numpy()
+        return {
+            n: int(row[i]) for i, n in enumerate(self.compiled.resource_names) if row[i] != 0
+        }
+
+    def set_agent_vibe(self, agent: int, vibe, e: int = 0):
+        v = self.vibe_id(vibe) if isinstance(vibe, str) else int(vibe)
+        vibes = self._state.env.agent_vibe.clone()
+        vibes[e, agent] = v
+        self._state = self._state.replace(env=self._state.env.replace(agent_vibe=vibes))
+
+    def chest_inventory(self, chest: int = 0, e: int = 0) -> dict:
+        row = self._state.env.chest_inv[e, chest].cpu().numpy()
+        return {
+            n: int(row[i]) for i, n in enumerate(self.compiled.resource_names) if row[i] != 0
+        }
