@@ -1,8 +1,9 @@
 """Environment factories, the port's own copy of ``metta_tpu/builder/envs.py``.
 
 Parity: reference ``mettagrid/builder/envs.py`` (``make_arena``,
-``make_navigation``). Trimmed to the configs the port runs: navigation, and
-the combat map with the arena it is built on.
+``make_navigation``). Trimmed to the configs the port runs: navigation, the
+combat map with the arena it is built on, and cooperation (combat plus heart
+transfers).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from metta_tpu_torch.config.mettagrid_config import (
     NoopActionConfig,
     ResourceLimitsConfig,
     TransferActionConfig,
+    VibeTransfer,
 )
 from metta_tpu_torch.config.vibes import TRAINING_VIBES
 from metta_tpu_torch.map_builder.random_map import RandomMapBuilder
@@ -135,5 +137,18 @@ def make_combat(num_agents: int = 24) -> MettaGridConfig:
     cfg.game.actions.transfer = TransferActionConfig(
         enabled=True,
         vibe_transfers=[],
+    )
+    return cfg
+
+
+def make_cooperation(num_agents: int = 24) -> MettaGridConfig:
+    """Stage 4: kinship/sharing — heart transfers between agents + team reward."""
+    cfg = make_combat(num_agents=num_agents)
+    cfg.label = "cooperation"
+    cfg.game.actions.transfer = TransferActionConfig(
+        enabled=True,
+        vibe_transfers=[
+            VibeTransfer(vibe="heart_a", actor={"heart": -1}, target={"heart": 1}),
+        ],
     )
     return cfg

@@ -2,9 +2,12 @@
 
 Counterpart of ``metta_tpu/engine/env.py:MettaGridEnv`` for
 ``step_mode="batched"``. The batch is a real leading dimension of every
-state tensor; a step is the batched sim step in torch ops, the obs prep in
-torch ops, and the token render (the CUDA kernel of
-``csrc/obs_render3.cu`` on a GPU, its plain version on the CPU).
+state tensor. A step is the batched sim step, the obs prep in torch ops, and
+the token render (the CUDA kernel of ``csrc/obs_render3.cu`` on a GPU, its
+plain version on the CPU). The sim step's interaction span is the fused
+kernel of ``csrc/sim_fused.cu`` wherever ``supports_fused`` holds (on a GPU;
+its plain version on the CPU), as in the JAX env; elsewhere, as with
+``track_stats=True``, it is the torch-ops step.
 
 Auto-reset: envs that terminate or truncate are reset in the same step call
 and return the new episode's initial observations. Episode desync
@@ -27,6 +30,7 @@ from metta_tpu_torch.engine.step import make_reset_batch, make_reset_template
 from metta_tpu_torch.engine.step_batched import check_supported, step_env_batched
 from metta_tpu_torch.engine.tables import Tables, attach_static_block_grid
 from metta_tpu_torch.ops.obs_render3 import prep_env3, render_obs3
+from metta_tpu_torch.ops.sim_fused import fused_step_full, supports_fused
 
 
 class MettaGridEnv:
@@ -60,6 +64,7 @@ class MettaGridEnv:
         self.tables = Tables(self.compiled, track_stats=track_stats, device=self.device)
         check_supported(self.tables, step_mode)
         self.step_mode = step_mode
+        self._sim_step = fused_step_full if supports_fused(self.tables) else step_env_batched
         self.desync = cfg.desync_episodes if desync_episodes is None else desync_episodes
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -104,8 +109,8 @@ class MettaGridEnv:
 
     def _stepped(self, env: EnvState, actions, perm=None):
         """Batched sim step + batched obs render -> (env, obs)."""
-        env, rew_at_obs = step_env_batched(env, actions, self.tables, perm=perm,
-                                           generator=self.generator)
+        env, rew_at_obs = self._sim_step(env, actions, self.tables, perm=perm,
+                                         generator=self.generator)
         t = self.tables
         obs = render_obs3(
             *prep_env3(env, t, env.executed_action, rew_at_obs), t.obs_scan,

@@ -7,6 +7,12 @@ The per-step random permutation becomes a priority *rank*, and every conflict
 the one that would have acted first sequentially. The module docstring of
 the JAX step lists where this differs from the sequential reference step.
 
+A step is :func:`batched_step`: the rank, an interaction span (decode to
+action consumption) and the tail (motion stats, stat rewards, episode end).
+:func:`interaction_span` is the span in torch ops, and the plain version of
+the fused kernel K2 (``ops/sim_fused.py``), which takes its place on the
+``track_stats=False`` path.
+
 Where the port departs from the JAX formulation:
 
 - The JAX step expresses every table lookup, grid read, per-target reduction
@@ -53,8 +59,6 @@ def unsupported(tables, step_mode: str = "batched"):
          "shared inventory limit groups (metta_tpu/engine/inventory.py:shared_update)"),
         (tables.chest_search_distance > 0,
          "assembler chest search (metta_tpu/engine/assembler.py)"),
-        (tables.has_transfer,
-         "vibe transfers (metta_tpu/engine/step_batched.py:307-337)"),
         (tables.has_bump_handlers,
          "bump handlers (metta_tpu/engine/activation_wiring.py:bump_handlers_batched)"),
         (tables.has_chests,
@@ -107,6 +111,59 @@ def agent_grid_from_positions(tables, agent_r, agent_c):
     return grid.reshape(E, H, W)
 
 
+def rank_from_perm(perm, E: int, A: int, generator=None, device="cpu"):
+    """[E, A] int32 rank of each agent in the step's order (rank[a] =
+    position of a in ``perm``); ``perm`` None draws one from ``generator``."""
+    if perm is None:
+        perm = random_perm(E, A, generator, device)
+    perm = perm.to(device=device, dtype=torch.int64)
+    ar = torch.arange(A, dtype=_I32, device=device).expand(E, A)
+    return torch.empty((E, A), dtype=_I32, device=device).scatter_(1, perm, ar)
+
+
+def batched_step(state, actions, tables, span, perm=None, generator=None):
+    """One batched-arbitration step with the interaction span ``span``
+    (:func:`interaction_span` or the fused kernel's wrapper): step + 1 and
+    zero the reward, draw the rank, run the span, then the tail (motion
+    stats, stat rewards, episode end). Returns (new_state, rewards_at_obs)."""
+    check_supported(tables)
+    dev = actions.device
+    E, A = actions.shape
+    prev = state
+    state = state.replace(
+        step=state.step + 1,
+        reward=torch.zeros_like(state.reward),
+    )
+    rank = rank_from_perm(perm, E, A, generator, dev)
+    state, success, executed = span(state, actions, rank, tables)
+
+    # ---------- motion stats ----------
+    act_ok = (actions >= 0) & (actions < tables.n_actions)
+    ran = act_ok & (prev.agent_frozen == 0)
+    moved_any = (state.agent_r != state.agent_prev_r) | (state.agent_c != state.agent_prev_c)
+    swm = torch.where(moved_any, torch.zeros_like(state.agent_steps_without_motion),
+                      state.agent_steps_without_motion + 1)
+    state = state.replace(
+        agent_steps_without_motion=torch.where(ran, swm, state.agent_steps_without_motion),
+        agent_prev_r=torch.where(ran, state.agent_r, state.agent_prev_r),
+        agent_prev_c=torch.where(ran, state.agent_c, state.agent_prev_c),
+        action_success=success,
+        executed_action=executed,
+    )
+
+    rewards_at_obs = state.reward
+    state = compute_stat_rewards(state, tables)
+    state = state.replace(episode_reward=state.episode_reward + state.reward)
+
+    if tables.max_steps > 0:
+        ended = state.step >= tables.max_steps
+        if tables.episode_truncates:
+            state = state.replace(truncated=ended)
+        else:
+            state = state.replace(done=ended)
+    return state, rewards_at_obs
+
+
 def step_env_batched(state, actions, tables, perm=None, generator=None):
     """One batched-arbitration step of every env.
 
@@ -116,22 +173,25 @@ def step_env_batched(state, actions, tables, perm=None, generator=None):
     action-phase rewards, not the stat rewards (mettagrid_c.cpp:653 obs
     before :656 stat rewards).
     """
-    check_supported(tables)
+    return batched_step(state, actions, tables, interaction_span, perm, generator)
+
+
+def interaction_span(state, actions, rank, tables):
+    """The interaction span of one batched step, decode to action
+    consumption, in torch ops: the plain version of the fused kernel
+    (``ops/sim_fused.py``).
+
+    ``state`` has the step already counted; ``actions`` [E, A] int; ``rank``
+    [E, A] int32 (see :func:`rank_from_perm`). Returns (state, success [E, A]
+    bool, executed_action [E, A] int32). The returned state carries the new
+    agent positions, vibes, freezes, inventories (and gained/lost), the
+    claimed assemblers' fields, and ``agent_grid`` rebuilt from the new
+    positions; every other field passes through.
+    """
     dev = actions.device
     E, A = actions.shape
     H, W = tables.height, tables.width
     NACT = tables.n_actions
-    ar_A = torch.arange(A, device=dev)
-
-    state = state.replace(
-        step=state.step + 1,
-        reward=torch.zeros_like(state.reward),
-    )
-    if perm is None:
-        perm = random_perm(E, A, generator, dev)
-    perm = perm.to(device=dev, dtype=torch.int64)
-    rank = torch.empty_like(perm)
-    rank.scatter_(1, perm, ar_A.expand(E, A))           # rank[a] = position in order
 
     # ---------- decode ----------
     act_ok = (actions >= 0) & (actions < NACT)
@@ -265,16 +325,44 @@ def step_env_batched(state, actions, tables, perm=None, generator=None):
         state = _track_agent_inv(state, tables, old_inv)
         success = success | valid
         # only resolved attacks handle the move; a failed try_attack falls
-        # through to swap/onUse (move.hpp:103-139)
+        # through to transfer/swap/onUse (move.hpp:103-139)
         handled_attack = valid
     else:
         handled_attack = torch.zeros_like(movers)
+
+    # ---------- vibe-triggered transfers ----------
+    if tables.has_transfer:
+        wants_tr = (movers & ~handled_attack & tables.transfer_vibe_mask[vibe]
+                    & has_tgt_agent)
+        d_actor = tables.transfer_actor_delta[vibe]                      # [E, A, R]
+        d_target = tables.transfer_target_delta[vibe]
+        req_ok = (state.agent_inv >= tables.transfer_required).all(-1)
+        valid = wants_tr & (from_targets(state.agent_frozen) <= 0) & req_ok
+        valid = winner_per_target(valid)
+        free_a = (lims - state.agent_inv).clamp(min=0)
+        free_t = from_targets(free_a)
+        inv_t = from_targets(state.agent_inv)
+        ok = valid
+        ok = ok & ((d_actor >= 0) | (state.agent_inv >= -d_actor)).all(-1)
+        ok = ok & ((d_target >= 0) | (inv_t >= -d_target)).all(-1)
+        ok = ok & ((d_actor <= 0) | (d_actor <= free_a)).all(-1)
+        ok = ok & ((d_target <= 0) | (d_target <= free_t)).all(-1)
+        d = torch.where(ok[..., None], d_actor, torch.zeros_like(d_actor))
+        d = d + sum_to_targets(d_target, ok)
+        old_inv = state.agent_inv
+        state = state.replace(agent_inv=_clip(old_inv + d, lims))
+        state = _track_agent_inv(state, tables, old_inv)
+        success = success | ok
+        # a failed try_transfer falls through like a failed try_attack
+        handled_tr = ok
+    else:
+        handled_tr = torch.zeros_like(movers)
 
     # ---------- swaps with frozen agents ----------
     handled_station = torch.zeros_like(movers)
     if tables.has_swap:
         wants_swap = (
-            movers & ~handled_attack & has_tgt_agent
+            movers & ~handled_attack & ~handled_tr & has_tgt_agent
             & (from_targets(state.agent_frozen) > 0)
         )
         swap_ok = winner_per_target(wants_swap)
@@ -289,7 +377,7 @@ def step_env_batched(state, actions, tables, perm=None, generator=None):
         success = success | swap_ok
         handled_station = handled_station | wants_swap
 
-    interacted = handled_attack | handled_station
+    interacted = handled_attack | handled_tr | handled_station
 
     # ---------- plain moves: rank-arbitrated rounds ----------
     # (movers whose pre-step target held an agent take part too: the rounds
@@ -333,36 +421,15 @@ def step_env_batched(state, actions, tables, perm=None, generator=None):
         state, asm_success = _assembler_phase(state, tables, is_winner, sidx, lims)
         success = success | asm_success
 
-    # ---------- action resource consumption + motion stats ----------
+    # ---------- action resource consumption ----------
     if tables.any_action_consumed:
         consumed = torch.where(success[..., None], tables.action_consumed[act],
                                torch.zeros_like(state.agent_inv))
         old_inv = state.agent_inv
         state = state.replace(agent_inv=_clip(old_inv - consumed, lims))
         state = _track_agent_inv(state, tables, old_inv)
-    ran = act_ok & ~is_frozen
-    moved_any = (state.agent_r != state.agent_prev_r) | (state.agent_c != state.agent_prev_c)
-    swm = torch.where(moved_any, torch.zeros_like(state.agent_steps_without_motion),
-                      state.agent_steps_without_motion + 1)
-    state = state.replace(
-        agent_steps_without_motion=torch.where(ran, swm, state.agent_steps_without_motion),
-        agent_prev_r=torch.where(ran, state.agent_r, state.agent_prev_r),
-        agent_prev_c=torch.where(ran, state.agent_c, state.agent_prev_c),
-        action_success=success,
-        executed_action=torch.where(success, act, torch.zeros_like(act)).to(_I32),
-    )
-
-    rewards_at_obs = state.reward
-    state = compute_stat_rewards(state, tables)
-    state = state.replace(episode_reward=state.episode_reward + state.reward)
-
-    if tables.max_steps > 0:
-        ended = state.step >= tables.max_steps
-        if tables.episode_truncates:
-            state = state.replace(truncated=ended)
-        else:
-            state = state.replace(done=ended)
-    return state, rewards_at_obs
+    executed = torch.where(success, act, torch.zeros_like(act)).to(_I32)
+    return state, success, executed
 
 
 # ---------------------------------------------------------------------------

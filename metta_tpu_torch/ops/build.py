@@ -81,3 +81,16 @@ def build(names=None, log=None):
 def load_library(name: str):
     """The ctypes handle of kernel library ``name``, built if needed."""
     return ctypes.CDLL(str(build([name])[name]))
+
+
+def check_tensor(name, x, dtype, shape, device):
+    """Raise ValueError unless ``x`` is a contiguous ``dtype`` tensor of
+    ``shape`` on the CUDA ``device`` (what a kernel wrapper hands its kernel)."""
+    if x.device.type != "cuda" or x.device != device:
+        raise ValueError(f"{name} must be a CUDA tensor on {device}, got {x.device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

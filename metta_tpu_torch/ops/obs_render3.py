@@ -24,6 +24,7 @@ import torch
 
 from metta_tpu_torch.engine.obs import EMPTY, block_table
 from metta_tpu_torch.engine.obs_mm import global_tokens_all
+from metta_tpu_torch.ops.build import check_tensor
 
 # Launches of the CUDA kernel, counted by the wrapper where it launches.
 launches = 0
@@ -91,17 +92,6 @@ def render_obs3_plain(sb, tok, counts, rc, g_count, g_tok, scan, num_tokens: int
                        torch.full_like(out, EMPTY))
 
 
-def _check(name, x, dtype, shape):
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 _lib = None
 
 
@@ -136,15 +126,13 @@ def render_obs3(sb, tok, counts, rc, g_count, g_tok, scan, num_tokens: int,
     S = scan.shape[0]
     G = g_tok.shape[2]
     T = num_tokens
-    _check("sb", sb, torch.int32, (E, H, W))
-    _check("tok", tok, torch.uint8, (E, NB, K, 2))
-    _check("counts", counts, torch.int32, (E, NB))
-    _check("rc", rc, torch.int32, (E, A, 2))
-    _check("g_count", g_count, torch.int32, (E, A))
-    _check("g_tok", g_tok, torch.uint8, (E, A, G, 3))
-    _check("scan", scan, torch.int32, (S, 2))
-    if not all(x.device == sb.device for x in (tok, counts, rc, g_count, g_tok, scan)):
-        raise ValueError("all inputs must be on one device")
+    for name, x, dtype, shape in (
+        ("sb", sb, torch.int32, (E, H, W)), ("tok", tok, torch.uint8, (E, NB, K, 2)),
+        ("counts", counts, torch.int32, (E, NB)), ("rc", rc, torch.int32, (E, A, 2)),
+        ("g_count", g_count, torch.int32, (E, A)), ("g_tok", g_tok, torch.uint8, (E, A, G, 3)),
+        ("scan", scan, torch.int32, (S, 2)),
+    ):
+        check_tensor(name, x, dtype, shape, sb.device)
     out = torch.empty((E, A, T, 3), dtype=torch.uint8, device=sb.device)
     if E == 0:
         return out

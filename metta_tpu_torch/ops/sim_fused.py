@@ -1,0 +1,237 @@
+"""The fused interaction span (kernel K2): CUDA kernel, plain version, step.
+
+Counterpart of ``metta_tpu/ops/sim_fused.py`` (the Pallas TPU kernel inside
+``build_fused_kernel``, launched by ``call_fused`` and wrapped by
+``fused_step_full``). One kernel resolves the interaction span of a batched
+step, decode to action consumption, for every env at once, byte-identical to
+the torch ops of ``engine/step_batched.py:interaction_span``.
+
+- :func:`supports_fused` is the JAX package's config gate, without the
+  TPU's 128-env block rule: the CUDA kernel takes any E.
+- :func:`fused_span` is the kernel's wrapper. A CUDA tensor launches the
+  kernel in ``csrc/sim_fused.cu`` (or raises); a CPU tensor takes
+  :func:`fused_span_plain`.
+- :func:`fused_step_full` is the whole batched step around the span.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from metta_tpu_torch.engine.compiler import ACT_CHANGE_VIBE, ACT_MOVE, ACT_NOOP
+from metta_tpu_torch.engine.state import KIND_ASSEMBLER
+from metta_tpu_torch.engine.step_batched import (
+    agent_grid_from_positions,
+    batched_step,
+    interaction_span,
+)
+from metta_tpu_torch.ops.build import check_tensor
+
+# Launches of the CUDA kernel, counted by the wrapper where it launches.
+launches = 0
+
+# The span's plain torch version: one copy, shared with step_env_batched.
+fused_span_plain = interaction_span
+
+# Tables the kernel reads, packed as int32 in this order (csrc/sim_fused.cu:Tab).
+TABLES = (
+    "action_kind", "action_arg", "action_required", "action_consumed", "move_deltas",
+    "attack_vibe_mask", "attack_consumed", "attack_defense", "attack_defense_mask",
+    "attack_armor_w", "attack_weapon_w", "attack_vibe_bonus", "vibe_matches_resource",
+    "attack_actor_delta", "attack_target_delta",
+    "transfer_vibe_mask", "transfer_required", "transfer_actor_delta", "transfer_target_delta",
+    "type_max_uses",
+    "proto_type", "proto_key", "proto_min_agents", "proto_in", "proto_out", "proto_cooldown",
+    "proto_nvibes", "proto_vibe_counts", "proto_rank", "proto_valid",
+    "uproto_key", "uproto_min_agents", "uproto_in", "uproto_out", "uproto_cooldown",
+    "uproto_nvibes", "uproto_vibe_counts",
+    "agent_lims", "loot_ids", "proto_res",
+)
+
+# Kernel inputs (csrc/sim_fused.cu:In): (state field or argument, dtype, shape key).
+_IN = (
+    ("actions", torch.int32, "EA"), ("rank", torch.int32, "EA"),
+    ("agent_r", torch.int32, "EA"), ("agent_c", torch.int32, "EA"),
+    ("agent_vibe", torch.int32, "EA"), ("agent_frozen", torch.int32, "EA"),
+    ("agent_inv", torch.int32, "EAR"), ("agent_gained", torch.int32, "EAR"),
+    ("agent_lost", torch.int32, "EAR"), ("step", torch.int32, "E"),
+    ("agent_grid", torch.int32, "EHW"), ("static_kind", torch.int32, "EHW"),
+    ("static_idx", torch.int32, "EHW"),
+    ("asm_r", torch.int32, "EN"), ("asm_c", torch.int32, "EN"),
+    ("asm_type", torch.int32, "EN"), ("asm_uses", torch.int32, "EN"),
+    ("asm_cooldown_end", torch.int32, "EN"), ("asm_cooldown_duration", torch.int32, "EN"),
+    ("asm_clipped", torch.bool, "EN"), ("asm_unclip_proto", torch.int32, "EN"),
+    ("asm_valid", torch.bool, "EN"),
+)
+
+# Kernel outputs (csrc/sim_fused.cu:Out), allocated by the wrapper.
+_OUT = (
+    ("agent_r", torch.int32, "EA"), ("agent_c", torch.int32, "EA"),
+    ("agent_vibe", torch.int32, "EA"), ("agent_frozen", torch.int32, "EA"),
+    ("agent_inv", torch.int32, "EAR"), ("agent_gained", torch.int32, "EAR"),
+    ("agent_lost", torch.int32, "EAR"),
+    ("asm_cooldown_duration", torch.int32, "EN"), ("asm_cooldown_end", torch.int32, "EN"),
+    ("asm_uses", torch.int32, "EN"), ("asm_clipped", torch.bool, "EN"),
+    ("asm_unclip_proto", torch.int32, "EN"),
+    ("success", torch.bool, "EA"), ("executed", torch.int32, "EA"),
+)
+
+
+class _Static(ctypes.Structure):
+    """csrc/sim_fused.cu:Static, field for field."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "A", "R", "V", "H", "W", "NACT", "NA", "NP", "NUP", "n_loot", "n_pres",
+        "has_attack", "has_transfer", "has_swap", "has_asm", "track_gained", "any_consumed",
+        "defense_any", "attack_freeze",
+        "act_noop", "act_move", "act_change_vibe", "kind_asm",
+    )] + [("off", ctypes.c_int * len(TABLES))]
+
+
+def supports_fused(tables) -> bool:
+    """Config gate of the fused span (``metta_tpu/ops/sim_fused.py:47-59``):
+    singleton inventory limits, no bump handlers, no partial-usage
+    assemblers, no chest-stat accounting, at most 32 agents (one warp)."""
+    return bool(
+        tables.inv_vector_ok
+        and not tables.has_bump_handlers
+        and not tables.any_allow_partial
+        and not tables.track_chest_stats
+        and tables.num_agents <= 32
+    )
+
+
+def table_pack(tables, device):
+    """(int32 tensor of every table in :data:`TABLES` order, offsets)."""
+    parts, offs, n = [], [], 0
+    for name in TABLES:
+        v = getattr(tables, name)
+        x = (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)).astype(np.int32)
+        parts.append(x.reshape(-1))
+        offs.append(n)
+        n += x.size
+    pack = torch.as_tensor(np.concatenate(parts + [np.zeros(1, np.int32)]), device=device)
+    return pack, offs
+
+
+def _statics(tables, offs):
+    st = _Static(
+        tables.num_agents, tables.num_resources, tables.num_vibes, tables.height,
+        tables.width, tables.n_actions, tables.n_assembler_slots,
+        tables.n_protocols, tables.n_unclip_protocols,
+        len(tables.loot_ids), len(tables.proto_res),
+        tables.has_attack, tables.has_transfer, tables.has_swap, tables.has_assemblers,
+        tables.track_gained, tables.any_action_consumed, tables.attack_defense_any,
+        tables.attack_freeze, ACT_NOOP, ACT_MOVE, ACT_CHANGE_VIBE, KIND_ASSEMBLER,
+    )
+    st.off[:] = offs
+    return st
+
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from metta_tpu_torch.ops.build import load_library
+
+        lib = load_library("sim_fused")
+        lib.sim_fused_launch.restype = ctypes.c_int
+        lib.sim_fused_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_Static),   # ins outs statics
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,              # tab E stream
+        ]
+        _lib = lib
+    return _lib
+
+
+def _refuse_chests(tables):
+    if tables.has_chests:
+        raise NotImplementedError(
+            "K2's chest phase is not ported (metta_tpu/ops/sim_fused.py:820-903)")
+
+
+def launch_fused_span(state, actions, rank, tables) -> dict:
+    """Launch the CUDA kernel once on the current stream: {output name:
+    tensor} in :data:`_OUT` order, the agent grid not rebuilt.
+
+    ``actions`` and ``rank`` are int32 [E, A] and every state field the
+    kernel reads has its engine dtype and shape, a contiguous layout and the
+    actions' CUDA device; anything else raises, as do chests (K2's chest
+    phase is not ported) and configs outside :func:`supports_fused`."""
+    global launches
+    _refuse_chests(tables)
+    if not supports_fused(tables):
+        raise ValueError("config outside supports_fused: the fused span cannot run it")
+    dev = actions.device
+    E, A = actions.shape
+    shapes = {"E": (E,), "EA": (E, A), "EAR": (E, A, tables.num_resources),
+              "EHW": (E, tables.height, tables.width), "EN": (E, tables.n_assembler_slots)}
+    args = {"actions": actions, "rank": rank}
+    ins = []
+    for name, dtype, shape in _IN:
+        x = args[name] if name in args else getattr(state, name)
+        check_tensor(name, x, dtype, shapes[shape], dev)
+        ins.append(x)
+    outs = [torch.empty(shapes[shape], dtype=dtype, device=dev) for _, dtype, shape in _OUT]
+    if E > 0:
+        key = (str(dev), tables.track_gained)
+        cache = tables.__dict__.setdefault("_sim_fused_pack", {})
+        if key not in cache:
+            pack, offs = table_pack(tables, dev)
+            cache[key] = (pack, _statics(tables, offs))
+        pack, st = cache[key]
+        ptrs_in = (ctypes.c_void_p * len(ins))(*[x.data_ptr() for x in ins])
+        ptrs_out = (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs])
+        with torch.cuda.device(dev):
+            err = _library().sim_fused_launch(
+                ptrs_in, ptrs_out, ctypes.byref(st), pack.data_ptr(), E,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"sim_fused kernel launch failed: CUDA error {err}")
+        launches += 1
+    return dict(zip((n for n, _, _ in _OUT), outs))
+
+
+def fused_span(state, actions, rank, tables):
+    """The interaction span (see :func:`fused_span_plain` for the contract):
+    the CUDA kernel for CUDA tensors (:func:`launch_fused_span`, then the
+    agent grid rebuilt from the new positions), the plain version for CPU
+    tensors. Chests raise on either device."""
+    _refuse_chests(tables)
+    if actions.device.type == "cpu":
+        return fused_span_plain(state, actions, rank, tables)
+    new = launch_fused_span(state, actions, rank, tables)
+    success, executed = new.pop("success"), new.pop("executed")
+    if not tables.track_gained:
+        del new["agent_gained"], new["agent_lost"]
+    state = state.replace(**new)
+    state = state.replace(agent_grid=agent_grid_from_positions(
+        tables, state.agent_r, state.agent_c))
+    return state, success, executed
+
+
+def span_mismatches(a, b):
+    """Names of the outputs where two span results (state, success,
+    executed) differ in dtype, shape or any byte."""
+    (sa, *ra), (sb, *rb) = a, b
+    pairs = [(f.name, getattr(sa, f.name), getattr(sb, f.name))
+             for f in dataclasses.fields(sa)]
+    pairs += [("success", ra[0], rb[0]), ("executed", ra[1], rb[1])]
+    return [name for name, x, y in pairs
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y)]
+
+
+def fused_step_full(state, actions, tables, perm=None, generator=None):
+    """The batched step through the fused span (``metta_tpu/ops/sim_fused.py:
+    fused_step_full``): step + 1, the rank from ``perm`` or ``generator``,
+    :func:`fused_span`, then motion stats, stat rewards and episode end.
+    Equal byte for byte to ``step_env_batched`` with the same order.
+    Returns (new_state, rewards_at_obs)."""
+    return batched_step(state, actions.to(torch.int32), tables, fused_span, perm, generator)

@@ -20,6 +20,7 @@ from metta_tpu_torch.engine.tables import Tables as PTables
 
 CONFIGS = {
     "combat": lambda m: m.make_combat(24),
+    "cooperation": lambda m: m.make_cooperation(24),
     "navigation": lambda m: m.make_navigation(4),
 }
 

@@ -2,9 +2,11 @@
 
 Each kernel against its plain torch version, on the card, at small sizes:
 K1 (``csrc/obs_render3.cu``) on rolled combat states and on a window outside
-the TPU kernel's limits, its wrapper's input checks, and a few whole env
-steps on the GPU against the CPU. This file imports no JAX, so it runs on a
-machine with a card and torch alone:
+the TPU kernel's limits; K2 (``csrc/sim_fused.cu``) on combat, cooperation
+and arena with gained/lost tracking, and at an E that no 128-env block
+divides; both wrappers' input checks; and a few whole env steps on the GPU
+against the CPU. This file imports no JAX, so it runs on a machine with a card
+and torch alone:
 
     python3 -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 """
@@ -13,9 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from metta_tpu_torch.builder.envs import make_combat
+import copy
+
+from metta_tpu_torch.builder.envs import make_arena, make_combat, make_cooperation
 from metta_tpu_torch.engine.env import MettaGridEnv
+from metta_tpu_torch.engine.step_batched import batched_step, rank_from_perm
 from metta_tpu_torch.ops import obs_render3 as k1
+from metta_tpu_torch.ops import sim_fused as k2
 
 pytestmark = pytest.mark.cuda
 E, A = 16, 24
@@ -81,3 +87,114 @@ def test_env_gpu_matches_cpu():
         outs = [env.step(acts, perm=perm) for env in envs]
         for g, c in zip(*outs):
             assert torch.equal(g.cpu(), c)
+
+
+K2_CONFIGS = {"combat": make_combat, "cooperation": make_cooperation, "arena": make_arena}
+
+
+def _k2_env(name, n_envs, gained=False):
+    """A track_stats=False env on the card with seeded inventories and vibes
+    (the attack and transfer vibes where the config has them)."""
+    cfg = K2_CONFIGS[name](A)
+    cfg.game.map_builder.seed = 1234
+    env = MettaGridEnv(cfg, num_envs=n_envs, seed=0, track_stats=False, device=_cuda())
+    if gained:
+        env.tables.track_gained = True
+    env.reset()
+    t = env.tables
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    vibes = torch.tensor([0, 3] + [int(v) for m in (t.attack_vibe_mask, t.transfer_vibe_mask)
+                                   for v in torch.nonzero(m).flatten()] * 2, device="cuda")
+    s = env.state.env
+    env._state = env.state.replace(env=s.replace(
+        agent_inv=torch.randint(0, 4, s.agent_inv.shape, generator=gen, device="cuda",
+                                dtype=torch.int32),
+        agent_vibe=vibes[torch.randint(0, len(vibes), s.agent_vibe.shape, generator=gen,
+                                       device="cuda")].to(torch.int32),
+    ))
+    return env, gen
+
+
+def _first_diffs(got, want, names):
+    """Where the named span outputs first differ, for the failure message."""
+    extra = {"success": 1, "executed": 2}
+    lines = []
+    for name in names:
+        g, w = ((got[extra[name]], want[extra[name]]) if name in extra
+                else (getattr(got[0], name), getattr(want[0], name)))
+        if g.shape != w.shape or g.dtype != w.dtype:
+            lines.append(f"{name}: kernel {g.dtype} {tuple(g.shape)} plain {w.dtype} "
+                         f"{tuple(w.shape)}")
+            continue
+        idx = torch.nonzero(g != w)[:4].tolist()
+        lines.append(f"{name}: at {idx}: kernel {g[tuple(idx[0])].item()} "
+                     f"plain {w[tuple(idx[0])].item()}")
+    return "; ".join(lines)
+
+
+@pytest.mark.parametrize("name,n_envs,gained", [
+    ("combat", E, False), ("cooperation", E, False), ("arena", E, True), ("combat", 13, False),
+], ids=["combat", "cooperation", "arena_gained", "combat_e13"])
+def test_k2_matches_plain(name, n_envs, gained):
+    env, gen = _k2_env(name, n_envs, gained)
+    t = env.tables
+    state = env.state.env
+
+    def checked(state, actions, rank, tables):
+        before = k2.launches
+        got = k2.fused_span(state, actions, rank, tables)
+        assert k2.launches == before + 1
+        want = k2.fused_span_plain(state, actions, rank, tables)
+        torch.cuda.synchronize()
+        bad = k2.span_mismatches(got, want)
+        assert bad == [], _first_diffs(got, want, bad)
+        return got
+
+    for _ in range(8):
+        moves = torch.randint(1, 5, (n_envs, A), generator=gen, device="cuda")
+        anything = torch.randint(-1, t.n_actions + 1, (n_envs, A), generator=gen, device="cuda")
+        pick = torch.rand((n_envs, A), generator=gen, device="cuda") < 0.5
+        acts = torch.where(pick, moves, anything).to(torch.int32)
+        state, _ = batched_step(state, acts, t, checked, generator=gen)
+
+
+def test_k2_wrapper_checks_inputs():
+    env, gen = _k2_env("combat", E)
+    t, s = env.tables, env.state.env
+    acts = torch.randint(0, t.n_actions, (E, A), generator=gen, device="cuda", dtype=torch.int32)
+    rank = rank_from_perm(None, E, A, gen, "cuda")
+    with pytest.raises(ValueError):
+        k2.fused_span(s, acts.long(), rank, t)
+    with pytest.raises(ValueError):
+        k2.fused_span(s, acts, rank.cpu(), t)
+    with pytest.raises(ValueError):
+        k2.fused_span(s.replace(agent_inv=s.agent_inv.transpose(1, 2).contiguous()
+                                .transpose(1, 2)), acts, rank, t)
+    chests = copy.copy(t)
+    chests.has_chests = True
+    with pytest.raises(NotImplementedError):
+        k2.fused_span(s, acts, rank, chests)
+    before = k2.launches
+    k2.fused_span(s, acts, rank, t)
+    assert k2.launches == before + 1
+
+
+def test_env_fused_gpu_matches_cpu():
+    """The track_stats=False env (the fused span: the kernel on the GPU, its
+    plain version on the CPU) on both devices, byte for byte."""
+    cfg = make_cooperation(A)
+    cfg.game.map_builder.seed = 1234
+    envs = [MettaGridEnv(cfg, num_envs=E, seed=0, track_stats=False, device=d)
+            for d in (_cuda(), "cpu")]
+    rng = np.random.default_rng(1)
+    desync = rng.integers(1, 12, E)
+    obs = [env.reset(desync_step=desync) for env in envs]
+    assert torch.equal(obs[0].cpu(), obs[1])
+    before = k2.launches
+    for _ in range(12):
+        acts = rng.integers(0, envs[1].tables.n_actions, (E, A))
+        perm = torch.as_tensor(np.stack([rng.permutation(A) for _ in range(E)]))
+        outs = [env.step(acts, perm=perm) for env in envs]
+        for g, c in zip(*outs):
+            assert torch.equal(g.cpu(), c)
+    assert k2.launches == before + 12

@@ -1,7 +1,8 @@
 """The whole slice: the port's ``MettaGridEnv`` against ``metta_tpu``'s.
 
-Combat with 24 agents, E=4, ``track_stats=True``, ``step_mode="batched"``,
-desync on and ``max_steps=12`` so auto-reset fires within the run. Each
+Combat with 24 agents, E=4, ``step_mode="batched"``, desync on and
+``max_steps=12`` so auto-reset fires within the run; ``track_stats=True``
+(the torch-ops step) and ``track_stats=False`` (the fused span's path). Each
 step's agent order is derived from the JAX state's key exactly as
 ``metta_tpu/engine/step_batched.py:149-157`` does and handed to the port as
 ``perm``; the JAX env's desync draws are handed to the port's reset.
@@ -34,28 +35,40 @@ def _cfg(make):
 
 
 @pytest.fixture(scope="module")
-def envs():
-    jenv = JaxEnv(_cfg(jax_make_combat), num_envs=E, seed=3, desync_episodes=True,
-                  track_stats=True, step_mode="batched")
-    penv = MettaGridEnv(_cfg(make_combat), num_envs=E, seed=3, desync_episodes=True,
-                        track_stats=True, device="cpu")
-    return jenv, penv
+def make_envs():
+    """(JAX env, port env) with one ``track_stats``, each pair built once."""
+    built = {}
+
+    def make(track_stats=True):
+        if track_stats not in built:
+            built[track_stats] = (
+                JaxEnv(_cfg(jax_make_combat), num_envs=E, seed=3, desync_episodes=True,
+                       track_stats=track_stats, step_mode="batched"),
+                MettaGridEnv(_cfg(make_combat), num_envs=E, seed=3, desync_episodes=True,
+                             track_stats=track_stats, device="cpu"),
+            )
+        return built[track_stats]
+    return make
+
+
+@jax.jit
+def _key_perms(keys):
+    return jax.vmap(lambda k: jax.random.permutation(jax.random.split(k, 4)[1], A))(keys)
 
 
 def _perms(vstate):
     """The agent order step_env_batched draws from each env's key."""
-    return np.asarray(jax.vmap(
-        lambda k: jax.random.permutation(jax.random.split(k, 4)[1], A)
-    )(vstate.env.key))
+    return np.asarray(_key_perms(vstate.env.key))
 
 
 def _fields(s):
     return {f.name: np.asarray(getattr(s, f.name)) for f in dataclasses.fields(s)}
 
 
-@pytest.mark.parametrize("no_reset", [False, True], ids=["auto_reset", "no_reset"])
-def test_env_byte_identical(envs, no_reset):
-    jenv, penv = envs
+@pytest.mark.parametrize("no_reset,track_stats", [(False, True), (True, True), (False, False)],
+                         ids=["auto_reset", "no_reset", "auto_reset_no_stats"])
+def test_env_byte_identical(make_envs, no_reset, track_stats):
+    jenv, penv = make_envs(track_stats)
     vstate, jobs = jenv.reset_fn(jax.random.PRNGKey(3))
     pobs = penv.reset(desync_step=np.asarray(vstate.desync_step))
     np.testing.assert_array_equal(np.asarray(jobs), pobs.numpy())
@@ -81,10 +94,10 @@ def test_env_byte_identical(envs, no_reset):
         assert resets >= E      # desync and max_steps both ended episodes
 
 
-def test_generator_drives_the_step(envs):
+def test_generator_drives_the_step(make_envs):
     """Without ``perm`` the port draws agent orders and desync steps from its
     own generator: two envs with one seed agree."""
-    _, penv = envs
+    _, penv = make_envs()
     twin = MettaGridEnv(_cfg(make_combat), num_envs=E, seed=3, desync_episodes=True,
                         track_stats=True, device="cpu")
     outs = []
