@@ -28,7 +28,28 @@ Phases (each one a hard failure):
    version's time and its bound; a short profile of where the step's device
    time goes; ``hardware_sanity`` (ore and a converted resource present in the
    inventories, as ``bench.py`` checks). Then the ``track_stats=True`` path's
-   throughput, 3 windows.
+   throughput, 3 windows;
+6. K3 (``csrc/discounted_sum.cu``) against its plain torch version
+   (``discounted_sum_plain``) at the learner's shapes, [255, 4080] (the
+   advantages of an update) and [255, 60] (the TD(λ) targets of a
+   minibatch): forward, and backward through ``autograd.grad`` against
+   autograd through the plain version, bit for bit; the wrapper refuses bad
+   inputs; times and bounds at both shapes (the kernels line gives the
+   shape that takes most of the launches, and each shape under ``shapes``);
+7. the v48 policy (``devops_runs/stable_100m``) on the GPU against the CPU at
+   float32 with TF32 off, on real arena observations, step and segment mode
+   (tolerance 1e-4), and at the bf16 default (each output within 5e-2 of its
+   largest magnitude); bf16 against f32 logged beside them;
+8. the learner's main path: ``Trainer`` on the shaped arena, 170 envs, 24
+   agents, the default ``TrainerConfig`` (bptt 256, minibatch 16,384,
+   GTD(λ), schedule-free AdamW), the v48 ViT with its ``"lstm"`` core; one
+   warm-up ``update``, two updates through ``train`` with K1/K2/K3's launch
+   counts, agent-steps/s, the rollout/learn split and peak memory; finite
+   metrics, moved parameters, ``hardware_sanity``; the env step alone and a
+   profiled learner minibatch; then K1 and K2 on the learner's own env (the
+   shaped arena at 170 envs, ``track_stats=False``, 20 steps through
+   ``step_state``) and K3 on the rollout's own data, each byte- or bit-equal
+   to its plain version.
 
 Prints a JSON line of kernels, the card's name and power limit, then as the
 last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
@@ -151,6 +172,48 @@ def k1_work(args, scan, T):
     return sum(parts.values()), ops, parts
 
 
+def checked_render(err):
+    """``render_obs3`` that also runs K1's plain version on the same inputs
+    and fails on the first byte that differs; ``err[0]`` keeps the largest
+    difference seen."""
+    from metta_tpu_torch.ops import obs_render3 as k1
+
+    def render(*args):
+        got = k1.render_obs3(*args)
+        want = k1.render_obs3_plain(*args)
+        torch.cuda.synchronize()
+        err[0] = max(err[0], int((got.int() - want.int()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 differs from its plain version in "
+                                 f"{int((got != want).sum())} bytes")
+        return got
+    return render
+
+
+def checked_span(err):
+    """``fused_span`` that also runs K2's plain version on the same inputs
+    and fails on the first output that differs; ``err[0]`` keeps the largest
+    difference seen."""
+    import dataclasses
+
+    from metta_tpu_torch.ops import sim_fused as k2
+
+    def span(state, actions, rank, tables):
+        got = k2.fused_span(state, actions, rank, tables)
+        want = k2.fused_span_plain(state, actions, rank, tables)
+        torch.cuda.synchronize()
+        bad = k2.span_mismatches(got, want)
+        pairs = [(getattr(got[0], f.name), getattr(want[0], f.name))
+                 for f in dataclasses.fields(got[0])] + list(zip(got[1:], want[1:]))
+        for x, y in pairs:
+            if x.shape == y.shape and x.numel():
+                err[0] = max(err[0], int((x.long() - y.long()).abs().max()))
+        if bad:
+            raise AssertionError(f"K2 differs from its plain version in {bad}")
+        return got
+    return span
+
+
 def phase_k1_vs_plain(res):
     """K1 against its plain version on 20 real steps at E=4096."""
     from metta_tpu_torch.engine.env import MettaGridEnv
@@ -163,23 +226,17 @@ def phase_k1_vs_plain(res):
     t = env.tables
     gen = torch.Generator(device="cuda").manual_seed(1)
     state = env.state.env
-    max_err = 0
+    err = [0]
+    render = checked_render(err)
     for i in range(20):
         acts = torch.randint(0, t.n_actions, (E_MAIN, AGENTS), generator=gen, device="cuda")
         state, rew_at_obs = step_env_batched(state, acts, t, generator=gen)
-        args = k1.prep_env3(state, t, state.executed_action, rew_at_obs)
-        got = k1.render_obs3(*args, *render_args(t))
-        want = k1.render_obs3_plain(*args, *render_args(t))
-        torch.cuda.synchronize()
-        err = int((got.int() - want.int()).abs().max())
-        max_err = max(max_err, err)
-        if err != 0 or not torch.equal(got, want):
-            raise AssertionError(f"K1 differs from its plain version at step {i}: "
-                                 f"{int((got != want).sum())} bytes")
-    tokens = (want[..., 0] != 255).sum(-1)
+        obs = render(*k1.prep_env3(state, t, state.executed_action, rew_at_obs),
+                     *render_args(t))
+    tokens = (obs[..., 0] != 255).sum(-1)
     log(f"[k1] byte-equal to the plain version on 20 steps at E={E_MAIN}; "
         f"tokens per agent mean {tokens.float().mean():.1f} max {int(tokens.max())}")
-    res["k1_max_abs_err"] = max_err
+    res["k1_max_abs_err"] = err[0]
 
 
 def seeded_env(name, n_envs, track_gained=False, seed=5):
@@ -235,27 +292,10 @@ def count_transfers(prev, new, acts, t):
 
 def phase_k2_vs_plain(res):
     """K2 against its plain version on 20 real steps of three configs."""
-    import dataclasses
-
     from metta_tpu_torch.engine.step_batched import batched_step
-    from metta_tpu_torch.ops import sim_fused as k2
 
-    max_err = 0
-
-    def checked(state, actions, rank, tables):
-        nonlocal max_err
-        got = k2.fused_span(state, actions, rank, tables)
-        want = k2.fused_span_plain(state, actions, rank, tables)
-        torch.cuda.synchronize()
-        bad = k2.span_mismatches(got, want)
-        pairs = [(getattr(got[0], f.name), getattr(want[0], f.name))
-                 for f in dataclasses.fields(got[0])] + list(zip(got[1:], want[1:]))
-        for x, y in pairs:
-            if x.shape == y.shape and x.numel():
-                max_err = max(max_err, int((x.long() - y.long()).abs().max()))
-        if bad:
-            raise AssertionError(f"K2 differs from its plain version in {bad}")
-        return got
+    err = [0]
+    checked = checked_span(err)
 
     for name, n_envs, gained in (("combat", E_MAIN, False), ("cooperation", E_MAIN, False),
                                  ("arena", 1024, True)):
@@ -274,7 +314,7 @@ def phase_k2_vs_plain(res):
             f"attacks, {created} assembler uses")
         if name == "cooperation" and transfers == 0:
             raise AssertionError("no vibe transfer fired on cooperation")
-    res["k2_max_abs_err"] = max_err
+    res["k2_max_abs_err"] = err[0]
 
 
 def phase_gpu_vs_cpu(res):
@@ -316,11 +356,12 @@ def phase_gpu_vs_cpu(res):
             f"K2 launches {k2_runs}")
 
 
-def profile_steps(run, step_ms, n=10):
-    """Where the step's device time goes: kernels by total device time over
-    a short profiled window, the torch ops that launch them by input shape,
-    and the device's busy share of the unprofiled step time ``step_ms`` (the
-    profiler slows the host, not the device)."""
+def profile_steps(run, step_ms, n=10, what="step"):
+    """Where a step's device time goes: kernels by total device time over
+    a short profiled window of ``n`` calls of ``run``, the torch ops that
+    launch them by input shape, and the device's busy share of the
+    unprofiled time of one ``what``, ``step_ms`` (the profiler slows the
+    host, not the device)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -340,11 +381,11 @@ def profile_steps(run, step_ms, n=10):
     ops = [(e.key, e.input_shapes, e.self_device_time_total, e.count) for e in events
            if e.device_type != cuda and e.self_device_time_total > 0]
     dev_step_ms = dev_us / 1e3 / n
-    log(f"[profile] {n} steps: profiled wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{dev_us / 1e3:.1f} ms = {dev_step_ms:.3f} ms a step, "
-        f"{100 * dev_step_ms / step_ms:.1f}% of the unprofiled step "
+    log(f"[profile] {n} {what}s: profiled wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{dev_us / 1e3:.1f} ms = {dev_step_ms:.3f} ms a {what}, "
+        f"{100 * dev_step_ms / step_ms:.1f}% of the unprofiled {what} "
         f"({step_ms:.3f} ms); {sum(r[2] for r in rows)} kernel launches "
-        f"= {sum(r[2] for r in rows) / n:.1f} a step")
+        f"= {sum(r[2] for r in rows) / n:.1f} a {what}")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"[profile]   {us / 1e3:8.3f} ms {100 * us / dev_us:5.1f}% x{count:5d} {key[:90]}")
     log("[profile] torch ops by input shape, self device time:")
@@ -560,6 +601,347 @@ def phase_throughput(res):
         f"windows s {[round(w, 4) for w in walls]})")
 
 
+F32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside the tensor cores
+BUNDLE = "devops_runs/stable_100m/checkpoints/stable_100m:v48"
+E_TRAIN = 170                  # the learner's envs (metta_tpu/devops/stable.py:91-107)
+
+
+def k3_work(T, B):
+    """What K3 must do over [T, B]: (bytes, operations). Reads x and decay
+    once and writes out once (4 bytes each); one multiply and one add a step."""
+    return 12 * T * B, 2 * T * B
+
+
+def phase_k3_vs_plain(res):
+    """K3 against its plain version at the learner's shapes: forward (reverse
+    in time) and backward (``autograd.grad`` through the kernel's backward
+    against autograd through the plain version), random decays in [0, 1],
+    bit for bit; the wrapper refuses bad inputs; times at both shapes."""
+    from metta_tpu_torch.ops import discounted_sum as k3
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    max_err = 0.0
+    for T, B in ((255, E_TRAIN * AGENTS), (255, 60)):
+        x = torch.randn((T, B), generator=gen, device="cuda")
+        decay = torch.rand((T, B), generator=gen, device="cuda")
+        w = torch.randn((T, B), generator=gen, device="cuda")
+        outs, grads = [], []
+        for fn in (k3.discounted_sum, k3.discounted_sum_plain):
+            xg, dg = x.clone().requires_grad_(), decay.clone().requires_grad_()
+            out = fn(xg, dg)
+            grads.append(torch.autograd.grad((out * w).sum(), (xg, dg)))
+            outs.append(out.detach())
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in
+                ((outs[0], outs[1]), (grads[0][0], grads[1][0]), (grads[0][1], grads[1][1]))]
+        max_err = max(max_err, *errs)
+        if max(errs) != 0 or not torch.isfinite(outs[0]).all():
+            raise AssertionError(f"K3 differs from its plain version at [{T}, {B}]: "
+                                 f"out {errs[0]}, gx {errs[1]}, gdecay {errs[2]}")
+        log(f"[k3] [{T}, {B}]: forward and backward (gx, gdecay) bit-equal to the plain "
+            f"version (max abs err 0); |out| max {float(outs[0].abs().max()):.3f}")
+    x = torch.zeros((255, 60), device="cuda")
+    for bad in ((x, torch.zeros((255, 61), device="cuda")), (x.t(), x.t()),
+                (x, x.double()), (x.cpu(), x.cpu())):
+        try:
+            k3.launch_discounted_sum(*bad)
+        except ValueError:
+            continue
+        raise AssertionError("K3's wrapper took an input it must refuse")
+    res["k3_max_abs_err"] = max_err
+
+    times = {}
+    before = k3.launches
+    for T, B in ((255, E_TRAIN * AGENTS), (255, 60)):
+        x = torch.randn((T, B), generator=gen, device="cuda")
+        decay = torch.rand((T, B), generator=gen, device="cuda")
+        fwd = cuda_time_ms(lambda: k3.launch_discounted_sum(x, decay), 50)
+        bwd = cuda_time_ms(lambda: k3.launch_discounted_sum(x, decay, forward_in_time=True), 50)
+        host = cuda_time_ms(lambda: k3.launch_discounted_sum(x, decay), 50, queue_ahead=False)
+        plain = cuda_time_ms(lambda: k3.discounted_sum_plain(x, decay), 5)
+        nbytes, ops = k3_work(T, B)
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+        times[(T, B)] = dict(ms=fwd, bwd_ms=bwd, plain_ms=plain,
+                             bound_ms=max(bytes_ms, ops_ms),
+                             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        log(f"[k3] [{T}, {B}]: forward {fwd:.4f} ms, backward {bwd:.4f} ms a launch on the "
+            f"device ({host:.4f} ms a call at the wrapper's host pace), plain {plain:.4f} ms, "
+            f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s; "
+            f"{ops / 1e6:.2f} M float32 ops at 67 T/s = {ops_ms:.5f} ms)")
+    k3.launches = before                               # timing launches do not count
+    res["k3"] = times
+
+
+def load_v48():
+    from pathlib import Path
+
+    from metta_tpu_torch.rl.checkpoint import load_policy_bundle
+
+    return load_policy_bundle(Path(__file__).resolve().parent / BUNDLE)
+
+
+def train_cfg():
+    from metta_tpu_torch.builder.envs import make_arena_basic_easy_shaped
+
+    cfg = make_arena_basic_easy_shaped(AGENTS)
+    cfg.game.map_builder.seed = SEED
+    return cfg
+
+
+def phase_policy(res):
+    """The v48 policy on the GPU against the CPU at float32 (TF32 off) on real
+    arena observations, step and segment mode; the bf16 default beside it."""
+    import dataclasses
+
+    from metta_tpu_torch.engine.env import MettaGridEnv
+
+    sd, cfg, _ = load_v48()
+    env = MettaGridEnv(train_cfg(), num_envs=8, seed=0, track_stats=False, device="cuda")
+    env.reset()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for _ in range(12):
+        obs, *_ = env.step(torch.randint(0, env.compiled.n_actions, (8, AGENTS),
+                                         generator=gen, device="cuda"))
+    obs = obs.reshape(-1, *obs.shape[2:])                                  # [192, 200, 3]
+    seq = obs.reshape(4, -1, *obs.shape[1:])                               # [4, 48, 200, 3]
+    norms = env.compiled.feature_normalizations
+    outs = {}
+    for name, dtype, dev in (("f32 cpu", "float32", "cpu"), ("f32 gpu", "float32", "cuda"),
+                             ("bf16 cpu", "bfloat16", "cpu"), ("bf16 gpu", "bfloat16", "cuda")):
+        pol = dataclasses.replace(cfg, compute_dtype=dtype).make(env.compiled.n_actions, norms)
+        pol.load_state_dict(sd)
+        pol = pol.to(dev)
+        with torch.no_grad():
+            step = pol(obs.to(dev), pol.initial_state(obs.shape[0], dev))
+            segment = pol(seq.to(dev), pol.initial_state(seq.shape[1], dev))
+        outs[name] = [t.float().cpu() for t in (*step[:3], *step[3], *segment[:3])]
+    tol, tol_bf16 = 1e-4, 5e-2
+    err = max(float((a - b).abs().max()) for a, b in zip(outs["f32 gpu"], outs["f32 cpu"]))
+    # bf16: each output's largest difference over its largest magnitude (the
+    # CPU tests hold the port's bf16 policy to flax's within the same 5e-2)
+    err_bf16 = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(outs["bf16 gpu"], outs["bf16 cpu"]))
+    gap_bf16 = max(float((a - b).abs().max()) for a, b in zip(outs["bf16 gpu"], outs["f32 gpu"]))
+    finite = all(torch.isfinite(t).all() for o in outs.values() for t in o)
+    log(f"[policy] v48 on {obs.shape[0]} arena obs, step and segment [4, 48]: f32 GPU vs CPU "
+        f"max abs diff {err:.3e} (tolerance {tol:g}, TF32 off); bf16 GPU vs bf16 CPU "
+        f"{err_bf16:.3e} of each output's largest magnitude (tolerance {tol_bf16:g}); "
+        f"bf16 GPU vs f32 GPU max abs diff {gap_bf16:.3e} (logged); "
+        f"logits std {float(outs['f32 gpu'][0].std()):.3f}")
+    if err > tol or err_bf16 > tol_bf16 or not finite:
+        raise AssertionError(f"policy on the GPU differs from the CPU by {err} (f32), "
+                             f"{err_bf16} (bf16)")
+    res["policy_gpu_cpu_err"] = err
+
+
+def phase_train(res):
+    """The learner's main path: ``Trainer`` on the shaped arena, E=170, 24
+    agents, default ``TrainerConfig``, the v48 ViT (``"lstm"`` core, bf16)
+    from its weights; one warm-up ``update``, then two updates through
+    ``train``; K1/K2/K3 launches, agent-steps/s, the rollout/learn split,
+    peak memory; finite metrics, changed parameters, ``hardware_sanity``."""
+    from metta_tpu_torch.ops import discounted_sum as k3
+    from metta_tpu_torch.ops import obs_render3 as k1
+    from metta_tpu_torch.ops import sim_fused as k2
+    from metta_tpu_torch.rl.config import TrainerConfig
+    from metta_tpu_torch.rl.trainer import Trainer
+
+    sd, cfg, _ = load_v48()
+    tr = Trainer(train_cfg(), TrainerConfig(num_envs=E_TRAIN), cfg, device="cuda")
+    log(f"[train] E={tr.E} A={tr.A} B={tr.B} T={tr.T}: {tr.rows_per_mb} rows a minibatch, "
+        f"{tr.n_minibatches} minibatches, {tr.layout.size} parameters, "
+        f"compute {cfg.compute_dtype}, core {cfg.core}")
+    ts = tr.init_state(params=sd)
+    p0 = ts.params.clone()
+    t0 = time.perf_counter()
+    ts, _ = tr.update(ts)
+    torch.cuda.synchronize()
+    log(f"[train] warm-up update {time.perf_counter() - t0:.2f} s")
+
+    split = {"rollout": [], "learn": []}               # seconds of each timed update
+
+    def timed(attr, name):
+        fn = getattr(tr, attr)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            split[name].append(time.perf_counter() - a)
+            split[name + " out"] = out
+            return out
+        return run
+
+    tr._rollout = timed("_rollout", "rollout")
+    tr._learn_phase = timed("_learn_phase", "learn")
+    logs = []
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k2.launches = k3.launches = 0        # the training path's run starts
+    t0 = time.perf_counter()
+    ts = tr.train(total_timesteps=2 * tr.B * tr.T, ts=ts, log_fn=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"k1": k1.launches, "k2": k2.launches, "k3": k3.launches}  # ... and ends
+    del tr._rollout, tr._learn_phase
+    peak = torch.cuda.max_memory_allocated()
+    for k, want in (("k1", 2 * tr.T), ("k2", 2 * tr.T), ("k3", 2 * (1 + 2 * tr.n_minibatches))):
+        if launches[k] != want:
+            raise AssertionError(f"{k.upper()} launched {launches[k]} times in two updates, "
+                                 f"expected {want}")
+    sps = 2 * tr.B * tr.T / wall
+    log(f"[train] two updates in {wall:.2f} s: {sps:.1f} agent-steps/s "
+        f"(train's own sps {logs[-1]['sps']:.1f}); rollout s "
+        f"{[round(r, 3) for r in split['rollout']]}, learn s "
+        f"{[round(r, 3) for r in split['learn']]}; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches per update K1 {launches['k1'] / 2:.0f}, "
+        f"K2 {launches['k2'] / 2:.0f}, K3 {launches['k3'] / 2:.0f}")
+    for m in logs:
+        log("[train] metrics " + json.dumps({k: round(v, 6) for k, v in m.items()}))
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"metrics not finite: {bad}")
+    moved = float((ts.params - p0).abs().max())
+    if not moved > 0:
+        raise AssertionError("parameters did not change")
+    log(f"[train] parameters moved by up to {moved:.3e} over three updates")
+    res["train_sps"] = sps
+
+    # where the time goes: the env alone at E=170, and one learner minibatch
+    # (loss, backward, optimizer) under the profiler
+    env, vstate = tr.env, split["rollout out"][0].vstate
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def env_steps(n):
+        nonlocal vstate
+        for _ in range(n):
+            acts = torch.randint(0, tr.env.compiled.n_actions, (tr.E, tr.A), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+            vstate = env.step_state(vstate, acts)[0]
+    env_ms = 1e3 * statistics.median(timed_windows(env_steps, 3, 20)) / 20
+    rollout_ms = 1e3 * statistics.median(split["rollout"]) / tr.T
+    log(f"[train] rollout {rollout_ms:.3f} ms a step, of which the env step alone "
+        f"{env_ms:.3f} ms (median of 3 windows of 20 steps) and the policy step, "
+        f"sampling and trajectory writes about {rollout_ms - env_ms:.3f} ms")
+    traj = split["rollout out"][1]
+    rows = torch.arange(tr.rows_per_mb, device="cuda")
+    mb = {k: getattr(traj, k).index_select(1, rows)
+          for k in ("obs", "actions", "logprob", "value", "reward", "done")}
+    mb["advantages"] = torch.zeros_like(mb["value"])
+    hp = tr.default_hp()
+
+    def minibatches(n):
+        for _ in range(n):
+            p = ts.params.detach().requires_grad_()
+            loss, _ = tr._loss_fn(p, mb, hp)
+            (g,) = torch.autograd.grad(loss, p)
+            tr.tx.update(g, ts.opt_state, ts.params)
+    minibatches(1)
+    profile_steps(minibatches, 1e3 * statistics.median(split["learn"]) / tr.n_minibatches,
+                  n=2, what="minibatch")
+
+    inv = ts.vstate.env.agent_inv.sum(dim=(0, 1)).cpu().numpy()
+    names = tr.env.compiled.resource_names
+    by_name = {n: int(inv[i]) for i, n in enumerate(names) if inv[i]}
+    ore_ok = any(n.startswith("ore") and v > 0 for n, v in by_name.items())
+    conv_ok = any((n.startswith("battery") or n in ("heart", "armor", "laser")) and v > 0
+                  for n, v in by_name.items())
+    log(f"[sanity] training env hardware_sanity {'ok' if ore_ok and conv_ok else 'FAIL'}: "
+        f"inventories {by_name}")
+    if not (ore_ok and conv_ok):
+        raise AssertionError("conversion chain dead in the training env")
+
+    learner_kernels_vs_plain(tr, ts.vstate, split["rollout out"][1], res)
+
+    # K3 runs at two shapes: once an update over the whole batch, twice a
+    # minibatch (forward and backward) over its rows; the entry's own numbers
+    # are those of the shape that takes most of the launches
+    big = 2
+    shapes = [dict(shape=[tr.T - 1, n], launches=count, **res["k3"][(tr.T - 1, n)])
+              for n, count in ((tr.B, big), (tr.rows_per_mb, launches["k3"] - big))]
+    head = max(shapes, key=lambda e: e["launches"])
+    res["kernels"].append({
+        "name": "discounted_sum",
+        "route": "cuda",
+        "source": "metta_tpu_torch/csrc/discounted_sum.cu",
+        "replaces": "metta_tpu/ops/discounted_sum.py:32",
+        "launches": launches["k3"],
+        "max_abs_err": res.get("k3_max_abs_err"),
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": None,
+        "shape": head["shape"],
+        "shapes": shapes,
+    })
+
+
+def learner_kernels_vs_plain(tr, vstate, traj, res):
+    """K1 and K2 on the learner's own env (the shaped arena, E=170,
+    ``track_stats=False``), stepped 20 times from the trainer's last state
+    through ``step_state`` as the rollout steps it, and K3 on the rollout's
+    own values, rewards and done flags (the advantages, [255, 4080], and one
+    minibatch's TD(λ) targets with their gradient, [255, 60]): each kernel
+    against its plain version on the same inputs, bit for bit."""
+    from metta_tpu_torch.engine import env as env_mod
+    from metta_tpu_torch.engine.step_batched import batched_step
+    from metta_tpu_torch.ops import discounted_sum as k3
+    from metta_tpu_torch.ops.sim_fused import fused_step_full
+    from metta_tpu_torch.rl import advantage
+
+    env = tr.env
+    if env._sim_step is not fused_step_full or tr.cfg.track_env_stats:
+        raise AssertionError("the learner's env does not step through the fused span")
+    e1, e2 = [0], [0]
+    span = checked_span(e2)
+    render = env_mod.render_obs3
+    env._sim_step = lambda s, a, t, perm=None, generator=None: batched_step(
+        s, a.to(torch.int32), t, span, perm, generator)
+    env_mod.render_obs3 = checked_render(e1)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    ended = 0
+    try:
+        for _ in range(20):
+            acts = torch.randint(0, env.compiled.n_actions, (tr.E, tr.A), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+            vstate, _, _, done, trunc = env.step_state(vstate, acts)
+            ended += int((done | trunc).sum())
+    finally:
+        env._sim_step, env_mod.render_obs3 = fused_step_full, render
+    res["k1_max_abs_err"] = max(res.get("k1_max_abs_err", 0), e1[0])
+    res["k2_max_abs_err"] = max(res.get("k2_max_abs_err", 0), e2[0])
+
+    a = tr.cfg.advantage
+    cols = torch.arange(tr.rows_per_mb, device="cuda")
+    v, r, d = traj.value, traj.reward, traj.done
+    w = torch.randn((tr.T, tr.rows_per_mb), generator=gen, device="cuda")
+    outs = []
+    try:
+        for fn in (k3.discounted_sum, k3.discounted_sum_plain):
+            advantage.discounted_sum = fn
+            adv = advantage.puff_advantage(v, r, d, torch.ones_like(v), a.gamma, a.gae_lambda,
+                                           a.vtrace_rho_clip, a.vtrace_c_clip)
+            vg = v.index_select(1, cols).requires_grad_()
+            dl = advantage.compute_delta_lambda(vg, r.index_select(1, cols),
+                                                d.index_select(1, cols), a.gamma, a.gae_lambda)
+            (g,) = torch.autograd.grad((dl * w).sum(), vg)
+            outs.append((adv, dl.detach(), g))
+    finally:
+        advantage.discounted_sum = k3.discounted_sum
+    torch.cuda.synchronize()
+    errs = [float((x - y).abs().max()) for x, y in zip(*outs)]
+    res["k3_max_abs_err"] = max(res.get("k3_max_abs_err", 0.0), *errs)
+    if max(errs) != 0:
+        raise AssertionError(f"K3 differs from its plain version on the learner's data: "
+                             f"advantages {errs[0]}, TD(λ) targets {errs[1]}, gradient {errs[2]}")
+    log(f"[learner-check] K1 and K2 byte-equal to their plain versions on 20 steps of the "
+        f"learner's env (shaped arena, E={tr.E}, track_stats=False, {ended} episode ends); "
+        f"K3 bit-equal on the rollout's advantages [{tr.T - 1}, {tr.B}] and on a minibatch's "
+        f"TD(λ) targets and their gradient [{tr.T - 1}, {tr.rows_per_mb}] "
+        f"(|adv| max {float(outs[0][0].abs().max()):.3f})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -576,7 +958,7 @@ def main() -> int:
     res, failed = {}, []
     t_start = time.time()
     for phase in (phase_build, phase_k1_vs_plain, phase_k2_vs_plain, phase_gpu_vs_cpu,
-                  phase_throughput):
+                  phase_throughput, phase_k3_vs_plain, phase_policy, phase_train):
         t0 = time.time()
         try:
             phase(res)

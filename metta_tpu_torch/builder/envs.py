@@ -2,8 +2,8 @@
 
 Parity: reference ``mettagrid/builder/envs.py`` (``make_arena``,
 ``make_navigation``). Trimmed to the configs the port runs: navigation, the
-combat map with the arena it is built on, and cooperation (combat plus heart
-transfers).
+combat map with the arena it is built on, cooperation (combat plus heart
+transfers) and the shaped arena of the learner.
 """
 
 from __future__ import annotations
@@ -152,3 +152,28 @@ def make_cooperation(num_agents: int = 24) -> MettaGridConfig:
         ],
     )
     return cfg
+
+
+def make_arena_basic_easy_shaped(num_agents: int = 24) -> MettaGridConfig:
+    """The shaped arena the learner trains on: the port's copy of
+    ``recipes/arena_basic_easy_shaped.py:21 mettagrid()`` (reference
+    ``recipes/prod/arena_basic_easy_shaped.py``), the arena with shaped
+    inventory rewards."""
+    arena_env = make_arena(num_agents=num_agents)
+    arena_env.game.agent.rewards.inventory = {
+        "heart": 1,
+        "ore_red": 0.1,
+        "battery_red": 0.8,
+        "laser": 0.5,
+        "armor": 0.5,
+        "blueprint": 0.5,
+    }
+    arena_env.game.agent.rewards.inventory_max = {
+        "heart": 100,
+        "ore_red": 1,
+        "battery_red": 1,
+        "laser": 1,
+        "armor": 1,
+        "blueprint": 1,
+    }
+    return arena_env

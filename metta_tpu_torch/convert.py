@@ -1,10 +1,11 @@
-"""Carry engine state and compiled tables across from numpy.
+"""Carry engine state, compiled tables and policy parameters across.
 
 The port imports nothing of the JAX package, so state crosses as a dict of
 numpy arrays, one per field, each with a leading env axis: for a JAX state
 ``s``, ``{f.name: np.asarray(getattr(s, f.name)) for f in
 dataclasses.fields(s)}``. Fields the port does not keep (the JAX per-env PRNG
-``key``) are dropped.
+``key``) are dropped. Policy parameters cross as flax parameter trees of
+numpy arrays (:func:`flax_to_state_dict`, :func:`state_dict_to_flax`).
 """
 
 from __future__ import annotations
@@ -65,3 +66,122 @@ def tables_from_compiled(compiled, init=None, track_stats: bool = True, device="
 
         attach_static_block_grid(tables, make_initial_state(tables, init))
     return tables
+
+
+# ---------------------------------------------------------------------------
+# Policy parameters: flax trees <-> the port's state_dict
+# ---------------------------------------------------------------------------
+
+_LSTM_GATES = ("i", "f", "g", "o")
+_ATTN_IN = ("query", "key", "value")
+
+
+def flatten_tree(tree: dict, prefix: str = "") -> dict:
+    """Nested dict -> {"a/b/c": leaf}."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, name + "/"))
+        else:
+            out[name] = v
+    return out
+
+
+def unflatten_tree(flat: dict) -> dict:
+    """{"a/b/c": leaf} -> nested dict."""
+    tree: dict = {}
+    for name, v in flat.items():
+        *path, leaf = name.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def flax_to_state_dict(params) -> dict:
+    """A flax ``ViTPolicy`` parameter tree -> the port's ``state_dict``
+    (torch float32 tensors on the CPU).
+
+    ``params`` is the nested dict ``policy.init`` returns (with or without
+    its ``params`` level) or a bundle's flat ``params/...`` names. Layouts:
+    ``Dense`` kernels [in, out] become weights [out, in]; the attention
+    projections ``DenseGeneral`` (D, H, hd) and (H, hd, D) become [H·hd, D]
+    and [D, H·hd]; the LSTM's input kernels ``ii/if/ig/io`` (no bias) stack
+    into ``weight_ih`` [4H, in] and its hidden kernels ``hi/hf/hg/ho`` with
+    their biases into ``weight_hh`` [4H, H] and ``bias`` [4H]."""
+    if not any("/" in k for k in params):
+        params = flatten_tree(params)
+    flat = {k.removeprefix("params/"): np.asarray(v, dtype=np.float32)
+            for k, v in params.items()}
+    sd = {}
+    lstm = {}
+    for name, v in flat.items():
+        parts = name.split("/")
+        if parts[0] == "core" and parts[1] == "lstm":
+            lstm[(parts[2], parts[3])] = v
+            continue
+        if parts[-1] == "embedding":
+            sd["token_embed.embedding"] = v
+            continue
+        module, leaf = ".".join(parts[:-1]), parts[-1]
+        if leaf == "kernel":
+            if parts[-2] in _ATTN_IN:                  # (D, H, hd) -> [H*hd, D]
+                v = v.reshape(v.shape[0], -1).T
+            elif parts[-2] == "out" and v.ndim == 3:   # (H, hd, D) -> [D, H*hd]
+                v = v.reshape(-1, v.shape[-1]).T
+            else:
+                v = v.T
+            sd[f"{module}.weight"] = v
+        elif leaf == "bias":
+            sd[f"{module}.bias"] = v.reshape(-1)
+        else:                                          # latents, LayerNorm scale
+            sd[f"{module}.{leaf}"] = v
+    if lstm:
+        sd["core.weight_ih"] = np.concatenate([lstm[(f"i{g}", "kernel")] for g in _LSTM_GATES],
+                                              axis=1).T
+        sd["core.weight_hh"] = np.concatenate([lstm[(f"h{g}", "kernel")] for g in _LSTM_GATES],
+                                              axis=1).T
+        sd["core.bias"] = np.concatenate([lstm[(f"h{g}", "bias")] for g in _LSTM_GATES])
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
+
+
+def state_dict_to_flax(sd: dict, num_heads: int) -> dict:
+    """The port's ``state_dict`` -> the flax parameter tree
+    ``{"params": {...}}`` of numpy float32 arrays (the inverse of
+    :func:`flax_to_state_dict`; ``num_heads`` shapes the attention
+    kernels)."""
+    flat = {}
+    for name, t in sd.items():
+        v = t.detach().float().cpu().numpy()
+        parts = name.split(".")
+        if parts[0] == "core":
+            H = v.shape[0] // 4
+            for gi, g in enumerate(_LSTM_GATES):
+                rows = v[gi * H:(gi + 1) * H]
+                if parts[1] == "weight_ih":
+                    flat[f"core/lstm/i{g}/kernel"] = rows.T
+                elif parts[1] == "weight_hh":
+                    flat[f"core/lstm/h{g}/kernel"] = rows.T
+                else:
+                    flat[f"core/lstm/h{g}/bias"] = rows
+            continue
+        if parts[-1] == "embedding":
+            flat["token_embed/Embed_0/embedding"] = v
+            continue
+        module, leaf = "/".join(parts[:-1]), parts[-1]
+        attn = len(parts) >= 3 and parts[-3].startswith("xattn_")
+        if leaf == "weight":
+            if attn and parts[-2] in _ATTN_IN:
+                v = v.T.reshape(v.shape[1], num_heads, -1)
+            elif attn and parts[-2] == "out":
+                v = v.T.reshape(num_heads, -1, v.shape[0])
+            else:
+                v = v.T
+            flat[f"{module}/kernel"] = v
+        elif leaf == "bias" and attn and parts[-2] in _ATTN_IN:
+            flat[f"{module}/bias"] = v.reshape(num_heads, -1)
+        else:
+            flat[f"{module}/{leaf}"] = v
+    return {"params": unflatten_tree({k: np.ascontiguousarray(v) for k, v in flat.items()})}

@@ -4,9 +4,11 @@ Each kernel against its plain torch version, on the card, at small sizes:
 K1 (``csrc/obs_render3.cu``) on rolled combat states and on a window outside
 the TPU kernel's limits; K2 (``csrc/sim_fused.cu``) on combat, cooperation
 and arena with gained/lost tracking, and at an E that no 128-env block
-divides; both wrappers' input checks; and a few whole env steps on the GPU
-against the CPU. This file imports no JAX, so it runs on a machine with a card
-and torch alone:
+divides; K3 (``csrc/discounted_sum.cu``) forward and backward at odd shapes
+and the advantages through it against the CPU; the wrappers' input checks;
+a few whole env steps on the GPU against the CPU; and a tiny trainer update
+through all three kernels. This file imports no JAX, so it runs on a machine
+with a card and torch alone:
 
     python3 -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 """
@@ -20,6 +22,7 @@ import copy
 from metta_tpu_torch.builder.envs import make_arena, make_combat, make_cooperation
 from metta_tpu_torch.engine.env import MettaGridEnv
 from metta_tpu_torch.engine.step_batched import batched_step, rank_from_perm
+from metta_tpu_torch.ops import discounted_sum as k3
 from metta_tpu_torch.ops import obs_render3 as k1
 from metta_tpu_torch.ops import sim_fused as k2
 
@@ -198,3 +201,78 @@ def test_env_fused_gpu_matches_cpu():
         for g, c in zip(*outs):
             assert torch.equal(g.cpu(), c)
     assert k2.launches == before + 12
+
+
+@pytest.mark.parametrize("T,B", [(1, 1), (17, 5), (33, 1000), (255, 60)])
+def test_k3_matches_plain(T, B):
+    """K3 forward and backward (gx and gdecay) bit-equal to autograd through
+    the plain version; T off the prefetch window, B off the block width."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(T * B)
+    x = torch.randn((T, B), generator=gen, device=dev)
+    decay = torch.rand((T, B), generator=gen, device=dev)
+    w = torch.randn((T, B), generator=gen, device=dev)
+    res = []
+    for fn in (k3.discounted_sum, k3.discounted_sum_plain):
+        xg, dg = x.clone().requires_grad_(), decay.clone().requires_grad_()
+        before = k3.launches
+        out = fn(xg, dg)
+        res.append((out, *torch.autograd.grad((out * w).sum(), (xg, dg)),
+                    k3.launches - before))
+    torch.cuda.synchronize()
+    (out, gx, gd, n), (out_p, gx_p, gd_p, n_p) = res
+    assert (n, n_p) == (2, 0)
+    assert torch.equal(out, out_p) and torch.equal(gx, gx_p) and torch.equal(gd, gd_p)
+
+
+def test_k3_wrapper_checks_inputs():
+    x = torch.zeros((9, 4), device=_cuda())
+    for bad in ((x, torch.zeros((9, 5), device="cuda")), (x.t(), x.t()), (x, x.half()),
+                (x, x.cpu())):
+        with pytest.raises(ValueError):
+            k3.launch_discounted_sum(*bad)
+    with pytest.raises(ValueError):
+        k3.launch_discounted_sum(x, x, forward_in_time=False, y=x)
+
+
+def test_advantages_gpu_match_cpu():
+    """puff_advantage and the TD(λ) targets with their gradient on the GPU
+    (through K3) against the CPU (the plain version): same float ops."""
+    from metta_tpu_torch.rl import advantage as adv
+
+    rng = np.random.default_rng(3)
+    v, r, imp = (torch.from_numpy(rng.normal(size=(40, 70)).astype(np.float32)) for _ in range(3))
+    d = torch.from_numpy((rng.random((40, 70)) < 0.1).astype(np.float32))
+    out = []
+    for dev in ("cpu", _cuda()):
+        vg = v.to(dev).requires_grad_()
+        a = adv.puff_advantage(vg.detach(), r.to(dev), d.to(dev), imp.to(dev).abs(), 0.99, 0.95)
+        dl = adv.compute_delta_lambda(vg, r.to(dev), d.to(dev), 0.99, 0.95)
+        (g,) = torch.autograd.grad((dl * r.to(dev)).sum(), vg)
+        out.append([t.detach().cpu() for t in (a, dl, g)])
+    for c, g in zip(*out):
+        torch.testing.assert_close(g, c, rtol=1e-6, atol=1e-6)
+
+
+def test_trainer_update_on_gpu():
+    """A tiny ``Trainer.update`` on the card: the rollout goes through K1 and
+    K2, the advantages and the GTD(λ) critic through K3, forward and backward."""
+    from metta_tpu_torch.models.vit import ViTConfig
+    from metta_tpu_torch.rl.config import TrainerConfig
+    from metta_tpu_torch.rl.trainer import Trainer
+
+    cfg = make_arena(A)
+    cfg.game.map_builder.seed = 5
+    tr = Trainer(cfg, TrainerConfig(num_envs=2, bptt_horizon=16, minibatch_size=96),
+                 ViTConfig(latent_dim=32, actor_hidden=32, critic_hidden=32, max_tokens=32,
+                           core_num_latents=4, core_num_heads=2, core="lstm"),
+                 device=_cuda())
+    ts = tr.init_state()
+    p0 = ts.params.clone()
+    counts = (k1.launches, k2.launches, k3.launches)
+    ts, metrics = tr.update(ts)
+    torch.cuda.synchronize()
+    runs = [n - c for n, c in zip((k1.launches, k2.launches, k3.launches), counts)]
+    assert runs == [tr.T, tr.T, 1 + 2 * tr.n_minibatches]
+    assert all(torch.isfinite(m) for m in metrics.values())
+    assert float((ts.params - p0).abs().max()) > 0

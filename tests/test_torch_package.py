@@ -1,8 +1,9 @@
 """Import hygiene of the port and of ``chip_smoke.py``.
 
 ``metta_tpu_torch`` imports ``torch``, numpy, pydantic and the standard
-library only: never ``jax``, ``flax``, ``optax`` or anything of the JAX
-package ``metta_tpu``, not even its numpy-only modules. ``chip_smoke.py``
+library only: never ``jax``, ``flax``, ``optax``, ``safetensors`` (the port
+parses bundles itself) or anything of the JAX package ``metta_tpu``, not
+even its numpy-only modules. ``chip_smoke.py``
 drives the port on a GPU and must refuse to run (nonzero exit, no result
 line) where there is none.
 """
@@ -14,7 +15,7 @@ import subprocess
 import sys
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "metta_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "safetensors", "metta_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -35,7 +36,9 @@ def test_port_imports_nothing_of_jax():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "metta_tpu_torch.engine.env" in res["modules"]
-    assert "metta_tpu_torch.ops.obs_render3" in res["modules"]
+    for name in ("ops.obs_render3", "ops.sim_fused", "ops.discounted_sum", "rl.advantage",
+                 "rl.trainer", "rl.optim", "rl.checkpoint", "models.vit", "models.components"):
+        assert f"metta_tpu_torch.{name}" in res["modules"], name
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, bad
 
