@@ -6,9 +6,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phases (each one a hard failure):
 
-1. build every CUDA kernel of the port from ``metta_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together) and print the card's name and
-   power limit;
+1. build every CUDA kernel of the port from ``metta_tpu_torch/csrc`` (K1-K4,
+   one ``nvcc`` per source, all started together) and print the card's name
+   and power limit;
 2. K1 (``csrc/obs_render3.cu``) against its plain torch version
    (``render_obs3_plain``) at the shapes of the ``track_stats=True`` path: the
    combat map, 24 agents, 4096 envs, 20 random steps, byte-equal;
@@ -17,11 +17,20 @@ Phases (each one a hard failure):
    steps from seeded inventories and vibes: combat and cooperation at 4096
    envs (the count of vibe transfers is printed and must be positive), arena
    at 1024 envs with gained/lost tracking forced on;
-4. the port on the GPU against the port on the CPU: 8 envs, 30 steps, the
+4. K4 (``csrc/obs_render2.cu``) against its plain torch version
+   (``render_obs2_plain``) on every step of three runs of 20 steps: the
+   curriculum env (``MultiTaskEnv`` over the arena curriculum's 16 tasks,
+   E=170, the learner's env), ``make_arena(30)`` (149 block ids) at E=4096,
+   and combat at E=4096, where K1 renders the same inputs too; K4's time per
+   launch and its bound at each shape, K1's time beside it on combat;
+5. the port on the GPU against the port on the CPU: 8 envs, 30 steps, the
    same agent orders and desync draws, state and obs byte-identical, for
    combat with ``track_stats=True`` (the torch-ops step) and combat and
-   cooperation with ``track_stats=False`` (the fused span);
-5. throughput of the main path, ``MettaGridEnv.step`` on combat at 4096 envs
+   cooperation with ``track_stats=False`` (the fused span); then the
+   multi-task env over the curriculum's 16 tasks (E=10, K4), 24 steps with
+   auto-reset, task resampling from the same draws, a ``set_weights`` and a
+   ``set_task``;
+6. throughput of the env path, ``MettaGridEnv.step`` on combat at 4096 envs
    with ``track_stats=False`` as ``bench.py`` runs it: 100 steps after 10
    warm-up steps, obs consumed every step, median of 5 windows; K2's and K1's
    launch counts in that run; each kernel's time per launch, its plain
@@ -29,27 +38,36 @@ Phases (each one a hard failure):
    time goes; ``hardware_sanity`` (ore and a converted resource present in the
    inventories, as ``bench.py`` checks). Then the ``track_stats=True`` path's
    throughput, 3 windows;
-6. K3 (``csrc/discounted_sum.cu``) against its plain torch version
+7. K3 (``csrc/discounted_sum.cu``) against its plain torch version
    (``discounted_sum_plain``) at the learner's shapes, [255, 4080] (the
    advantages of an update) and [255, 60] (the TD(λ) targets of a
    minibatch): forward, and backward through ``autograd.grad`` against
    autograd through the plain version, bit for bit; the wrapper refuses bad
    inputs; times and bounds at both shapes (the kernels line gives the
    shape that takes most of the launches, and each shape under ``shapes``);
-7. the v48 policy (``devops_runs/stable_100m``) on the GPU against the CPU at
+8. the v48 policy (``devops_runs/stable_100m``) on the GPU against the CPU at
    float32 with TF32 off, on real arena observations, step and segment mode
    (tolerance 1e-4), and at the bf16 default (each output within 5e-2 of its
    largest magnitude); bf16 against f32 logged beside them;
-8. the learner's main path: ``Trainer`` on the shaped arena, 170 envs, 24
+9. the single-task learner: ``Trainer`` on the shaped arena, 170 envs, 24
    agents, the default ``TrainerConfig`` (bptt 256, minibatch 16,384,
    GTD(λ), schedule-free AdamW), the v48 ViT with its ``"lstm"`` core; one
-   warm-up ``update``, two updates through ``train`` with K1/K2/K3's launch
-   counts, agent-steps/s, the rollout/learn split and peak memory; finite
-   metrics, moved parameters, ``hardware_sanity``; the env step alone and a
-   profiled learner minibatch; then K1 and K2 on the learner's own env (the
-   shaped arena at 170 envs, ``track_stats=False``, 20 steps through
+   warm-up ``update``, one update through ``train`` with K4/K2/K3's launch
+   counts (E=170 fails ``pick_eps``, so K4 renders, as in the JAX env),
+   agent-steps/s, the rollout/learn split and peak memory; finite metrics,
+   moved parameters, ``hardware_sanity``; the env step alone and a profiled
+   learner minibatch; then K4 and K2 on the learner's own env (the shaped
+   arena at 170 envs, ``track_stats=False``, 20 steps through
    ``step_state``) and K3 on the rollout's own data, each byte- or bit-equal
-   to its plain version.
+   to its plain version;
+10. this slice's main path, the arena curriculum learner at ``arena_100m``'s
+   shape: ``Trainer`` over the curriculum's 16 tasks (``MultiTaskEnv``,
+   E=170, ``track_env_stats=True``), the v48 ViT; one warm-up update, two
+   timed updates with a curriculum sync between them (per-task scores,
+   ``update_task_performance``, ``set_task`` on an evicted slot,
+   ``set_weights``); K4 = 256, K3 = 137, K1 = K2 = 0 launches an update,
+   agent-steps/s, the rollout/learn split, peak memory, each task's score,
+   finite metrics, moved parameters, the multi-task env step alone.
 
 Prints a JSON line of kernels, the card's name and power limit, then as the
 last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
@@ -190,6 +208,46 @@ def checked_render(err):
     return render
 
 
+def checked_render2(err):
+    """``render_obs2`` that also runs K4's plain version on the same inputs
+    and fails on the first byte that differs; ``err[0]`` keeps the largest
+    difference seen."""
+    from metta_tpu_torch.ops import obs_render2 as k4
+
+    def render(*args):
+        got = k4.render_obs2(*args)
+        want = k4.render_obs2_plain(*args)
+        torch.cuda.synchronize()
+        err[0] = max(err[0], int((got.int() - want.int()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 differs from its plain version in "
+                                 f"{int((got != want).sum())} bytes")
+        return got
+    return render
+
+
+def render2_args(tables):
+    from metta_tpu_torch.ops.obs_render2 import rank_table
+
+    return (rank_table(tables.obs_scan, tables.obs_width), tables.num_obs_tokens,
+            tables.obs_height, tables.obs_width)
+
+
+def curriculum_setup(max_steps=None):
+    """The arena curriculum over the shaped arena with the map seeded (1234,
+    so that every device builds the same tasks): (curriculum, its 16 active
+    tasks, their configs)."""
+    from metta_tpu_torch.builder.envs import make_arena_basic_easy_shaped, make_curriculum
+
+    base = make_arena_basic_easy_shaped(AGENTS)
+    base.game.map_builder.seed = SEED
+    if max_steps is not None:
+        base.game.max_steps = max_steps
+    curriculum = make_curriculum(base)
+    tasks = curriculum.active_tasks()
+    return curriculum, tasks, [t.get_env_cfg() for t in tasks]
+
+
 def checked_span(err):
     """``fused_span`` that also runs K2's plain version on the same inputs
     and fails on the first output that differs; ``err[0]`` keeps the largest
@@ -317,6 +375,105 @@ def phase_k2_vs_plain(res):
     res["k2_max_abs_err"] = err[0]
 
 
+def phase_k4_vs_plain(res):
+    """K4 against its plain version on every step of three runs: the
+    curriculum env (16 stacked tasks, E=170, the learner's env), make_arena(30)
+    (149 block ids) and combat at E=4096, where K1 renders the same inputs
+    too; then K4's time per launch at each shape, K1's beside it on combat."""
+    from metta_tpu_torch.builder.envs import make_arena
+    from metta_tpu_torch.engine import env as env_mod
+    from metta_tpu_torch.engine.env import MettaGridEnv
+    from metta_tpu_torch.engine.tables import tables_at
+    from metta_tpu_torch.engine.taskset import MultiTaskEnv
+    from metta_tpu_torch.ops import obs_render2 as k4
+    from metta_tpu_torch.ops import obs_render3 as k1
+
+    err = [0]
+    render2 = env_mod.render_obs2
+    env_mod.render_obs2 = checked_render2(err)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shapes = {}
+
+    def time_k4(name, args, t, k1_too=False):
+        r2 = render2_args(t)
+        before, before1 = k4.launches, k1.launches
+        entry = dict(
+            ms=cuda_time_ms(lambda: k4.render_obs2(*args, *r2), 50),
+            host_ms=cuda_time_ms(lambda: k4.render_obs2(*args, *r2), 50, queue_ahead=False),
+            plain_ms=cuda_time_ms(lambda: k4.render_obs2_plain(*args, *r2), 3),
+        )
+        if k1_too:
+            entry["k1_ms"] = cuda_time_ms(lambda: k1.render_obs3(*args, *render_args(t)), 50)
+        k4.launches, k1.launches = before, before1     # timing launches do not count
+        nbytes, ops, parts = k1_work(args, t.obs_scan, t.num_obs_tokens)
+        entry["bound_ms"], entry["bound_by"], _ = bound_of(nbytes, ops)
+        entry["mb"] = nbytes / 1e6
+        shapes[name] = entry
+        log(f"[k4] {name}: {entry['ms']:.4f} ms per launch on the device "
+            f"({entry['host_ms']:.4f} ms at the wrapper's host pace), plain "
+            f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB "
+            f"at 3.35 TB/s, {entry['bound_by']}), {100 * entry['bound_ms'] / entry['ms']:.1f}% "
+            f"of the bound" + (f"; K1 on the same inputs {entry['k1_ms']:.4f} ms"
+                               if k1_too else ""))
+
+    try:
+        _, _, cfgs = curriculum_setup()
+        env = MultiTaskEnv(cfgs, num_envs=E_TRAIN, seed=0, track_stats=True, device="cuda")
+        env.reset()
+        n0 = k4.launches
+        for _ in range(20):
+            env.step(torch.randint(0, env.compiled.n_actions, (E_TRAIN, AGENTS), generator=gen,
+                                   device="cuda"))
+        if k4.launches - n0 != 20:
+            raise AssertionError(f"the curriculum env rendered {k4.launches - n0} times "
+                                 f"through K4 in 20 steps")
+        st = env.state
+        log(f"[k4] curriculum env E={E_TRAIN}, {len(cfgs)} tasks "
+            f"(leaves per env: {sorted(env.tsdata.tables.varying)}): byte-equal to the plain "
+            f"version on 20 steps; tasks in use {sorted(set(st.task_id.tolist()))}")
+        s = st.env
+        args = k1.prep_env3(s, tables_at(env.tsdata.tables, st.task_id), s.executed_action,
+                            s.reward)
+        time_k4(f"curriculum E={E_TRAIN}", args, env.tables)
+        del env, st, s, args
+
+        cfg = make_arena(30)
+        cfg.game.map_builder.seed = SEED
+        env = MettaGridEnv(cfg, num_envs=E_MAIN, seed=0, track_stats=True, device="cuda")
+        t = env.tables
+        nb = 1 + t.num_agents + t.n_object_types + t.n_assembler_slots + t.n_chest_slots
+        env.reset()
+        n0 = k4.launches
+        for _ in range(20):
+            env.step(torch.randint(0, t.n_actions, (E_MAIN, 30), generator=gen, device="cuda"))
+        if k4.launches - n0 != 20:
+            raise AssertionError("make_arena(30) did not render through K4")
+        log(f"[k4] make_arena(30) {t.height}x{t.width}, {nb} block ids, E={E_MAIN}: "
+            f"byte-equal to the plain version on 20 steps")
+        s = env.state.env
+        time_k4(f"arena30 E={E_MAIN}", k1.prep_env3(s, t, s.executed_action, s.reward), t)
+        del env, s
+
+        env = MettaGridEnv(make_cfg(), num_envs=E_MAIN, seed=0, track_stats=False, device="cuda")
+        t = env.tables
+        env.reset()
+        check = checked_render2(err)
+        for _ in range(20):
+            obs, *_ = env.step(torch.randint(0, t.n_actions, (E_MAIN, AGENTS), generator=gen,
+                                             device="cuda"))
+            s = env.state.env
+            args = k1.prep_env3(s, t, s.executed_action, s.reward)
+            if not torch.equal(check(*args, *render2_args(t)), k1.render_obs3(*args,
+                                                                            *render_args(t))):
+                raise AssertionError("K4 and K1 differ on combat")
+        log(f"[k4] combat E={E_MAIN}: K4 byte-equal to its plain version and to K1 on 20 steps")
+        time_k4(f"combat E={E_MAIN}", args, t, k1_too=True)
+    finally:
+        env_mod.render_obs2 = render2
+    res["k4_max_abs_err"] = err[0]
+    res["k4_shapes"] = shapes
+
+
 def phase_gpu_vs_cpu(res):
     """The port on the GPU against the port on the CPU, byte for byte."""
     from metta_tpu_torch.convert import state_to_numpy
@@ -354,6 +511,60 @@ def phase_gpu_vs_cpu(res):
         log(f"[gpu-vs-cpu] {name} track_stats={track_stats}: state and obs byte-identical "
             f"over {steps} steps at E={E}; {ended} episode ends (auto-reset); "
             f"K2 launches {k2_runs}")
+    multitask_gpu_vs_cpu()
+
+
+def multitask_gpu_vs_cpu(E=10, steps=24):
+    """The multi-task env over the curriculum's 16 tasks (``track_stats`` on,
+    episodes of 9 steps, desync on; E=10 fails ``pick_eps``, so K4 renders)
+    on the GPU against the CPU, with the same task ids, desync steps, agent
+    orders and task draws, a ``set_weights`` and a ``set_task`` mid-run."""
+    from metta_tpu_torch.convert import state_to_numpy
+    from metta_tpu_torch.engine.taskset import MultiTaskEnv
+    from metta_tpu_torch.ops import obs_render2 as k4
+
+    _, _, cfgs = curriculum_setup(max_steps=9)
+    K = len(cfgs)
+    envs = [MultiTaskEnv(cfgs, num_envs=E, seed=0, desync_episodes=True, track_stats=True,
+                         device=d) for d in ("cuda", "cpu")]
+    rng = np.random.default_rng(8)
+    tid, desync = rng.integers(0, K, E), rng.integers(1, 9, E)
+    obs = [env.reset(task_id=tid, desync_step=desync) for env in envs]
+    if not np.array_equal(*obs):
+        raise AssertionError("multi-task reset observations differ between GPU and CPU")
+    ended, seen, k4_before = 0, set(tid.tolist()), k4.launches
+    for i in range(steps):
+        if i == 8:
+            w = rng.uniform(0.1, 1.0, K)
+            for env in envs:
+                env.set_weights(w)
+        if i == 12:
+            for env in envs:
+                env.set_task(3, cfgs[5].model_copy(deep=True))
+        acts = rng.integers(0, envs[1].compiled.n_actions, (E, AGENTS))
+        perm = torch.as_tensor(np.stack([rng.permutation(AGENTS) for _ in range(E)]))
+        draws = rng.integers(0, K, E)
+        outs = [env.step(acts, perm=perm, task_draws=draws) for env in envs]
+        for field, g, c in zip(("obs", "reward", "done", "truncated"), *outs):
+            if not np.array_equal(g, c):
+                raise AssertionError(f"multi-task step {i}: {field} differs between GPU and CPU")
+        sg, sc = (state_to_numpy(env.state.env) for env in envs)
+        for field in sc:
+            if not np.array_equal(sg[field], sc[field]):
+                raise AssertionError(f"multi-task step {i}: state field {field} differs")
+        for field in ("task_id", "last_episode_task", "episodes_done", "desync_step"):
+            if not torch.equal(getattr(envs[0].state, field).cpu(), getattr(envs[1].state, field)):
+                raise AssertionError(f"multi-task step {i}: {field} differs")
+        ended += int((outs[1][2] | outs[1][3]).sum())
+        seen |= set(envs[1].state.task_id.tolist())
+    if k4.launches - k4_before != steps:
+        raise AssertionError(f"K4 launched {k4.launches - k4_before} times in {steps} steps")
+    if ended < E:
+        raise AssertionError(f"only {ended} episodes ended")
+    log(f"[gpu-vs-cpu] multi-task curriculum env, {K} tasks, track_stats=True: state and obs "
+        f"byte-identical over {steps} steps at E={E}; {ended} episode ends with task "
+        f"resampling ({len(seen)} tasks used), set_weights and set_task mid-run; "
+        f"K4 launches {k4.launches - k4_before}")
 
 
 def profile_steps(run, step_ms, n=10, what="step"):
@@ -735,12 +946,14 @@ def phase_policy(res):
 
 
 def phase_train(res):
-    """The learner's main path: ``Trainer`` on the shaped arena, E=170, 24
+    """The single-task learner: ``Trainer`` on the shaped arena, E=170, 24
     agents, default ``TrainerConfig``, the v48 ViT (``"lstm"`` core, bf16)
-    from its weights; one warm-up ``update``, then two updates through
-    ``train``; K1/K2/K3 launches, agent-steps/s, the rollout/learn split,
-    peak memory; finite metrics, changed parameters, ``hardware_sanity``."""
+    from its weights; one warm-up ``update``, then one update through
+    ``train``; K4 (E=170 fails ``pick_eps``, so K4 renders, as in the JAX
+    env), K2 and K3 launches, agent-steps/s, the rollout/learn split, peak
+    memory; finite metrics, changed parameters, ``hardware_sanity``."""
     from metta_tpu_torch.ops import discounted_sum as k3
+    from metta_tpu_torch.ops import obs_render2 as k4
     from metta_tpu_torch.ops import obs_render3 as k1
     from metta_tpu_torch.ops import sim_fused as k2
     from metta_tpu_torch.rl.config import TrainerConfig
@@ -777,25 +990,26 @@ def phase_train(res):
     tr._learn_phase = timed("_learn_phase", "learn")
     logs = []
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = k2.launches = k3.launches = 0        # the training path's run starts
+    k1.launches = k2.launches = k3.launches = k4.launches = 0  # the training path's run starts
     t0 = time.perf_counter()
-    ts = tr.train(total_timesteps=2 * tr.B * tr.T, ts=ts, log_fn=logs.append)
+    ts = tr.train(total_timesteps=tr.B * tr.T, ts=ts, log_fn=logs.append)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"k1": k1.launches, "k2": k2.launches, "k3": k3.launches}  # ... and ends
+    launches = {"k1": k1.launches, "k2": k2.launches, "k3": k3.launches,
+                "k4": k4.launches}                     # ... and ends
     del tr._rollout, tr._learn_phase
     peak = torch.cuda.max_memory_allocated()
-    for k, want in (("k1", 2 * tr.T), ("k2", 2 * tr.T), ("k3", 2 * (1 + 2 * tr.n_minibatches))):
+    for k, want in (("k1", 0), ("k4", tr.T), ("k2", tr.T), ("k3", 1 + 2 * tr.n_minibatches)):
         if launches[k] != want:
-            raise AssertionError(f"{k.upper()} launched {launches[k]} times in two updates, "
+            raise AssertionError(f"{k.upper()} launched {launches[k]} times in one update, "
                                  f"expected {want}")
-    sps = 2 * tr.B * tr.T / wall
-    log(f"[train] two updates in {wall:.2f} s: {sps:.1f} agent-steps/s "
+    sps = tr.B * tr.T / wall
+    log(f"[train] one update in {wall:.2f} s: {sps:.1f} agent-steps/s "
         f"(train's own sps {logs[-1]['sps']:.1f}); rollout s "
         f"{[round(r, 3) for r in split['rollout']]}, learn s "
         f"{[round(r, 3) for r in split['learn']]}; peak memory "
-        f"{peak / 2**30:.2f} GiB; launches per update K1 {launches['k1'] / 2:.0f}, "
-        f"K2 {launches['k2'] / 2:.0f}, K3 {launches['k3'] / 2:.0f}")
+        f"{peak / 2**30:.2f} GiB; launches per update K4 {launches['k4']}, K1 "
+        f"{launches['k1']}, K2 {launches['k2']}, K3 {launches['k3']}")
     for m in logs:
         log("[train] metrics " + json.dumps({k: round(v, 6) for k, v in m.items()}))
         bad = [k for k, v in m.items() if not np.isfinite(v)]
@@ -804,7 +1018,7 @@ def phase_train(res):
     moved = float((ts.params - p0).abs().max())
     if not moved > 0:
         raise AssertionError("parameters did not change")
-    log(f"[train] parameters moved by up to {moved:.3e} over three updates")
+    log(f"[train] parameters moved by up to {moved:.3e} over two updates")
     res["train_sps"] = sps
 
     # where the time goes: the env alone at E=170, and one learner minibatch
@@ -853,32 +1067,10 @@ def phase_train(res):
 
     learner_kernels_vs_plain(tr, ts.vstate, split["rollout out"][1], res)
 
-    # K3 runs at two shapes: once an update over the whole batch, twice a
-    # minibatch (forward and backward) over its rows; the entry's own numbers
-    # are those of the shape that takes most of the launches
-    big = 2
-    shapes = [dict(shape=[tr.T - 1, n], launches=count, **res["k3"][(tr.T - 1, n)])
-              for n, count in ((tr.B, big), (tr.rows_per_mb, launches["k3"] - big))]
-    head = max(shapes, key=lambda e: e["launches"])
-    res["kernels"].append({
-        "name": "discounted_sum",
-        "route": "cuda",
-        "source": "metta_tpu_torch/csrc/discounted_sum.cu",
-        "replaces": "metta_tpu/ops/discounted_sum.py:32",
-        "launches": launches["k3"],
-        "max_abs_err": res.get("k3_max_abs_err"),
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": None,
-        "shape": head["shape"],
-        "shapes": shapes,
-    })
 
 
 def learner_kernels_vs_plain(tr, vstate, traj, res):
-    """K1 and K2 on the learner's own env (the shaped arena, E=170,
+    """K4 and K2 on the learner's own env (the shaped arena, E=170,
     ``track_stats=False``), stepped 20 times from the trainer's last state
     through ``step_state`` as the rollout steps it, and K3 on the rollout's
     own values, rewards and done flags (the advantages, [255, 4080], and one
@@ -895,10 +1087,10 @@ def learner_kernels_vs_plain(tr, vstate, traj, res):
         raise AssertionError("the learner's env does not step through the fused span")
     e1, e2 = [0], [0]
     span = checked_span(e2)
-    render = env_mod.render_obs3
+    render = env_mod.render_obs2
     env._sim_step = lambda s, a, t, perm=None, generator=None: batched_step(
         s, a.to(torch.int32), t, span, perm, generator)
-    env_mod.render_obs3 = checked_render(e1)
+    env_mod.render_obs2 = checked_render2(e1)
     gen = torch.Generator(device="cuda").manual_seed(11)
     ended = 0
     try:
@@ -908,8 +1100,8 @@ def learner_kernels_vs_plain(tr, vstate, traj, res):
             vstate, _, _, done, trunc = env.step_state(vstate, acts)
             ended += int((done | trunc).sum())
     finally:
-        env._sim_step, env_mod.render_obs3 = fused_step_full, render
-    res["k1_max_abs_err"] = max(res.get("k1_max_abs_err", 0), e1[0])
+        env._sim_step, env_mod.render_obs2 = fused_step_full, render
+    res["k4_max_abs_err"] = max(res.get("k4_max_abs_err", 0), e1[0])
     res["k2_max_abs_err"] = max(res.get("k2_max_abs_err", 0), e2[0])
 
     a = tr.cfg.advantage
@@ -935,11 +1127,192 @@ def learner_kernels_vs_plain(tr, vstate, traj, res):
     if max(errs) != 0:
         raise AssertionError(f"K3 differs from its plain version on the learner's data: "
                              f"advantages {errs[0]}, TD(λ) targets {errs[1]}, gradient {errs[2]}")
-    log(f"[learner-check] K1 and K2 byte-equal to their plain versions on 20 steps of the "
+    log(f"[learner-check] K4 and K2 byte-equal to their plain versions on 20 steps of the "
         f"learner's env (shaped arena, E={tr.E}, track_stats=False, {ended} episode ends); "
         f"K3 bit-equal on the rollout's advantages [{tr.T - 1}, {tr.B}] and on a minibatch's "
         f"TD(λ) targets and their gradient [{tr.T - 1}, {tr.rows_per_mb}] "
         f"(|adv| max {float(outs[0][0].abs().max()):.3f})")
+
+
+def curriculum_sync(curriculum, env, slots, vstate):
+    """The curriculum between two updates, as ``metta_tpu/tools/train.py:
+    225-250`` drives it: each slot's score (the mean per-step reward of the
+    envs' last finished episodes of that task) to ``update_task_performance``,
+    evicted slots refilled by ``set_task``, the weights by ``set_weights``.
+    One task is spawned first, so that the pool overflows and the
+    curriculum's own rule evicts one (its pool never grows by itself).
+    Returns {task id: score}."""
+    ep_len = vstate.episode_len.cpu().numpy()
+    ep_task = vstate.last_episode_task.cpu().numpy()
+    ep_rew = vstate.last_episode_reward.mean(1).cpu().numpy()
+    curriculum._spawn_task()
+    scores = {}
+    for k, t in enumerate(slots):
+        m = (ep_task == k) & (ep_len > 0)
+        if m.any():
+            scores[t.task_id] = float((ep_rew[m] / np.maximum(ep_len[m], 1)).mean())
+            curriculum.update_task_performance(t.task_id, scores[t.task_id])
+    live = {t.task_id: t for t in curriculum.active_tasks()}
+    in_slots = {t.task_id for t in slots}
+    fresh_pool = [t for tid, t in live.items() if tid not in in_slots]
+    for k, t in enumerate(slots):
+        if t.task_id not in live and fresh_pool:
+            new_t = fresh_pool.pop()
+            env.set_task(k, new_t.get_env_cfg())
+            log(f"[curriculum] slot {k}: task {t.task_id} evicted, task {new_t.task_id} in "
+                f"its place ({new_t.get_slice_values()})")
+            slots[k] = new_t
+    env.set_weights(curriculum.task_weights([t.task_id for t in slots]))
+    return scores
+
+
+def phase_curriculum(res):
+    """This slice's main path, the arena curriculum learner at
+    ``arena_100m``'s shape: ``Trainer`` over the curriculum's 16 tasks
+    (``MultiTaskEnv``, E=170, 24 agents, ``track_env_stats=True``, the
+    default ``TrainerConfig``: bptt 256, minibatch 16,384, GTD(λ),
+    schedule-free AdamW), the v48 ViT (``"lstm"`` core, bf16) from its
+    weights; one warm-up update, then two timed updates with a curriculum
+    sync between them. K4 = 256 and K3 = 137 launches an update, K1 = K2 = 0;
+    agent-steps/s, the rollout/learn split, peak memory, each task's score;
+    finite metrics, moved parameters; the env step alone and its profile."""
+    from metta_tpu_torch.engine.taskset import MultiTaskEnv
+    from metta_tpu_torch.ops import discounted_sum as k3
+    from metta_tpu_torch.ops import obs_render2 as k4
+    from metta_tpu_torch.ops import obs_render3 as k1
+    from metta_tpu_torch.ops import sim_fused as k2
+    from metta_tpu_torch.rl.config import TrainerConfig
+    from metta_tpu_torch.rl.trainer import Trainer
+
+    sd, cfg, _ = load_v48()
+    curriculum, tasks, cfgs = curriculum_setup()
+    tr = Trainer(None, TrainerConfig(num_envs=E_TRAIN, track_env_stats=True), cfg,
+                 device="cuda", task_cfgs=cfgs)
+    if not isinstance(tr.env, MultiTaskEnv):
+        raise AssertionError("the curriculum trainer does not step a MultiTaskEnv")
+    slots = list(tasks)
+    tr.env.set_weights(curriculum.task_weights([t.task_id for t in slots]))
+    log(f"[curriculum] E={tr.E} A={tr.A} B={tr.B} T={tr.T}, {len(slots)} tasks "
+        f"(leaves read per env: {sorted(tr.env.tsdata.tables.varying)}), "
+        f"{tr.n_minibatches} minibatches of {tr.rows_per_mb} rows")
+    ts = tr.init_state(params=sd)
+    p0 = ts.params.clone()
+    t0 = time.perf_counter()
+    ts, _ = tr.update(ts)
+    torch.cuda.synchronize()
+    log(f"[curriculum] warm-up update {time.perf_counter() - t0:.2f} s")
+
+    split = {"rollout": [], "learn": []}
+    rollout, learn = tr._rollout, tr._learn_phase
+
+    def timed(fn, name):
+        def run(*args):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            split[name].append(time.perf_counter() - a)
+            return out
+        return run
+
+    tr._rollout, tr._learn_phase = timed(rollout, "rollout"), timed(learn, "learn")
+    torch.cuda.reset_peak_memory_stats()
+    walls, metrics, scores = [], [], {}
+    k1.launches = k2.launches = k3.launches = k4.launches = 0   # the main path's run starts
+    for i in range(2):
+        if i == 1:
+            a = time.perf_counter()
+            scores = curriculum_sync(curriculum, tr.env, slots, ts.vstate)
+            sync_s = time.perf_counter() - a
+        a = time.perf_counter()
+        ts, m = tr.update(ts)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - a)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = {"k1": k1.launches, "k2": k2.launches, "k3": k3.launches,
+                "k4": k4.launches}                     # ... and ends
+    tr._rollout, tr._learn_phase = rollout, learn
+    peak = torch.cuda.max_memory_allocated()
+    for k, want in (("k4", 2 * tr.T), ("k3", 2 * (1 + 2 * tr.n_minibatches)), ("k1", 0),
+                    ("k2", 0)):
+        if launches[k] != want:
+            raise AssertionError(f"{k.upper()} launched {launches[k]} times in two updates, "
+                                 f"expected {want}")
+    sps = 2 * tr.B * tr.T / sum(walls)
+    log(f"[curriculum] two updates in {sum(walls):.2f} s ({[round(w, 3) for w in walls]}): "
+        f"{sps:.1f} agent-steps/s; rollout s {[round(r, 3) for r in split['rollout']]}, "
+        f"learn s {[round(r, 3) for r in split['learn']]}; curriculum sync {sync_s:.3f} s; "
+        f"peak memory {peak / 2**30:.2f} GiB; launches per update K4 {launches['k4'] / 2:.0f}, "
+        f"K3 {launches['k3'] / 2:.0f}, K1 {launches['k1']}, K2 {launches['k2']}")
+    log(f"[curriculum] task scores after the first update ({len(scores)} of {len(slots)} "
+        f"tasks had a finished episode): "
+        + json.dumps({str(k): round(v, 6) for k, v in scores.items()}))
+    log(f"[curriculum] weights {[round(w, 4) for w in tr.env.tsdata.weights.tolist()]}; "
+        f"episodes finished {int(ts.vstate.episodes_done.sum())}; tasks in use "
+        f"{len(set(ts.vstate.task_id.tolist()))}")
+    for m in metrics:
+        log("[curriculum] metrics " + json.dumps({k: round(v, 6) for k, v in m.items()}))
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"metrics not finite: {bad}")
+    moved = float((ts.params - p0).abs().max())
+    if not moved > 0:
+        raise AssertionError("parameters did not change")
+    log(f"[curriculum] parameters moved by up to {moved:.3e} over three updates")
+    res["curriculum_sps"] = sps
+
+    # where the time goes: the multi-task env step alone, and its profile
+    env, vstate = tr.env, ts.vstate
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def env_steps(n):
+        nonlocal vstate
+        for _ in range(n):
+            acts = torch.randint(0, env.compiled.n_actions, (tr.E, tr.A), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+            vstate = env.step_state(vstate, acts)[0]
+    env_ms = 1e3 * statistics.median(timed_windows(env_steps, 3, 20)) / 20
+    rollout_ms = 1e3 * statistics.median(split["rollout"]) / tr.T
+    log(f"[curriculum] rollout {rollout_ms:.3f} ms a step, of which the env step alone "
+        f"{env_ms:.3f} ms (median of 3 windows of 20 steps) and the policy step, "
+        f"sampling and trajectory writes about {rollout_ms - env_ms:.3f} ms")
+    profile_steps(env_steps, env_ms, n=5, what="multi-task env step")
+
+    k3_shapes = [dict(shape=[tr.T - 1, n], launches=count, **res["k3"][(tr.T - 1, n)])
+                 for n, count in ((tr.B, 2), (tr.rows_per_mb, launches["k3"] - 2))]
+    head = max(k3_shapes, key=lambda e: e["launches"])
+    k4_shapes = [dict(shape=name, **{k: v for k, v in e.items()})
+                 for name, e in res["k4_shapes"].items()]
+    main4 = res["k4_shapes"][f"curriculum E={E_TRAIN}"]
+    res["kernels"] += [{
+        "name": "discounted_sum",
+        "route": "cuda",
+        "source": "metta_tpu_torch/csrc/discounted_sum.cu",
+        "replaces": "metta_tpu/ops/discounted_sum.py:32",
+        "launches": launches["k3"],
+        "max_abs_err": res.get("k3_max_abs_err"),
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": None,
+        "shape": head["shape"],
+        "shapes": k3_shapes,
+    }, {
+        "name": "obs_render2",
+        "route": "cuda",
+        "source": "metta_tpu_torch/csrc/obs_render2.cu",
+        "replaces": "metta_tpu/ops/obs_render2.py:48",
+        "launches": launches["k4"],
+        "max_abs_err": res.get("k4_max_abs_err"),
+        "ms": main4["ms"],
+        "plain_ms": main4["plain_ms"],
+        "bound_ms": main4["bound_ms"],
+        "bound_by": main4["bound_by"],
+        "library_ms": None,
+        "shape": f"curriculum E={E_TRAIN}",
+        "shapes": k4_shapes,
+    }]
 
 
 def main() -> int:
@@ -957,8 +1330,9 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     res, failed = {}, []
     t_start = time.time()
-    for phase in (phase_build, phase_k1_vs_plain, phase_k2_vs_plain, phase_gpu_vs_cpu,
-                  phase_throughput, phase_k3_vs_plain, phase_policy, phase_train):
+    for phase in (phase_build, phase_k1_vs_plain, phase_k2_vs_plain, phase_k4_vs_plain,
+                  phase_gpu_vs_cpu, phase_throughput, phase_k3_vs_plain, phase_policy,
+                  phase_train, phase_curriculum):
         t0 = time.time()
         try:
             phase(res)

@@ -3,7 +3,7 @@
 Parity: reference ``mettagrid/builder/envs.py`` (``make_arena``,
 ``make_navigation``). Trimmed to the configs the port runs: navigation, the
 combat map with the arena it is built on, cooperation (combat plus heart
-transfers) and the shaped arena of the learner.
+transfers), the shaped arena of the learner and its curriculum.
 """
 
 from __future__ import annotations
@@ -177,3 +177,25 @@ def make_arena_basic_easy_shaped(num_agents: int = 24) -> MettaGridConfig:
         "blueprint": 1,
     }
     return arena_env
+
+
+def make_curriculum(arena_env: Optional[MettaGridConfig] = None):
+    """The arena curriculum the learner trains on: the port's copy of
+    ``recipes/arena_basic_easy_shaped.py:42 make_curriculum`` (reference
+    ``recipes/prod/arena_basic_easy_shaped.py``), buckets of shaped reward
+    weights, reward caps and attack's laser cost over the shaped arena, 16
+    active tasks chosen by bidirectional learning progress."""
+    from metta_tpu_torch.cogworks.curriculum import LearningProgressConfig, bucketed
+
+    arena_env = arena_env or make_arena_basic_easy_shaped()
+    tasks = bucketed(arena_env)
+    for item in ["ore_red", "battery_red", "laser", "armor"]:
+        tasks.add_bucket(f"game.agent.rewards.inventory.{item}", [0, 0.1, 0.5, 0.9, 1.0])
+        tasks.add_bucket(f"game.agent.rewards.inventory_max.{item}", [1, 2])
+    tasks.add_bucket("game.actions.attack.consumed_resources.laser", [1, 100])
+    return tasks.to_curriculum(
+        algorithm_config=LearningProgressConfig(
+            use_bidirectional=True, ema_timescale=0.001, exploration_bonus=0.1,
+            max_memory_tasks=1000, max_slice_axes=5,
+        )
+    )

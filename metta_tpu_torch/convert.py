@@ -4,7 +4,8 @@ The port imports nothing of the JAX package, so state crosses as a dict of
 numpy arrays, one per field, each with a leading env axis: for a JAX state
 ``s``, ``{f.name: np.asarray(getattr(s, f.name)) for f in
 dataclasses.fields(s)}``. Fields the port does not keep (the JAX per-env PRNG
-``key``) are dropped. Policy parameters cross as flax parameter trees of
+``key``) are dropped. A task set crosses as its compiled configs and numpy
+leaves (:func:`task_set_from_numpy`). Policy parameters cross as flax parameter trees of
 numpy arrays (:func:`flax_to_state_dict`, :func:`state_dict_to_flax`).
 """
 
@@ -66,6 +67,35 @@ def tables_from_compiled(compiled, init=None, track_stats: bool = True, device="
 
         attach_static_block_grid(tables, make_initial_state(tables, init))
     return tables
+
+
+def task_set_from_numpy(compiled_list, leaves: dict, template: dict, obs1, weights,
+                        track_stats: bool = True, device="cpu"):
+    """A task set's ``TaskSetData`` from numpy: the compiled config of each
+    task (the port's or the JAX package's, for the statics), the stacked
+    table leaves {name: [K, ...]} (each task's tables take their rows, the
+    static block grid ``obs_static_bg`` included), the stacked reset
+    template {field: [K, ...]}, the initial obs [K, A, T, 3] and the
+    weights [K]. Leaves the JAX package does not keep (the port's derived
+    ones) are derived here; any leaf given must equal what the port derives."""
+    from metta_tpu_torch.engine.taskset import TaskSetData
+    from metta_tpu_torch.engine.tables import stack_tables
+
+    per_task = []
+    for k, compiled in enumerate(compiled_list):
+        t = tables_from_compiled(compiled, track_stats=track_stats, device=device)
+        t.obs_static_bg = torch.as_tensor(np.array(leaves["obs_static_bg"][k]), device=device)
+        t.array_names += ("obs_static_bg",)
+        for n in t.array_names:
+            if n in leaves and not np.array_equal(getattr(t, n).cpu().numpy(), leaves[n][k]):
+                raise ValueError(f"task {k}: leaf {n} differs from the port's")
+        per_task.append(t)
+    return TaskSetData(
+        tables=stack_tables(per_task),
+        template=_env_from_numpy(template, device),
+        obs1=torch.as_tensor(np.array(obs1), device=device),
+        weights=torch.as_tensor(np.array(weights, np.float32), device=device),
+    )
 
 
 # ---------------------------------------------------------------------------

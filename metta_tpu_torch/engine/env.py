@@ -3,11 +3,13 @@
 Counterpart of ``metta_tpu/engine/env.py:MettaGridEnv`` for
 ``step_mode="batched"``. The batch is a real leading dimension of every
 state tensor. A step is the batched sim step, the obs prep in torch ops, and
-the token render (the CUDA kernel of ``csrc/obs_render3.cu`` on a GPU, its
-plain version on the CPU). The sim step's interaction span is the fused
-kernel of ``csrc/sim_fused.cu`` wherever ``supports_fused`` holds (on a GPU;
-its plain version on the CPU), as in the JAX env; elsewhere, as with
-``track_stats=True``, it is the torch-ops step.
+the token render (a CUDA kernel on a GPU, its plain version on the CPU):
+K1, ``csrc/obs_render3.cu``, where the JAX package's ``supports_v3`` holds
+for the config and E, else K4, ``csrc/obs_render2.cu``, as the JAX env picks
+its v3 or v2 TPU kernel (:func:`obs_renderer`). The sim step's interaction
+span is the fused kernel of ``csrc/sim_fused.cu`` wherever
+``supports_fused`` holds (on a GPU; its plain version on the CPU), as in the
+JAX env; elsewhere, as with ``track_stats=True``, it is the torch-ops step.
 
 Auto-reset: envs that terminate or truncate are reset in the same step call
 and return the new episode's initial observations. Episode desync
@@ -29,8 +31,28 @@ from metta_tpu_torch.engine.state import EPISODE_INVARIANT, EnvState, VecEnvStat
 from metta_tpu_torch.engine.step import make_reset_batch, make_reset_template
 from metta_tpu_torch.engine.step_batched import check_supported, step_env_batched
 from metta_tpu_torch.engine.tables import Tables, attach_static_block_grid
-from metta_tpu_torch.ops.obs_render3 import prep_env3, render_obs3
+from metta_tpu_torch.ops.obs_render2 import rank_table, render_obs2
+from metta_tpu_torch.ops.obs_render3 import prep_env3, render_obs3, supports_v3
 from metta_tpu_torch.ops.sim_fused import fused_step_full, supports_fused
+
+
+def obs_renderer(tables, num_envs: int):
+    """The batched render of an env of ``num_envs`` envs over ``tables``:
+    ``render(env, tables, executed_action, rewards_at_obs)`` -> [E, A, T, 3]
+    uint8, through K1 where ``supports_v3(tables, num_envs)`` holds, else
+    through K4 (``metta_tpu/engine/env.py:112-151``). ``tables`` may be a
+    task set's per-env view: the prep reads each env's own leaves."""
+    T, wh, ww = tables.num_obs_tokens, tables.obs_height, tables.obs_width
+    scan = tables.obs_scan
+    if supports_v3(tables, num_envs):
+        def render(env, t, ea, rw):
+            return render_obs3(*prep_env3(env, t, ea, rw), scan, T, wh // 2, ww // 2)
+    else:
+        rank = rank_table(scan, ww)
+
+        def render(env, t, ea, rw):
+            return render_obs2(*prep_env3(env, t, ea, rw), rank, T, wh, ww)
+    return render
 
 
 class MettaGridEnv:
@@ -74,6 +96,7 @@ class MettaGridEnv:
 
         self._template = make_reset_template(self.tables, self._init)
         attach_static_block_grid(self.tables, self._template[0])
+        self._render = obs_renderer(self.tables, num_envs)
         self._state: Optional[VecEnvState] = None
 
     # ------------------------------------------------------------------
@@ -111,12 +134,7 @@ class MettaGridEnv:
         """Batched sim step + batched obs render -> (env, obs)."""
         env, rew_at_obs = self._sim_step(env, actions, self.tables, perm=perm,
                                          generator=self.generator)
-        t = self.tables
-        obs = render_obs3(
-            *prep_env3(env, t, env.executed_action, rew_at_obs), t.obs_scan,
-            t.num_obs_tokens, t.obs_height // 2, t.obs_width // 2,
-        )
-        return env, obs
+        return env, self._render(env, self.tables, env.executed_action, rew_at_obs)
 
     def step_state(self, vstate: VecEnvState, actions, perm=None):
         """(VecEnvState, actions [E, A]) -> (VecEnvState, obs, rew, done, trunc),

@@ -42,7 +42,7 @@ def _inventory_tokens(tables, inv):
     pows = torch.tensor([base ** p for p in range(n_tok)], device=inv.device)
     shifted = torch.div(inv[..., None], pows, rounding_mode="floor")     # [..., R, n_tok]
     vals = torch.remainder(shifted, base)
-    feats = tables.inv_feature_ids.to(torch.int64).expand(shifted.shape)
+    feats = tables.bcast("inv_feature_ids", shifted.dim()).to(torch.int64).expand(shifted.shape)
     flat = lambda x: x.reshape(x.shape[:-2] + (-1,))
     return flat(feats), flat(vals), flat(shifted > 0)
 
@@ -79,8 +79,9 @@ def build_agent_blocks(state, tables):
 
 
 def build_wall_blocks(tables):
-    """Per-object-type token candidates [NT, n]: tags then vibe (wall.hpp:26-38)."""
-    vibe = tables.type_vibe.to(torch.int64)[:, None]
+    """Per-object-type token candidates [NT, n] (or [E, NT, n] when the
+    types' tables differ per env): tags then vibe (wall.hpp:26-38)."""
+    vibe = tables.type_vibe.to(torch.int64)[..., None]
     vibe_tok = (torch.full_like(vibe, tables.feat_id["vibe"]), vibe, vibe != 0)
     return _cat(_tag_tokens(tables, tables.type_tags), vibe_tok)
 
@@ -102,8 +103,8 @@ def build_assembler_blocks(state, tables):
     dev = state.asm_type.device
     f = tables.feat_id
     t = state.asm_type.long()
-    type_vibe = tables.type_vibe[t].to(torch.int64)
-    max_uses = tables.type_max_uses[t].to(torch.int64)
+    type_vibe = tables.take("type_vibe", t).to(torch.int64)
+    max_uses = tables.take("type_max_uses", t).to(torch.int64)
     remaining = (state.asm_cooldown_end - state.step[:, None]).to(torch.int64).clamp(0, 255)
     remaining_uses = (max_uses - state.asm_uses).clamp(0, 255)
     head_f = torch.tensor([f["cooldown_remaining"], f["clipped"], f["remaining_uses"]],
@@ -118,13 +119,14 @@ def build_assembler_blocks(state, tables):
         pn = p_idx.clamp(0, tables.n_protocols - 1)
         pu = p_idx.clamp(0, tables.n_unclip_protocols - 1)
         u = use_un[..., None]
-        inputs = torch.where(u, tables.uproto_in[pu], tables.proto_in[pn])
-        outputs = torch.where(u, tables.uproto_out[pu], tables.proto_out[pn])
+        inputs = torch.where(u, tables.take("uproto_in", pu), tables.take("proto_in", pn))
+        outputs = torch.where(u, tables.take("uproto_out", pu), tables.take("proto_out", pn))
         proto_v = torch.cat([inputs, outputs], -1).to(torch.int64)
-        proto_f = torch.cat([tables.proto_input_feature, tables.proto_output_feature])
-        parts.append((proto_f.to(torch.int64).expand_as(proto_v), proto_v,
+        proto_f = torch.cat([tables.bcast(n, 3).expand(E, NA, -1) for n in
+                             ("proto_input_feature", "proto_output_feature")], -1)
+        parts.append((proto_f.to(torch.int64), proto_v,
                       (proto_v > 0) & (p_idx >= 0)[..., None]))
-    parts.append(_tag_tokens(tables, tables.type_tags[t]))
+    parts.append(_tag_tokens(tables, tables.take("type_tags", t)))
     parts.append((torch.full_like(type_vibe, f["vibe"])[..., None], type_vibe[..., None],
                   (type_vibe != 0)[..., None]))
     feats, vals, ok = _cat(*parts)

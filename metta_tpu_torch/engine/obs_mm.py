@@ -76,8 +76,8 @@ def global_tokens_all(state, tables, executed_actions, rewards_at_obs):
     if tables.global_goal:
         for r in range(tables.num_resources):
             feats.append(ones * f["goal"])
-            vals.append(ones * int(tables.inv_feature_ids[r, 0]))
-            oks.append(tables.goal_token_mask[:, r].expand(E, A))
+            vals.append(tables.bcast("inv_feature_ids", 4)[..., r, 0].to(torch.int64).expand(E, A))
+            oks.append(tables.goal_token_mask[..., r].expand(E, A))
             locs.append(ones * center_loc)
     if tables.global_compass:
         sr = torch.sign(tables.height // 2 - state.agent_r.to(torch.int64))

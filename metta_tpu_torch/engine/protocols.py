@@ -58,7 +58,8 @@ def surrounding_vibe_key(tables, agent_grid, agent_vibe, r, c):
 
 
 def _pick(tables, cand_mask):
-    score = torch.where(cand_mask, tables.proto_rank, torch.full_like(tables.proto_rank, -1))
+    rank = tables.bcast("proto_rank", cand_mask.dim())
+    score = torch.where(cand_mask, rank, torch.full_like(rank, -1))
     best = score.argmax(-1)
     return torch.where(score.amax(-1) >= 0, best, torch.full_like(best, -1))
 
@@ -66,25 +67,28 @@ def _pick(tables, cand_mask):
 def select_protocol(tables, type_id, key_vec, n_agents):
     """Index of the active protocol for an (unclipped) assembler, or -1.
 
-    ``type_id``/``n_agents`` [...], ``key_vec`` [..., 8] -> [...] int64."""
+    ``type_id``/``n_agents`` [E, ...], ``key_vec`` [E, ..., 8] -> [E, ...]
+    int64."""
+    nd = type_id.dim() + 1
     cands = (
-        tables.proto_valid
-        & (tables.proto_type == type_id[..., None])
-        & (tables.proto_min_agents <= n_agents[..., None])
+        tables.bcast("proto_valid", nd)
+        & (tables.bcast("proto_type", nd) == type_id[..., None])
+        & (tables.bcast("proto_min_agents", nd) <= n_agents[..., None])
     )                                                                # [..., NP]
-    exact = (tables.proto_key == key_vec[..., None, :]).all(-1)
+    key = tables.bcast("proto_key", nd + 1)
+    exact = (key == key_vec[..., None, :]).all(-1)
     idx = _pick(tables, cands & exact)
-    zero = (tables.proto_key == 0).all(-1)
+    zero = (key == 0).all(-1)
     idx0 = _pick(tables, cands & zero)
     return torch.where(idx >= 0, idx, idx0)
 
 
 def select_unclip_protocol(tables, uproto_idx, key_vec, n_agents):
     """The single assigned unclip protocol, if its key matches (else -1)."""
-    NUP = tables.uproto_key.shape[0]
+    NUP = tables.uproto_key.shape[-2]
     i = uproto_idx.long().clamp(0, NUP - 1)
-    min_agents = tables.uproto_min_agents[i]
-    key_i = tables.uproto_key[i]                                     # [..., 8]
+    min_agents = tables.take("uproto_min_agents", i)
+    key_i = tables.take("uproto_key", i)                             # [..., 8]
     ok = (uproto_idx >= 0) & (min_agents <= n_agents)
     key_match = (key_i == key_vec).all(-1) | (key_i == 0).all(-1)
     return torch.where(ok & key_match, i, torch.full_like(i, -1))

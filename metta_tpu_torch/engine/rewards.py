@@ -24,7 +24,7 @@ from metta_tpu_torch.engine.compiler import (
 
 def _gather_last(x, idx, n):
     """x[..., idx] with out-of-range idx reading 0 (the one-hot miss of the
-    JAX formulation). x [E, A, n], idx [A, S] -> [E, A, S]."""
+    JAX formulation). x [E, A, n], idx [A, S] or [E, A, S] -> [E, A, S]."""
     ok = (idx >= 0) & (idx < n)
     i = idx.clamp(0, n - 1).long().expand(x.shape[0], -1, -1)
     return torch.where(ok, x.gather(2, i), torch.zeros((), dtype=x.dtype, device=x.device))
@@ -64,17 +64,18 @@ def compute_stat_rewards(state, tables):
         _per_collective(state, state.coll_withdrawn),    # 10: collective withdrawn
     ], dim=2)                                            # [E, A, 11, R]
 
-    src = tables.stat_src                                # [A, S]
+    src = tables.stat_src                                # [A, S], or [E, A, S] per env
     idx = tables.stat_idx
     src_r = torch.where(src == SRC_COLL_DEPOSITED, 9,
                         torch.where(src == SRC_COLL_WITHDRAWN, 10, src))
     src_r = torch.where(src == SRC_ALIGNED, 0, src_r)    # aligned handled below
     # picked[e, a, s, :] = table[e, a, src_r[a, s], :]
+    S = src.shape[-1]
     picked = table.gather(
-        2, src_r.long()[None, :, :, None].expand(E, A, src.shape[1], R)
+        2, src_r.long().expand(E, A, S)[..., None].expand(E, A, S, R)
     )                                                    # [E, A, S, R]
     ok = (idx >= 0) & (idx < R)
-    vals = picked.gather(3, idx.clamp(0, R - 1).long()[None, :, :, None].expand(E, -1, -1, 1))[..., 0]
+    vals = picked.gather(3, idx.clamp(0, R - 1).long().expand(E, A, S)[..., None])[..., 0]
     vals = torch.where(ok, vals, torch.zeros_like(vals)).to(torch.float32)
 
     if tables.any_stat_aligned:

@@ -196,14 +196,14 @@ def interaction_span(state, actions, rank, tables):
     # ---------- decode ----------
     act_ok = (actions >= 0) & (actions < NACT)
     act = actions.long().clamp(0, NACT - 1)
-    kind = tables.action_kind[act]
-    arg = tables.action_arg[act]
+    kind = tables.take("action_kind", act)
+    arg = tables.take("action_arg", act)
     frozen = state.agent_frozen
     is_frozen = frozen != 0
     state = state.replace(agent_frozen=torch.where(
         act_ok & is_frozen & (frozen > 0), frozen - 1, frozen
     ))
-    has_required = (state.agent_inv >= tables.action_required[act]).all(-1)
+    has_required = (state.agent_inv >= tables.take("action_required", act)).all(-1)
     attempt = act_ok & ~is_frozen & has_required
     success = attempt & (kind == ACT_NOOP)
 
@@ -214,7 +214,7 @@ def interaction_span(state, actions, rank, tables):
 
     # ---------- movement proposals ----------
     movers = attempt & (kind == ACT_MOVE)
-    delta = tables.move_deltas[arg.long().clamp(0, 7)]  # [E, A, 2]
+    delta = tables.take("move_deltas", arg.long().clamp(0, 7))  # [E, A, 2]
     r0, c0 = state.agent_r, state.agent_c
     r1 = r0 + delta[..., 0]
     c1 = c0 + delta[..., 1]
@@ -233,7 +233,7 @@ def interaction_span(state, actions, rank, tables):
     tgt_agent = torch.where(has_tgt_agent, occ0 - 1, torch.zeros_like(occ0)).long()
 
     vibe = state.agent_vibe.clamp(0, tables.num_vibes - 1).long()
-    lims = tables.agent_lims                             # [A, R]
+    lims = tables.agent_lims                             # [A, R], or [E, A, R] per env
     big = A + 1
 
     def from_targets(x):
@@ -266,27 +266,28 @@ def interaction_span(state, actions, rank, tables):
 
     # ---------- vibe-triggered attacks ----------
     if tables.has_attack:
-        wants_attack = movers & tables.attack_vibe_mask[vibe] & has_tgt_agent
-        afford = (state.agent_inv >= tables.attack_consumed).all(-1)
+        wants_attack = movers & tables.take("attack_vibe_mask", vibe) & has_tgt_agent
+        afford = (state.agent_inv >= tables.bcast("attack_consumed", 3)).all(-1)
         valid = wants_attack & (from_targets(state.agent_frozen) <= 0) & afford
         valid = winner_per_target(valid)
 
-        weapon = (state.agent_inv * tables.attack_weapon_w).sum(-1)      # [E, A]
+        weapon = (state.agent_inv * tables.bcast("attack_weapon_w", 3)).sum(-1)  # [E, A]
         t_vibe = from_targets(vibe)
-        vibing = tables.vibe_matches_resource[t_vibe]                    # [E, A, R]
-        vibe_bonus = tables.attack_vibe_bonus[t_vibe]
+        vibing = tables.take("vibe_matches_resource", t_vibe)          # [E, A, R]
+        vibe_bonus = tables.take("attack_vibe_bonus", t_vibe)
         inv_t = from_targets(state.agent_inv)                            # [E, A, R]
         armor_amounts = inv_t + torch.where(
             vibing, vibe_bonus[..., None], torch.zeros_like(inv_t)
         )
-        armor = (armor_amounts * tables.attack_armor_w).sum(-1)
+        armor = (armor_amounts * tables.bcast("attack_armor_w", 3)).sum(-1)
         bonus = (weapon - armor).clamp(min=0)
 
         if tables.attack_defense_any:
-            required = tables.attack_defense + bonus[..., None]          # [E, A, R]
-            can_defend = (~tables.attack_defense_mask | (inv_t >= required)).all(-1)
+            required = tables.bcast("attack_defense", 3) + bonus[..., None]  # [E, A, R]
+            defense_mask = tables.bcast("attack_defense_mask", 3)
+            can_defend = (~defense_mask | (inv_t >= required)).all(-1)
             blocked = valid & can_defend
-            pay = torch.where(tables.attack_defense_mask, -required,
+            pay = torch.where(defense_mask, -required,
                               torch.zeros_like(required))
             d_target = sum_to_targets(pay, blocked)
             old_inv = state.agent_inv
@@ -308,18 +309,18 @@ def interaction_span(state, actions, rank, tables):
             ).to(_I32))
         # actor/target deltas + loot + consume, one combined clamp
         zero_r = torch.zeros_like(state.agent_inv)
-        d = torch.where(hit[..., None], tables.attack_actor_delta, zero_r)
+        d = torch.where(hit[..., None], tables.bcast("attack_actor_delta", 3), zero_r)
         d = d + sum_to_targets(
-            tables.attack_target_delta.expand_as(state.agent_inv), hit
+            tables.bcast("attack_target_delta", 3).expand_as(state.agent_inv), hit
         )
         inv_t_now = from_targets(state.agent_inv)
         for r_loot in tables.loot_ids:
             amount = inv_t_now[..., r_loot]
-            space = (lims[:, r_loot] - state.agent_inv[..., r_loot]).clamp(min=0)
+            space = (lims[..., r_loot] - state.agent_inv[..., r_loot]).clamp(min=0)
             stolen = torch.where(hit, torch.minimum(amount, space),
                                  torch.zeros_like(amount))
             d[..., r_loot] += stolen - sum_to_targets(stolen, hit)
-        d = d - torch.where(valid[..., None], tables.attack_consumed, zero_r)
+        d = d - torch.where(valid[..., None], tables.bcast("attack_consumed", 3), zero_r)
         old_inv = state.agent_inv
         state = state.replace(agent_inv=_clip(old_inv + d, lims))
         state = _track_agent_inv(state, tables, old_inv)
@@ -332,11 +333,11 @@ def interaction_span(state, actions, rank, tables):
 
     # ---------- vibe-triggered transfers ----------
     if tables.has_transfer:
-        wants_tr = (movers & ~handled_attack & tables.transfer_vibe_mask[vibe]
+        wants_tr = (movers & ~handled_attack & tables.take("transfer_vibe_mask", vibe)
                     & has_tgt_agent)
-        d_actor = tables.transfer_actor_delta[vibe]                      # [E, A, R]
-        d_target = tables.transfer_target_delta[vibe]
-        req_ok = (state.agent_inv >= tables.transfer_required).all(-1)
+        d_actor = tables.take("transfer_actor_delta", vibe)            # [E, A, R]
+        d_target = tables.take("transfer_target_delta", vibe)
+        req_ok = (state.agent_inv >= tables.bcast("transfer_required", 3)).all(-1)
         valid = wants_tr & (from_targets(state.agent_frozen) <= 0) & req_ok
         valid = winner_per_target(valid)
         free_a = (lims - state.agent_inv).clamp(min=0)
@@ -423,7 +424,7 @@ def interaction_span(state, actions, rank, tables):
 
     # ---------- action resource consumption ----------
     if tables.any_action_consumed:
-        consumed = torch.where(success[..., None], tables.action_consumed[act],
+        consumed = torch.where(success[..., None], tables.take("action_consumed", act),
                                torch.zeros_like(state.agent_inv))
         old_inv = state.agent_inv
         state = state.replace(agent_inv=_clip(old_inv - consumed, lims))
@@ -500,8 +501,8 @@ def _assembler_phase(state, tables, is_winner, sidx, lims):
     uproto = at_station(state.asm_unclip_proto)
     do = is_winner & at_station(state.asm_valid)
 
-    max_uses = tables.type_max_uses[s_type]
-    allow_partial = tables.type_allow_partial[s_type]
+    max_uses = tables.take("type_max_uses", s_type)
+    allow_partial = tables.take("type_allow_partial", s_type)
     ok = do & ((max_uses == 0) | (uses < max_uses))
     remaining = (cd_end - state.step[:, None]).clamp(min=0)
     ok = ok & ((remaining == 0) | allow_partial)
@@ -519,16 +520,16 @@ def _assembler_phase(state, tables, is_winner, sidx, lims):
     pn = p_idx.clamp(0, NP - 1)
     pu = p_idx.clamp(0, NUP - 1)
 
-    def pick(norm, un):
-        n, u = norm[pn], un[pu]
+    def pick(name):
+        n, u = tables.take("proto_" + name, pn), tables.take("uproto_" + name, pu)
         c = clipped.reshape(clipped.shape + (1,) * (n.dim() - clipped.dim()))
         return torch.where(c, u, n)
 
-    inputs = pick(tables.proto_in, tables.uproto_in)                   # [E, A, R]
-    outputs = pick(tables.proto_out, tables.uproto_out)
-    cooldown = pick(tables.proto_cooldown, tables.uproto_cooldown)     # [E, A]
-    nvibes = pick(tables.proto_nvibes, tables.uproto_nvibes)
-    vibe_counts = pick(tables.proto_vibe_counts, tables.uproto_vibe_counts)  # [E, A, V]
+    inputs = pick("in")                                                 # [E, A, R]
+    outputs = pick("out")
+    cooldown = pick("cooldown")                                         # [E, A]
+    nvibes = pick("nvibes")
+    vibe_counts = pick("vibe_counts")                                   # [E, A, V]
     orig_has_output = (outputs > 0).any(-1)
 
     if tables.any_allow_partial:

@@ -14,6 +14,9 @@ Counterpart of ``metta_tpu/ops/obs_render3.py`` (``prep_env3`` on
 - :func:`render_obs3` is the kernel's wrapper. A CUDA tensor launches the
   kernel in ``csrc/obs_render3.cu`` (or raises); a CPU tensor takes
   :func:`render_obs3_plain`, the same function in torch ops.
+- :func:`supports_v3` (with :func:`pick_eps`) is the JAX package's rule for
+  which render a config and env count take: K1 here, else K4
+  (``ops/obs_render2.py``).
 """
 
 from __future__ import annotations
@@ -35,13 +38,50 @@ def prep_env3(state, tables, executed_actions, rewards_at_obs):
 
     Returns (sb [E, H, W] int32, tok [E, NB, K, 2] uint8, counts [E, NB]
     int32, rc [E, A, 2] int32, g_count [E, A] int32, g_tok [E, A, G, 3]
-    uint8)."""
+    uint8). The static block grid ``tables.obs_static_bg`` is one map's
+    [H, W] or, for a task set whose maps differ, each env's own [E, H, W]."""
     tok, counts = block_table(state, tables)
     sb = torch.where(state.agent_grid > 0, state.agent_grid,
                      tables.obs_static_bg).to(torch.int32).contiguous()
     g_count, g_tok = global_tokens_all(state, tables, executed_actions, rewards_at_obs)
     rc = torch.stack([state.agent_r, state.agent_c], dim=-1).to(torch.int32).contiguous()
     return sb, tok, counts, rc, g_count.contiguous(), g_tok.contiguous()
+
+
+LW = 16             # lanes per window row of the TPU kernel's sparse layout
+RW = 16             # rows per agent of the TPU kernel's window-read layout
+
+
+def pick_eps(E: int, want: int = 8):
+    """Envs per grid step of the TPU kernel: a multiple of 8 that divides E,
+    or E itself up to 8; None when there is none. Copied from
+    ``metta_tpu/ops/obs_render3.py:pick_eps``: the port picks its render by
+    the JAX package's rule (:func:`supports_v3`), although the CUDA kernels
+    have no such limit."""
+    if E <= 8:
+        return E
+    for eps in range(min((want // 8) * 8, (E // 8) * 8), 0, -8):
+        if E % eps == 0:
+            return eps
+    return None
+
+
+def supports_v3(tables, num_envs=None) -> bool:
+    """The JAX package's gate of the v3 render (``metta_tpu/ops/
+    obs_render3.py:supports_v3``): where it holds the env renders through K1
+    (:func:`render_obs3`), elsewhere through K4 (``ops/obs_render2.py``), as
+    the JAX env launches its v3 or v2 TPU kernel."""
+    WH = int(tables.obs_height)
+    WW = int(tables.obs_width)
+    NB = (1 + tables.num_agents + tables.n_object_types
+          + tables.n_assembler_slots + tables.n_chest_slots)
+    return (
+        WH <= RW and WW <= LW and WH * WW <= 128
+        and NB <= 128
+        and tables.width + LW <= 128
+        and tables.height + 2 * (WH // 2) <= 128
+        and (num_envs is None or pick_eps(num_envs) is not None)
+    )
 
 
 def render_obs3_plain(sb, tok, counts, rc, g_count, g_tok, scan, num_tokens: int,

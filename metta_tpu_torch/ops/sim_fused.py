@@ -168,6 +168,8 @@ def launch_fused_span(state, actions, rank, tables) -> dict:
     _refuse_chests(tables)
     if not supports_fused(tables):
         raise ValueError("config outside supports_fused: the fused span cannot run it")
+    if tables.per_env:
+        raise ValueError("the fused span reads one task's tables, not a task set's per-env view")
     dev = actions.device
     E, A = actions.shape
     shapes = {"E": (E,), "EA": (E, A), "EAR": (E, A, tables.num_resources),

@@ -1,6 +1,9 @@
 """PPO actor-learner on one torch device.
 
-Counterpart of ``metta_tpu/rl/trainer.py`` for one task (no curriculum):
+Counterpart of ``metta_tpu/rl/trainer.py``, over one task or a task set
+(``task_cfgs``: the curriculum's active pool as a ``MultiTaskEnv``, every env
+drawing a new task at each episode's end; the curriculum's updates between
+batches are data of the env, ``set_weights`` and ``set_task``):
 ``Trainer.update`` is one train batch, a rollout of ``bptt_horizon`` steps
 through the env and the policy into a [T, B] trajectory on the device, the
 advantages (kernel K3 on the card), then ``update_epochs`` passes of PPO
@@ -31,6 +34,7 @@ from torch.func import functional_call
 from metta_tpu_torch.config.mettagrid_config import MettaGridConfig
 from metta_tpu_torch.engine.env import MettaGridEnv
 from metta_tpu_torch.engine.state import VecEnvState
+from metta_tpu_torch.engine.taskset import MultiTaskEnv
 from metta_tpu_torch.models.vit import ViTConfig
 from metta_tpu_torch.rl.advantage import compute_delta_lambda, normalize_advantage, puff_advantage
 from metta_tpu_torch.rl.config import TrainerConfig
@@ -42,7 +46,7 @@ from metta_tpu_torch.rl.scheduler import HP_FIELDS, HP_INDEX
 class TrainState:
     params: torch.Tensor          # [P] f32, the policy's parameters as one vector
     opt_state: dict
-    vstate: VecEnvState
+    vstate: VecEnvState           # an MTVecState over a task set
     obs: torch.Tensor             # [E, A, T_tok, 3] uint8 (current)
     core: tuple                   # recurrent state (c, h), each [B, H]
     prev_reward: torch.Tensor     # [B] f32, reward received with the current obs
@@ -84,29 +88,33 @@ class ParamLayout:
 
 
 class Trainer:
-    """Single-task, single-device trainer.
+    """Single-device trainer over one task or a task set.
 
     Args:
-      env_cfg: the training env's config.
+      env_cfg: the training env's config (None with ``task_cfgs``).
       trainer_cfg: ``TrainerConfig`` (defaults as the JAX package's).
       policy_cfg: ``ViTConfig``; only the ``"lstm"`` core is ported.
       num_envs: env batch; default ``cfg.num_envs`` or batch_size / (T·A).
       device: where the env, the policy and the learner run; "cuda" by default.
+      task_cfgs: train over this task set instead (``engine/taskset.py``).
     """
 
-    def __init__(self, env_cfg: MettaGridConfig, trainer_cfg: Optional[TrainerConfig] = None,
+    def __init__(self, env_cfg: Optional[MettaGridConfig],
+                 trainer_cfg: Optional[TrainerConfig] = None,
                  policy_cfg: Optional[ViTConfig] = None, num_envs: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", task_cfgs: Optional[list] = None):
         self.cfg = trainer_cfg or TrainerConfig()
         cfg = self.cfg
         self.device = torch.device(device)
-        A = env_cfg.game.num_agents
+        multi_task = task_cfgs is not None
+        A = (task_cfgs[0] if multi_task else env_cfg).game.num_agents
         T = cfg.bptt_horizon
         if num_envs is None:
             num_envs = cfg.num_envs or max(cfg.batch_size // (T * A), 1)
-        self.env = MettaGridEnv(env_cfg, num_envs=num_envs, seed=cfg.seed,
-                                track_stats=cfg.track_env_stats, step_mode=cfg.env_step_mode,
-                                device=self.device)
+        env_kw = dict(num_envs=num_envs, seed=cfg.seed, track_stats=cfg.track_env_stats,
+                      step_mode=cfg.env_step_mode, device=self.device)
+        self.env = (MultiTaskEnv(task_cfgs, **env_kw) if multi_task
+                    else MettaGridEnv(env_cfg, **env_kw))
         self.E, self.A, self.B, self.T = num_envs, A, num_envs * A, T
         self.rows_per_mb = max(cfg.minibatch_size // T, 1)
         while self.B % self.rows_per_mb != 0:          # shrink to a divisor

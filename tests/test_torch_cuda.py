@@ -2,7 +2,9 @@
 
 Each kernel against its plain torch version, on the card, at small sizes:
 K1 (``csrc/obs_render3.cu``) on rolled combat states and on a window outside
-the TPU kernel's limits; K2 (``csrc/sim_fused.cu``) on combat, cooperation
+the TPU kernel's limits; K4 (``csrc/obs_render2.cu``) on the same and on
+``make_arena(30)`` (149 block ids), and against K1's plain version; the
+multi-task env GPU against CPU and a tiny multi-task trainer update; K2 (``csrc/sim_fused.cu``) on combat, cooperation
 and arena with gained/lost tracking, and at an E that no 128-env block
 divides; K3 (``csrc/discounted_sum.cu``) forward and backward at odd shapes
 and the advantages through it against the CPU; the wrappers' input checks;
@@ -23,6 +25,7 @@ from metta_tpu_torch.builder.envs import make_arena, make_combat, make_cooperati
 from metta_tpu_torch.engine.env import MettaGridEnv
 from metta_tpu_torch.engine.step_batched import batched_step, rank_from_perm
 from metta_tpu_torch.ops import discounted_sum as k3
+from metta_tpu_torch.ops import obs_render2 as k4
 from metta_tpu_torch.ops import obs_render3 as k1
 from metta_tpu_torch.ops import sim_fused as k2
 
@@ -76,6 +79,77 @@ def test_k1_wrapper_checks_inputs():
     bad[1] = bad[1].cpu()
     with pytest.raises(ValueError):
         k1.render_obs3(*bad, *extra)
+
+
+@pytest.mark.parametrize("name,obs", [("combat", {}), ("combat", dict(num_tokens=24)),
+                                      ("combat", dict(width=13, height=13)), ("arena30", {})],
+                         ids=["combat", "budget24", "window13", "arena30"])
+def test_k4_matches_plain(name, obs):
+    if name == "arena30":
+        cfg = make_arena(30)
+        cfg.game.map_builder.seed = 1234
+        env = MettaGridEnv(cfg, num_envs=E, seed=0, track_stats=True, device=_cuda())
+    else:
+        env = _env(_cuda(), **obs)
+    env.reset()
+    t = env.tables
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(6):
+        env.step(torch.randint(0, t.n_actions, (E, t.num_agents), generator=gen, device="cuda"))
+    s = env.state.env
+    args = k1.prep_env3(s, t, s.executed_action, s.reward)
+    extra = (k4.rank_table(t.obs_scan, t.obs_width), t.num_obs_tokens, t.obs_height,
+             t.obs_width)
+    before = k4.launches
+    got = k4.render_obs2(*args, *extra)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1
+    assert torch.equal(got, k4.render_obs2_plain(*args, *extra))
+    assert torch.equal(got, k1.render_obs3_plain(*args, t.obs_scan, t.num_obs_tokens,
+                                                 t.obs_height // 2, t.obs_width // 2))
+
+
+def test_k4_wrapper_checks_inputs():
+    args, (scan, T, ohr, owr) = _inputs(_env(_cuda()), steps=1)
+    rank = k4.rank_table(scan, 2 * owr + 1)
+    for i, bad in ((0, args[0].to(torch.int64)), (1, args[1].cpu()),
+                   (3, args[3][:, :-1].contiguous()), (5, args[5].transpose(1, 2))):
+        call = list(args)
+        call[i] = bad
+        with pytest.raises(ValueError):
+            k4.render_obs2(*call, rank, T, 2 * ohr + 1, 2 * owr + 1)
+    with pytest.raises(ValueError):
+        k4.render_obs2(*args, rank.long(), T, 2 * ohr + 1, 2 * owr + 1)
+
+
+def test_multitask_env_gpu_matches_cpu():
+    """The multi-task env over three curriculum tasks (E=10: K4 renders) on
+    the GPU against the CPU, with auto-reset and task resampling."""
+    from metta_tpu_torch.builder.envs import make_arena_basic_easy_shaped, make_curriculum
+    from metta_tpu_torch.engine.taskset import MultiTaskEnv
+
+    base = make_arena_basic_easy_shaped(6)
+    base.game.max_steps = 7
+    cfgs = [t.get_env_cfg() for t in make_curriculum(base).active_tasks()[:3]]
+    for k, c in enumerate(cfgs):
+        c.game.map_builder.seed = 3 + k
+    n = 10
+    envs = [MultiTaskEnv(cfgs, num_envs=n, seed=0, track_stats=True, device=d)
+            for d in (_cuda(), "cpu")]
+    rng = np.random.default_rng(0)
+    tid = rng.integers(0, 3, n)
+    obs = [env.reset(task_id=tid, desync_step=np.zeros(n)) for env in envs]
+    np.testing.assert_array_equal(*obs)
+    before = k4.launches
+    for _ in range(16):
+        acts = rng.integers(0, envs[1].compiled.n_actions, (n, 6))
+        perm = torch.as_tensor(np.stack([rng.permutation(6) for _ in range(n)]))
+        draws = rng.integers(0, 3, n)
+        for g, c in zip(*(env.step(acts, perm=perm, task_draws=draws) for env in envs)):
+            np.testing.assert_array_equal(g, c)
+        assert torch.equal(envs[0].state.task_id.cpu(), envs[1].state.task_id)
+    assert k4.launches == before + 16
+    assert int(envs[1].state.episodes_done.sum()) >= n
 
 
 def test_env_gpu_matches_cpu():
@@ -252,6 +326,34 @@ def test_advantages_gpu_match_cpu():
         out.append([t.detach().cpu() for t in (a, dl, g)])
     for c, g in zip(*out):
         torch.testing.assert_close(g, c, rtol=1e-6, atol=1e-6)
+
+
+def test_multitask_trainer_update_on_gpu():
+    """A tiny multi-task ``Trainer.update`` on the card: the rollout renders
+    through K4 (E=10 fails ``pick_eps``), the set never fuses (K2 idle), K3
+    as in the single-task learner."""
+    from metta_tpu_torch.builder.envs import make_arena_basic_easy_shaped, make_curriculum
+    from metta_tpu_torch.models.vit import ViTConfig
+    from metta_tpu_torch.rl.config import TrainerConfig
+    from metta_tpu_torch.rl.trainer import Trainer
+
+    base = make_arena_basic_easy_shaped(6)
+    base.game.map_builder.seed = 5
+    cfgs = [t.get_env_cfg() for t in make_curriculum(base).active_tasks()[:3]]
+    tr = Trainer(None, TrainerConfig(num_envs=10, bptt_horizon=16, minibatch_size=96,
+                                     track_env_stats=True),
+                 ViTConfig(latent_dim=32, actor_hidden=32, critic_hidden=32, max_tokens=32,
+                           core_num_latents=4, core_num_heads=2, core="lstm"),
+                 device=_cuda(), task_cfgs=cfgs)
+    ts = tr.init_state()
+    p0 = ts.params.clone()
+    counts = (k1.launches, k2.launches, k3.launches, k4.launches)
+    ts, metrics = tr.update(ts)
+    torch.cuda.synchronize()
+    runs = [n - c for n, c in zip((k1.launches, k2.launches, k3.launches, k4.launches), counts)]
+    assert runs == [0, 0, 1 + 2 * tr.n_minibatches, tr.T]
+    assert all(torch.isfinite(m) for m in metrics.values())
+    assert float((ts.params - p0).abs().max()) > 0
 
 
 def test_trainer_update_on_gpu():

@@ -36,7 +36,8 @@ def test_port_imports_nothing_of_jax():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "metta_tpu_torch.engine.env" in res["modules"]
-    for name in ("ops.obs_render3", "ops.sim_fused", "ops.discounted_sum", "rl.advantage",
+    for name in ("ops.obs_render3", "ops.sim_fused", "ops.discounted_sum", "ops.obs_render2",
+                 "engine.taskset", "cogworks.curriculum", "rl.advantage",
                  "rl.trainer", "rl.optim", "rl.checkpoint", "models.vit", "models.components"):
         assert f"metta_tpu_torch.{name}" in res["modules"], name
     bad = [m for m in res["loaded"] if _forbidden(m)]
