@@ -6,7 +6,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phases (each one a hard failure):
 
-1. build every CUDA kernel of the port from ``metta_tpu_torch/csrc`` (K1-K4,
+1. build every CUDA kernel of the port from ``metta_tpu_torch/csrc`` (K1-K5,
    one ``nvcc`` per source, all started together) and print the card's name
    and power limit;
 2. K1 (``csrc/obs_render3.cu``) against its plain torch version
@@ -67,7 +67,21 @@ Phases (each one a hard failure):
    ``update_task_performance``, ``set_task`` on an evicted slot,
    ``set_weights``); K4 = 256, K3 = 137, K1 = K2 = 0 launches an update,
    agent-steps/s, the rollout/learn split, peak memory, each task's score,
-   finite metrics, moved parameters, the multi-task env step alone.
+   finite metrics, moved parameters, the multi-task env step alone;
+11. K5 (``csrc/obs_render.cu``) against its plain torch version
+   (``render_obs1_plain``) on every render of the sequential env with
+   ``obs_renderer="pl"``: combat at E=1, 10 and 4096 and ``make_arena(30)``
+   (149 block ids) at E=1024; ``initial_observations`` through K5 against the
+   plain renderer; K5's time per launch, host pace, plain time and bound at
+   each shape;
+12. this slice's main path, the exact sequential step (``MettaGridEnv``'s
+   default step mode) on combat with ``obs_renderer="pl"``: env-steps/s at
+   E=4096 and E=1 (median of 3 windows after warm-up, obs consumed), K5
+   exactly once a step and K1 = K2 = K4 = 0 over the timed steps, launches and
+   the device's busy share of a profiled step; then the sequential env on the
+   GPU against the CPU over 30 steps with auto-reset and desync: combat with
+   K5, and the arena with a shared limit group over laser and armor, asked
+   for ``step_mode="batched"`` and taken into the sequential step.
 
 Prints a JSON line of kernels, the card's name and power limit, then as the
 last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
@@ -279,7 +293,7 @@ def phase_k1_vs_plain(res):
     from metta_tpu_torch.ops import obs_render3 as k1
 
     env = MettaGridEnv(make_cfg(), num_envs=E_MAIN, seed=0, track_stats=True,
-                       device="cuda")
+                       step_mode="batched", device="cuda")
     env.reset()
     t = env.tables
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -304,7 +318,7 @@ def seeded_env(name, n_envs, track_gained=False, seed=5):
     from metta_tpu_torch.engine.env import MettaGridEnv
 
     env = MettaGridEnv(make_cfg(name), num_envs=n_envs, seed=0, track_stats=False,
-                       device="cuda")
+                       step_mode="batched", device="cuda")
     if track_gained:
         env.tables.track_gained = True
     env.reset()
@@ -439,7 +453,8 @@ def phase_k4_vs_plain(res):
 
         cfg = make_arena(30)
         cfg.game.map_builder.seed = SEED
-        env = MettaGridEnv(cfg, num_envs=E_MAIN, seed=0, track_stats=True, device="cuda")
+        env = MettaGridEnv(cfg, num_envs=E_MAIN, seed=0, track_stats=True, step_mode="batched",
+                           device="cuda")
         t = env.tables
         nb = 1 + t.num_agents + t.n_object_types + t.n_assembler_slots + t.n_chest_slots
         env.reset()
@@ -454,7 +469,8 @@ def phase_k4_vs_plain(res):
         time_k4(f"arena30 E={E_MAIN}", k1.prep_env3(s, t, s.executed_action, s.reward), t)
         del env, s
 
-        env = MettaGridEnv(make_cfg(), num_envs=E_MAIN, seed=0, track_stats=False, device="cuda")
+        env = MettaGridEnv(make_cfg(), num_envs=E_MAIN, seed=0, track_stats=False,
+                           step_mode="batched", device="cuda")
         t = env.tables
         env.reset()
         check = checked_render2(err)
@@ -483,7 +499,7 @@ def phase_gpu_vs_cpu(res):
     E, steps = 8, 30
     for name, track_stats in (("combat", True), ("combat", False), ("cooperation", False)):
         envs = [MettaGridEnv(make_cfg(name), num_envs=E, seed=0, track_stats=track_stats,
-                             device=d) for d in ("cuda", "cpu")]
+                             step_mode="batched", device=d) for d in ("cuda", "cpu")]
         rng = np.random.default_rng(2)
         desync = rng.integers(1, steps, E)
         obs = [env.reset(desync_step=desync) for env in envs]
@@ -658,9 +674,9 @@ def bound_of(nbytes, ops):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), ops_ms
 
 
-def warmed_runner(env, gen, acc):
+def warmed_runner(env, gen, acc, warm=10):
     """A function stepping ``env`` n times with random actions, obs consumed
-    every step (summed into ``acc``), after 10 warm-up steps."""
+    every step (summed into ``acc``), after ``warm`` warm-up steps."""
     t = env.tables
 
     def run(n):
@@ -670,7 +686,7 @@ def warmed_runner(env, gen, acc):
             obs, rew, done, trunc = env.step(acts)
             acc.add_(obs.sum(dtype=torch.int64))       # consume every byte of obs
 
-    run(10)
+    run(warm)
     torch.cuda.synchronize()
     return run
 
@@ -694,7 +710,8 @@ def phase_throughput(res):
     from metta_tpu_torch.ops import obs_render3 as k1
     from metta_tpu_torch.ops import sim_fused as k2
 
-    env = MettaGridEnv(make_cfg(), num_envs=E_MAIN, seed=0, track_stats=False, device="cuda")
+    env = MettaGridEnv(make_cfg(), num_envs=E_MAIN, seed=0, track_stats=False,
+                       step_mode="batched", device="cuda")
     env.reset()
     t = env.tables
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -800,7 +817,8 @@ def phase_throughput(res):
 
     # the track_stats=True path (torch-ops step, K1), fewer windows
     del env, s, args, out
-    env = MettaGridEnv(make_cfg(), num_envs=E_MAIN, seed=0, track_stats=True, device="cuda")
+    env = MettaGridEnv(make_cfg(), num_envs=E_MAIN, seed=0, track_stats=True,
+                       step_mode="batched", device="cuda")
     env.reset()
     run = warmed_runner(env, gen, acc)
     walls = timed_windows(run, 3, steps)
@@ -907,7 +925,8 @@ def phase_policy(res):
     from metta_tpu_torch.engine.env import MettaGridEnv
 
     sd, cfg, _ = load_v48()
-    env = MettaGridEnv(train_cfg(), num_envs=8, seed=0, track_stats=False, device="cuda")
+    env = MettaGridEnv(train_cfg(), num_envs=8, seed=0, track_stats=False, step_mode="batched",
+                       device="cuda")
     env.reset()
     gen = torch.Generator(device="cuda").manual_seed(4)
     for _ in range(12):
@@ -1315,6 +1334,281 @@ def phase_curriculum(res):
     }]
 
 
+# ---------------------------------------------------------------------------
+# the sequential step and K5 (the v1 per-env render)
+# ---------------------------------------------------------------------------
+
+
+def seq_env(n_envs, name="combat", agents=AGENTS, renderer="pl", device="cuda", **kw):
+    """The sequential env (the default step mode) over ``make_<name>(agents)``
+    with the map seeded, rendering through ``obs_renderer`` (set after
+    construction, as ``metta_tpu/scripts/hlo_census.py`` sets it)."""
+    from metta_tpu_torch.builder import envs
+    from metta_tpu_torch.engine.env import MettaGridEnv
+
+    cfg = getattr(envs, f"make_{name}")(agents)
+    cfg.game.map_builder.seed = SEED
+    env = MettaGridEnv(cfg, num_envs=n_envs, seed=0, device=device, **kw)
+    if env.step_mode != "sequential":
+        raise AssertionError(f"{name} at E={n_envs} does not take the sequential step")
+    env.tables.obs_renderer = renderer
+    return env
+
+
+def k5_args(tables):
+    return (tables.obs_scan, tables.num_obs_tokens, tables.obs_height // 2,
+            tables.obs_width // 2)
+
+
+def k5_work(args, scan, T):
+    """What K5 must do for these inputs: (bytes, operations, parts in bytes).
+
+    Each output byte is written once. Each input byte the render needs is
+    read once: the distinct in-map cells of the windows from the agent plane,
+    and from the static plane where no agent stands (K5 reads every window
+    cell: its prefix sum runs over all of them), the count of each distinct
+    block those cells hold and the tokens taken from it before T, the
+    agents' positions, global-token counts and global tokens, the window
+    offsets. Operations: one add per window cell (the prefix sum) and one
+    select per output slot."""
+    agent_grid, sblock, tok, counts, rc, g_count, g_tok = args
+    E, H, W = agent_grid.shape
+    A, NB, S, G = rc.shape[1], tok.shape[1], scan.shape[0], g_tok.shape[2]
+    rr = rc[..., 0:1].long() + scan[:, 0].long()                        # [E, A, S]
+    cc = rc[..., 1:2].long() + scan[:, 1].long()
+    inb = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < W)
+    flat = (rr.clamp(0, H - 1) * W + cc.clamp(0, W - 1)).reshape(E, -1)
+    a1 = torch.where(inb, agent_grid.reshape(E, -1).gather(1, flat).reshape(E, A, S), 0).long()
+    st = sblock.reshape(E, -1).gather(1, flat).reshape(E, A, S).long()
+    b = torch.where(inb, torch.where(a1 > 0, a1, st), 0)
+    n = counts.gather(1, b.reshape(E, -1)).reshape(E, A, S).long()
+    start = g_count.long().clamp(max=T)[..., None] + n.cumsum(-1) - n
+    taken = torch.where(inb, torch.minimum(n, T - start).clamp(min=0), 0)
+
+    def distinct(mask):
+        cells = torch.zeros((E, H * W + 1), dtype=torch.int8, device=rc.device)
+        cells.scatter_(1, torch.where(mask, flat.reshape(E, A, S), H * W).reshape(E, -1), 1)
+        return int(cells[:, :H * W].sum())
+
+    blocks = torch.zeros((E, NB), dtype=torch.int64, device=rc.device)
+    blocks.scatter_reduce_(1, b.reshape(E, -1), torch.where(inb, taken + 1, 0).reshape(E, -1),
+                           reduce="amax")                             # 1 + tokens taken
+    parts = {
+        "agent plane": 4 * distinct(inb),
+        "static plane": 4 * distinct(inb & (a1 == 0)),
+        "counts": 4 * int((blocks > 0).sum()),
+        "tokens": 2 * int((blocks - 1).clamp(min=0).sum()),
+        "rc+gcnt": 12 * E * A,
+        "gtok": 3 * int(g_count.long().clamp(max=min(G, T)).sum()),
+        "scan": 8 * S,
+        "out": 3 * E * A * T,
+    }
+    return sum(parts.values()), E * A * S + E * A * T, parts
+
+
+def checked_render1(err):
+    """``render_obs1`` that also runs K5's plain version on the same inputs
+    and fails on the first byte that differs; ``err[0]`` keeps the largest
+    difference seen."""
+    from metta_tpu_torch.ops import obs_render as k5
+
+    launch = k5.render_obs1
+
+    def render(*args):
+        got = launch(*args)
+        want = k5.render_obs1_plain(*args)
+        torch.cuda.synchronize()
+        err[0] = max(err[0], int((got.int() - want.int()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 differs from its plain version in "
+                                 f"{int((got != want).sum())} bytes")
+        return got
+    return render
+
+
+def phase_k5_vs_plain(res):
+    """K5 against its plain version on every step of the sequential env's
+    own renders: combat (24 agents) at E=1, 10 and 4096, and make_arena(30)
+    (149 block ids) at E=1024; ``initial_observations`` through K5 against
+    the plain renderer; K5's time per launch, its host pace, its plain
+    version's time and its bound at each shape."""
+    from metta_tpu_torch.engine.step import initial_observations
+    from metta_tpu_torch.ops import obs_render as k5
+
+    err = [0]
+    launch = k5.render_obs1
+    k5.render_obs1 = checked_render1(err)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shapes = {}
+    try:
+        for name, agents, n_envs, steps in (("combat", AGENTS, 1, 20), ("combat", AGENTS, 10, 20),
+                                            ("combat", AGENTS, E_MAIN, 6),
+                                            ("arena", 30, 1024, 6)):
+            env = seq_env(n_envs, name, agents)
+            t = env.tables
+            env.reset()
+            n0 = k5.launches
+            for _ in range(steps):
+                env.step(torch.randint(0, t.n_actions, (n_envs, agents), generator=gen,
+                                       device="cuda"))
+            if k5.launches - n0 != steps:
+                raise AssertionError(f"{name} E={n_envs}: K5 rendered {k5.launches - n0} of "
+                                     f"{steps} sequential steps")
+            s = env.state.env
+            args = k5.prep_obs1(s, t, s.executed_action, s.reward)
+            extra = k5_args(t)
+            tokens = (launch(*args, *extra)[..., 0] != 255).sum(-1)
+            before = k5.launches
+            entry = dict(
+                ms=cuda_time_ms(lambda: launch(*args, *extra), 50),
+                host_ms=cuda_time_ms(lambda: launch(*args, *extra), 50, queue_ahead=False),
+                plain_ms=cuda_time_ms(lambda: k5.render_obs1_plain(*args, *extra), 3),
+            )
+            k5.launches = before                       # timing launches do not count
+            nbytes, ops, parts = k5_work(args, t.obs_scan, t.num_obs_tokens)
+            entry["bound_ms"], entry["bound_by"], ops_ms = bound_of(nbytes, ops)
+            entry["mb"] = nbytes / 1e6
+            key = f"{name} E={n_envs}"
+            shapes[key] = entry
+            nb = 1 + t.num_agents + t.n_object_types + t.n_assembler_slots + t.n_chest_slots
+            log(f"[k5] {key} ({t.height}x{t.width}, {nb} block ids): byte-equal to the plain "
+                f"version on {steps} sequential steps; tokens per agent mean "
+                f"{tokens.float().mean():.1f} max {int(tokens.max())}; "
+                f"{entry['ms']:.4f} ms per launch on the device ({entry['host_ms']:.4f} ms at "
+                f"the wrapper's host pace), plain {entry['plain_ms']:.4f} ms, bound "
+                f"{entry['bound_ms']:.4f} ms ({nbytes / 1e6:.3f} MB at 3.35 TB/s "
+                f"{ {k: round(v / 1e6, 3) for k, v in parts.items()} } MB, {ops / 1e6:.2f} M "
+                f"int32 ops = {ops_ms:.4f} ms, {entry['bound_by']}), "
+                f"{100 * entry['bound_ms'] / entry['ms']:.1f}% of the bound")
+            if name == "combat" and n_envs == 10:
+                # the reset template's render through K5 against the plain renderer
+                template = env._template[0]
+                got = initial_observations(template, t)
+                t.obs_renderer = "ref"
+                want = initial_observations(template, t)
+                t.obs_renderer = "pl"
+                if not torch.equal(got, want) or not torch.equal(got, env._template[1]):
+                    raise AssertionError("initial_observations through K5 differ from the "
+                                         "plain renderer")
+                log("[k5] initial_observations through K5 byte-equal to the plain renderer "
+                    "and to the env's reset template")
+            del env, s, args
+    finally:
+        k5.render_obs1 = launch
+    res["k5_max_abs_err"] = err[0]
+    res["k5_shapes"] = shapes
+
+
+def sequential_gpu_vs_cpu(E=8, steps=30):
+    """The sequential env on the GPU against the CPU, byte for byte, with
+    the same agent orders and desync draws, through auto-reset: combat with
+    ``obs_renderer="pl"`` (K5 on the card), and the arena with a shared limit
+    group over laser and armor, asked for ``step_mode="batched"`` and taken
+    into the sequential step (its default renderer)."""
+    from metta_tpu_torch.config.mettagrid_config import ResourceLimitsConfig
+    from metta_tpu_torch.convert import state_to_numpy
+    from metta_tpu_torch.engine.env import MettaGridEnv
+    from metta_tpu_torch.ops import obs_render as k5
+
+    def gear(device):
+        from metta_tpu_torch.builder.envs import make_arena
+
+        cfg = make_arena(12)
+        cfg.game.map_builder.seed = SEED
+        cfg.game.max_steps = 12
+        cfg.game.agent.inventory.limits["gear"] = ResourceLimitsConfig(
+            limit=2, resources=["laser", "armor"])
+        return MettaGridEnv(cfg, num_envs=E, seed=0, step_mode="batched", device=device)
+
+    for label, make in (("combat pl", lambda d: seq_env(E, device=d)), ("gear arena", gear)):
+        envs = [make(d) for d in ("cuda", "cpu")]
+        if any(env.step_mode != "sequential" for env in envs):
+            raise AssertionError(f"{label}: not the sequential step")
+        A = envs[1].num_agents
+        rng = np.random.default_rng(14)
+        desync = rng.integers(1, steps, E)
+        obs = [env.reset(desync_step=desync) for env in envs]
+        if not torch.equal(obs[0].cpu(), obs[1]):
+            raise AssertionError(f"{label}: reset observations differ between GPU and CPU")
+        ended, k5_before = 0, k5.launches
+        for i in range(steps):
+            acts = rng.integers(0, envs[1].tables.n_actions, (E, A))
+            perm = torch.as_tensor(np.stack([rng.permutation(A) for _ in range(E)]))
+            outs = [env.step(acts, perm=perm) for env in envs]
+            for field, g, c in zip(("obs", "reward", "done", "truncated"), *outs):
+                if not torch.equal(g.cpu(), c):
+                    raise AssertionError(f"{label} step {i}: {field} differs between GPU and CPU")
+            ended += int((outs[1][2] | outs[1][3]).sum())
+            sg, sc = state_to_numpy(envs[0].state), state_to_numpy(envs[1].state)
+            for field in sc["env"]:
+                if not np.array_equal(sg["env"][field], sc["env"][field]):
+                    raise AssertionError(f"{label} step {i}: state field {field} differs")
+        k5_runs = k5.launches - k5_before
+        want = steps if envs[0].tables.obs_renderer == "pl" else 0
+        if k5_runs != want or ended < E:
+            raise AssertionError(f"{label}: K5 launched {k5_runs} times in {steps} steps, "
+                                 f"{ended} episode ends")
+        log(f"[gpu-vs-cpu] sequential {label} (inv_vector_ok={envs[1].tables.inv_vector_ok}, "
+            f"obs_renderer={envs[1].tables.obs_renderer}): state and obs byte-identical over "
+            f"{steps} steps at E={E}; {ended} episode ends (auto-reset); K5 launches {k5_runs}")
+
+
+def phase_sequential(res):
+    """This slice's main path: the sequential env (combat, 24 agents,
+    ``obs_renderer="pl"``) at E=4096 and E=1, ``MettaGridEnv.step`` with obs
+    consumed: env-steps/s (median of 3 windows after warm-up), K5 exactly
+    once a step and K1 = K2 = K4 = 0 over the timed steps, launches and the
+    device's busy share of a profiled step; then the GPU-against-CPU runs."""
+    from metta_tpu_torch.ops import obs_render as k5
+    from metta_tpu_torch.ops import obs_render2 as k4
+    from metta_tpu_torch.ops import obs_render3 as k1
+    from metta_tpu_torch.ops import sim_fused as k2
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    acc = torch.zeros((), dtype=torch.int64, device="cuda")
+    runs = {}
+    for n_envs, steps in ((E_MAIN, 4), (1, 10)):
+        env = seq_env(n_envs)
+        env.reset()
+        run = warmed_runner(env, gen, acc, warm=2)
+        k1.launches = k2.launches = k4.launches = k5.launches = 0   # the main path's run starts
+        walls = timed_windows(run, 3, steps)
+        launches = {"k1": k1.launches, "k2": k2.launches, "k4": k4.launches,
+                    "k5": k5.launches}                              # ... and ends
+        if launches != {"k1": 0, "k2": 0, "k4": 0, "k5": 3 * steps}:
+            raise AssertionError(f"sequential E={n_envs}: launches in {3 * steps} steps "
+                                 f"{launches}, expected K5 once a step and no other render")
+        wall = statistics.median(walls)
+        sps = n_envs * steps / wall
+        runs[n_envs] = dict(env_steps_per_s=sps, step_ms=1e3 * wall / steps, launches=launches)
+        log(f"[sequential] combat E={n_envs} A={AGENTS} obs_renderer=pl: {sps:.1f} env-steps/s, "
+            f"{sps * AGENTS:.1f} agent-steps/s; step {1e3 * wall / steps:.3f} ms (median of 3 "
+            f"windows of {steps} steps; windows s {[round(w, 4) for w in walls]}); launches in "
+            f"{3 * steps} steps: K5 {launches['k5']}, K1 {launches['k1']}, K2 {launches['k2']}, "
+            f"K4 {launches['k4']}; obs checksum {int(acc)}")
+        profile_steps(run, 1e3 * wall / steps, n=2, what=f"sequential step at E={n_envs}")
+        del env, run
+    res["sequential"] = runs
+    sequential_gpu_vs_cpu()
+
+    main = res["k5_shapes"][f"combat E={E_MAIN}"]
+    res.setdefault("kernels", []).append({
+        "name": "obs_render",
+        "route": "cuda",
+        "source": "metta_tpu_torch/csrc/obs_render.cu",
+        "replaces": "metta_tpu/ops/obs_render.py:39",
+        "launches": runs[E_MAIN]["launches"]["k5"],
+        "max_abs_err": res.get("k5_max_abs_err"),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+        "shape": f"combat E={E_MAIN}",
+        "shapes": [dict(shape=k, **v) for k, v in res["k5_shapes"].items()],
+    })
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1332,7 +1626,7 @@ def main() -> int:
     t_start = time.time()
     for phase in (phase_build, phase_k1_vs_plain, phase_k2_vs_plain, phase_k4_vs_plain,
                   phase_gpu_vs_cpu, phase_throughput, phase_k3_vs_plain, phase_policy,
-                  phase_train, phase_curriculum):
+                  phase_train, phase_curriculum, phase_k5_vs_plain, phase_sequential):
         t0 = time.time()
         try:
             phase(res)

@@ -1,15 +1,26 @@
 """Vectorized MettaGrid environment on one torch device.
 
-Counterpart of ``metta_tpu/engine/env.py:MettaGridEnv`` for
-``step_mode="batched"``. The batch is a real leading dimension of every
-state tensor. A step is the batched sim step, the obs prep in torch ops, and
-the token render (a CUDA kernel on a GPU, its plain version on the CPU):
-K1, ``csrc/obs_render3.cu``, where the JAX package's ``supports_v3`` holds
-for the config and E, else K4, ``csrc/obs_render2.cu``, as the JAX env picks
-its v3 or v2 TPU kernel (:func:`obs_renderer`). The sim step's interaction
-span is the fused kernel of ``csrc/sim_fused.cu`` wherever
-``supports_fused`` holds (on a GPU; its plain version on the CPU), as in the
-JAX env; elsewhere, as with ``track_stats=True``, it is the torch-ops step.
+Counterpart of ``metta_tpu/engine/env.py:MettaGridEnv``. The batch is a
+real leading dimension of every state tensor. Two step modes, as in the JAX
+env:
+
+- ``"sequential"`` (the default): the reference-exact step
+  (``engine/step.py:step_env``), each env's agents one at a time in a
+  shuffled order, with the render inside the step, by
+  ``tables.obs_renderer``: the torch-ops renderer by default, kernel K5
+  (``csrc/obs_render.cu``) with ``"pl"``. It is the only correct step for
+  configs whose inventory limits couple resources.
+- ``"batched"``: the rank-arbitrated step, then the token render: K1,
+  ``csrc/obs_render3.cu``, where the JAX package's ``supports_v3`` holds for
+  the config and E, else K4, ``csrc/obs_render2.cu``, as the JAX env picks
+  its v3 or v2 TPU kernel (:func:`obs_renderer`). The step's interaction
+  span is the fused kernel of ``csrc/sim_fused.cu`` wherever
+  ``supports_fused`` holds, as in the JAX env; elsewhere, as with
+  ``track_stats=True``, it is the torch-ops step. A config with coupled
+  inventory limits falls back to the sequential step
+  (``metta_tpu/engine/env.py:71-77``).
+
+Each kernel runs on a GPU; on the CPU its plain version does.
 
 Auto-reset: envs that terminate or truncate are reset in the same step call
 and return the new episode's initial observations. Episode desync
@@ -28,7 +39,7 @@ import torch
 from metta_tpu_torch.config.mettagrid_config import MettaGridConfig
 from metta_tpu_torch.engine.compiler import compile_game
 from metta_tpu_torch.engine.state import EPISODE_INVARIANT, EnvState, VecEnvState
-from metta_tpu_torch.engine.step import make_reset_batch, make_reset_template
+from metta_tpu_torch.engine.step import make_reset_batch, make_reset_template, step_env
 from metta_tpu_torch.engine.step_batched import check_supported, step_env_batched
 from metta_tpu_torch.engine.tables import Tables, attach_static_block_grid
 from metta_tpu_torch.ops.obs_render2 import rank_table, render_obs2
@@ -64,7 +75,10 @@ class MettaGridEnv:
       seed: seed of the env's ``torch.Generator`` (agent orders, desync).
       desync_episodes: truncate each env's first episode at a random step.
       track_stats: keep the gained/lost/chest stat accumulators.
-      step_mode: only "batched" is ported.
+      step_mode: "sequential" (the reference-exact agent loop) or "batched"
+        (rank arbitration; falls back to "sequential" for configs with
+        coupled inventory limits or chest search, which the sequential
+        step then refuses).
       device: where the state lives and the step runs; "cuda" by default.
     """
 
@@ -75,7 +89,7 @@ class MettaGridEnv:
         seed: int = 0,
         desync_episodes: Optional[bool] = None,
         track_stats: bool = True,
-        step_mode: str = "batched",
+        step_mode: str = "sequential",
         device="cuda",
     ):
         self.cfg = cfg
@@ -84,9 +98,11 @@ class MettaGridEnv:
         self.game_map = cfg.game.map_builder.create().build()
         self.compiled, self._init = compile_game(cfg.game, self.game_map)
         self.tables = Tables(self.compiled, track_stats=track_stats, device=self.device)
+        if step_mode == "batched" and (not self.tables.inv_vector_ok
+                                       or self.tables.chest_search_distance > 0):
+            step_mode = "sequential"
         check_supported(self.tables, step_mode)
         self.step_mode = step_mode
-        self._sim_step = fused_step_full if supports_fused(self.tables) else step_env_batched
         self.desync = cfg.desync_episodes if desync_episodes is None else desync_episodes
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -96,7 +112,10 @@ class MettaGridEnv:
 
         self._template = make_reset_template(self.tables, self._init)
         attach_static_block_grid(self.tables, self._template[0])
-        self._render = obs_renderer(self.tables, num_envs)
+        if step_mode == "batched":
+            self._sim_step = (fused_step_full if supports_fused(self.tables)
+                              else step_env_batched)
+            self._render = obs_renderer(self.tables, num_envs)
         self._state: Optional[VecEnvState] = None
 
     # ------------------------------------------------------------------
@@ -131,7 +150,10 @@ class MettaGridEnv:
         ), obs
 
     def _stepped(self, env: EnvState, actions, perm=None):
-        """Batched sim step + batched obs render -> (env, obs)."""
+        """Sim step + obs render -> (env, obs): the sequential step with its
+        own render, or the batched step and the batched render."""
+        if self.step_mode == "sequential":
+            return step_env(env, actions, self.tables, perm=perm, generator=self.generator)
         env, rew_at_obs = self._sim_step(env, actions, self.tables, perm=perm,
                                          generator=self.generator)
         return env, self._render(env, self.tables, env.executed_action, rew_at_obs)

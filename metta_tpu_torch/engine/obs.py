@@ -164,6 +164,21 @@ def block_table(state, tables):
     return tok, counts
 
 
+def render_observations(state, tables, executed_actions, rewards_at_obs):
+    """Render every agent's token observation -> [E, A, T, 3] uint8, by
+    ``tables.obs_renderer`` (``metta_tpu/engine/obs.py:303-322``): ``"pl"``
+    through kernel K5 (``ops/obs_render.py``), ``"mm"`` and ``"ref"``
+    through the torch-ops renderer :func:`render_observations_ref`, the
+    counterpart of the JAX package's XLA renderers (all byte-identical)."""
+    if tables.obs_renderer == "pl":
+        from metta_tpu_torch.ops.obs_render import prep_obs1, render_obs1
+
+        return render_obs1(*prep_obs1(state, tables, executed_actions, rewards_at_obs),
+                           tables.obs_scan, tables.num_obs_tokens, tables.obs_height // 2,
+                           tables.obs_width // 2)
+    return render_observations_ref(state, tables, executed_actions, rewards_at_obs)
+
+
 def render_observations_ref(state, tables, executed_actions, rewards_at_obs):
     """Render every agent's token observation -> [E, A, T, 3] uint8.
 

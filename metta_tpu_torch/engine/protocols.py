@@ -16,6 +16,40 @@ import torch
 NEIGHBOR_OFFS = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1))
 
 
+def agent_at(state, rr, cc):
+    """(is_agent, agent_idx) of the occupant of cells (rr, cc) [E, ...].
+
+    Derived by comparing against every agent position (an A-way compare),
+    not from the occupancy grid: the sequential step moves agents one at a
+    time and rebuilds the grid only after its loop
+    (``metta_tpu/engine/protocols.py:agent_at``). Agents stand at distinct
+    cells; ``agent_idx`` is 0 where no agent stands."""
+    E = state.agent_r.shape[0]
+    r = rr.reshape(E, -1, 1)
+    c = cc.reshape(E, -1, 1)
+    match = (state.agent_r[:, None, :] == r) & (state.agent_c[:, None, :] == c)  # [E, N, A]
+    idx = match.to(torch.uint8).argmax(-1)
+    return match.any(-1).reshape(rr.shape), idx.reshape(rr.shape)
+
+
+def surrounding_agents(state, tables, r, c):
+    """The 8 cells around (r, c) [E] from agent positions (:func:`agent_at`),
+    as the sequential step's assembler reads them: (key_vec [E, 8],
+    n_agents [E], is_agent [E, 8], agent_idx [E, 8], in_bounds [E, 8])
+    (``metta_tpu/engine/protocols.py:surrounding_vibe_key``)."""
+    H, W = tables.height, tables.width
+    offs = torch.tensor(NEIGHBOR_OFFS, dtype=torch.int32, device=r.device)
+    rr = r[:, None] + offs[:, 0]
+    cc = c[:, None] + offs[:, 1]
+    in_bounds = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < W)
+    occ, a_idx = agent_at(state, rr, cc)
+    is_agent = in_bounds & occ
+    vibes = state.agent_vibe.gather(1, a_idx)
+    vibes = torch.where(is_agent, vibes, torch.zeros_like(vibes))
+    return (sorted_vibe_key(vibes, tables.num_vibes), is_agent.sum(-1), is_agent, a_idx,
+            in_bounds)
+
+
 def neighbors(tables, agent_grid, agent_vibe, r, c):
     """The 8 cells around (r, c), read from the occupancy grid.
 

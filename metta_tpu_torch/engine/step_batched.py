@@ -51,18 +51,21 @@ _I32 = torch.int32
 
 
 def unsupported(tables, step_mode: str = "batched"):
-    """Names of the JAX subsystems this config needs that the port lacks."""
+    """Names of the JAX subsystems this config needs that the port's step of
+    ``step_mode`` ("batched" or "sequential") lacks."""
+    seq = step_mode == "sequential"
     gates = [
-        (step_mode != "batched",
-         "step_mode='sequential' (metta_tpu/engine/step.py:step_env)"),
-        (not tables.inv_vector_ok,
-         "shared inventory limit groups (metta_tpu/engine/inventory.py:shared_update)"),
+        (not seq and not tables.inv_vector_ok,
+         "shared inventory limit groups in the batched step (metta_tpu/engine/"
+         "step_batched.py; the env takes step_mode='sequential' for them)"),
         (tables.chest_search_distance > 0,
-         "assembler chest search (metta_tpu/engine/assembler.py)"),
+         "assembler chest search (metta_tpu/engine/assembler.py:103-130)"),
         (tables.has_bump_handlers,
-         "bump handlers (metta_tpu/engine/activation_wiring.py:bump_handlers_batched)"),
+         "bump handlers (metta_tpu/engine/activation_wiring.py:"
+         + ("bump_handlers_seq)" if seq else "bump_handlers_batched)")),
         (tables.has_chests,
-         "chests (metta_tpu/engine/step_batched.py:_chest_phase)"),
+         "chests (metta_tpu/engine/" + ("actions.py:chest_use)" if seq
+                                        else "step_batched.py:_chest_phase)")),
         (tables.has_regen, "inventory regen (metta_tpu/engine/rewards.py:apply_regen)"),
         (tables.has_damage, "damage (metta_tpu/engine/rewards.py:apply_damage)"),
         (tables.has_aoe, "AOE (metta_tpu/engine/activation_wiring.py:apply_aoe)"),

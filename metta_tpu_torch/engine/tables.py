@@ -35,7 +35,11 @@ class Tables:
 
     ``track_stats=False`` drops the gained/lost/chest stat accumulators when
     no compiled stat reward reads them (training envs turn them off; eval envs
-    keep them).
+    keep them). ``obs_renderer`` picks the render of the sequential step and
+    of reset (``engine/obs.py:render_observations``): ``"mm"`` (default) and
+    ``"ref"`` the torch-ops renderer, ``"pl"`` kernel K5; it is a plain
+    attribute, ``"mm"`` when built and set after construction by the caller
+    that wants another renderer.
     """
 
     # leaves holding one row per env (a task set's view, see tables_at)
@@ -45,6 +49,7 @@ class Tables:
                  device="cpu"):
         self._cfg = cfg
         self.device = torch.device(device)
+        self.obs_renderer = "mm"
 
         used_srcs = set(np.unique(cfg.stat_src))
         self.track_gained = track_stats or bool(

@@ -109,7 +109,7 @@ class MultiTaskEnv:
       desync_episodes: truncate each env's first episode at a random step
         (default: the first config's setting).
       track_stats: keep the gained/lost/chest stat accumulators.
-      step_mode: only "batched" is ported.
+      step_mode: only "batched" is ported for a task set.
       device: where the state lives and the step runs; "cuda" by default.
     """
 
@@ -122,6 +122,11 @@ class MultiTaskEnv:
         self.device = torch.device(device)
         self.tsdata, tables_list = build_task_set(self.cfgs, track_stats, device=self.device)
         self.tables = tables_list[0]   # statics view (shared across the set)
+        if step_mode != "batched" or not self.tables.inv_vector_ok:
+            # the JAX task set takes its sequential step here
+            raise NotImplementedError(
+                "not ported yet: the sequential step of a task set "
+                "(metta_tpu/engine/taskset.py:144-147)")
         check_supported(self.tables, step_mode)
         self.step_mode = step_mode
         self.compiled = self.tables._cfg

@@ -53,7 +53,8 @@ def v48():
     flax parameter tree)."""
     cfg = make_arena_basic_easy_shaped(24)
     cfg.game.map_builder.seed = 0
-    env = MettaGridEnv(cfg, num_envs=2, seed=0, track_stats=False, device="cpu")
+    env = MettaGridEnv(cfg, num_envs=2, seed=0, track_stats=False, step_mode="batched",
+                       device="cpu")
     env.reset()
     gen = torch.Generator().manual_seed(0)
     for _ in range(6):

@@ -7,10 +7,13 @@ the TPU kernel's limits; K4 (``csrc/obs_render2.cu``) on the same and on
 multi-task env GPU against CPU and a tiny multi-task trainer update; K2 (``csrc/sim_fused.cu``) on combat, cooperation
 and arena with gained/lost tracking, and at an E that no 128-env block
 divides; K3 (``csrc/discounted_sum.cu``) forward and backward at odd shapes
-and the advantages through it against the CPU; the wrappers' input checks;
-a few whole env steps on the GPU against the CPU; and a tiny trainer update
-through all three kernels. This file imports no JAX, so it runs on a machine
-with a card and torch alone:
+and the advantages through it against the CPU; K5 (``csrc/obs_render.cu``)
+on the sequential env's inputs at E=1 and E=64, arena30, a cut at T and a
+wrapping location byte, and the sequential env with K5 on the GPU against
+the CPU; the wrappers' input checks; a few whole env steps on the GPU
+against the CPU; and a tiny trainer update through all three kernels.
+This file imports no JAX, so it runs on a machine with a card and torch
+alone:
 
     python3 -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 """
@@ -25,6 +28,7 @@ from metta_tpu_torch.builder.envs import make_arena, make_combat, make_cooperati
 from metta_tpu_torch.engine.env import MettaGridEnv
 from metta_tpu_torch.engine.step_batched import batched_step, rank_from_perm
 from metta_tpu_torch.ops import discounted_sum as k3
+from metta_tpu_torch.ops import obs_render as k5
 from metta_tpu_torch.ops import obs_render2 as k4
 from metta_tpu_torch.ops import obs_render3 as k1
 from metta_tpu_torch.ops import sim_fused as k2
@@ -44,7 +48,8 @@ def _env(device, **obs):
     cfg.game.map_builder.seed = 1234
     for k, v in obs.items():
         setattr(cfg.game.obs, k, v)
-    return MettaGridEnv(cfg, num_envs=E, seed=0, track_stats=True, device=device)
+    return MettaGridEnv(cfg, num_envs=E, seed=0, track_stats=True, step_mode="batched",
+                        device=device)
 
 
 def _inputs(env, steps=6):
@@ -88,7 +93,8 @@ def test_k4_matches_plain(name, obs):
     if name == "arena30":
         cfg = make_arena(30)
         cfg.game.map_builder.seed = 1234
-        env = MettaGridEnv(cfg, num_envs=E, seed=0, track_stats=True, device=_cuda())
+        env = MettaGridEnv(cfg, num_envs=E, seed=0, track_stats=True, step_mode="batched",
+                           device=_cuda())
     else:
         env = _env(_cuda(), **obs)
     env.reset()
@@ -174,7 +180,8 @@ def _k2_env(name, n_envs, gained=False):
     (the attack and transfer vibes where the config has them)."""
     cfg = K2_CONFIGS[name](A)
     cfg.game.map_builder.seed = 1234
-    env = MettaGridEnv(cfg, num_envs=n_envs, seed=0, track_stats=False, device=_cuda())
+    env = MettaGridEnv(cfg, num_envs=n_envs, seed=0, track_stats=False, step_mode="batched",
+                       device=_cuda())
     if gained:
         env.tables.track_gained = True
     env.reset()
@@ -261,7 +268,7 @@ def test_env_fused_gpu_matches_cpu():
     plain version on the CPU) on both devices, byte for byte."""
     cfg = make_cooperation(A)
     cfg.game.map_builder.seed = 1234
-    envs = [MettaGridEnv(cfg, num_envs=E, seed=0, track_stats=False, device=d)
+    envs = [MettaGridEnv(cfg, num_envs=E, seed=0, track_stats=False, step_mode="batched", device=d)
             for d in (_cuda(), "cpu")]
     rng = np.random.default_rng(1)
     desync = rng.integers(1, 12, E)
@@ -378,3 +385,79 @@ def test_trainer_update_on_gpu():
     assert runs == [tr.T, tr.T, 1 + 2 * tr.n_minibatches]
     assert all(torch.isfinite(m) for m in metrics.values())
     assert float((ts.params - p0).abs().max()) > 0
+
+
+def _seq_env(device, n_envs, renderer="pl", make=make_combat, agents=A, **obs):
+    """The sequential env (the default step mode) with ``obs_renderer``."""
+    cfg = make(agents)
+    cfg.game.map_builder.seed = 1234
+    for k, v in obs.items():
+        setattr(cfg.game.obs, k, v)
+    env = MettaGridEnv(cfg, num_envs=n_envs, seed=0, device=device)
+    env.tables.obs_renderer = renderer
+    return env
+
+
+def _k5_inputs(env, steps=4):
+    env.reset()
+    gen = torch.Generator(device=env.device).manual_seed(steps)
+    for _ in range(steps):
+        env.step(torch.randint(0, env.tables.n_actions, (env.num_envs, env.num_agents),
+                               generator=gen, device=env.device))
+    s, t = env.state.env, env.tables
+    return (k5.prep_obs1(s, t, s.executed_action, s.reward),
+            (t.obs_scan, t.num_obs_tokens, t.obs_height // 2, t.obs_width // 2))
+
+
+@pytest.mark.parametrize("n_envs,make,agents,obs", [
+    (1, make_combat, A, {}), (64, make_combat, A, {}), (3, make_arena, 30, {}),
+    (5, make_combat, A, dict(num_tokens=24)), (2, make_combat, A, dict(width=17, height=17)),
+], ids=["combat_E1", "combat_E64", "arena30", "budget24", "window17"])
+def test_k5_matches_plain(n_envs, make, agents, obs):
+    args, extra = _k5_inputs(_seq_env(_cuda(), n_envs, make=make, agents=agents, **obs))
+    before = k5.launches
+    got = k5.render_obs1(*args, *extra)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    assert torch.equal(got, k5.render_obs1_plain(*args, *extra))
+
+
+def test_k5_wrapper_never_takes_the_plain_version(monkeypatch):
+    """A CUDA input launches the kernel or raises; it never reaches the
+    plain version."""
+    args, extra = _k5_inputs(_seq_env(_cuda(), 2), steps=1)
+    want = k5.render_obs1_plain(*args, *extra)
+
+    def plain(*_):
+        raise AssertionError("the plain version ran on CUDA inputs")
+    monkeypatch.setattr(k5, "render_obs1_plain", plain)
+    before = k5.launches
+    assert torch.equal(k5.render_obs1(*args, *extra), want)
+    assert k5.launches == before + 1
+    for i, bad in ((0, lambda x: x.to(torch.int64)), (2, lambda x: x.cpu()),
+                   (4, lambda x: x[:, :-1])):
+        changed = list(args)
+        changed[i] = bad(changed[i])
+        with pytest.raises(ValueError):
+            k5.render_obs1(*changed, *extra)
+    assert k5.launches == before + 1
+
+
+def test_sequential_env_gpu_matches_cpu():
+    """The sequential env with ``obs_renderer="pl"`` (K5 on the GPU, its
+    plain version on the CPU) on both devices, byte for byte, through
+    auto-reset; K5 renders every step and no other render kernel runs."""
+    envs = [_seq_env(_cuda(), E), _seq_env("cpu", E)]
+    rng = np.random.default_rng(3)
+    desync = rng.integers(1, 12, E)
+    obs = [env.reset(desync_step=desync) for env in envs]
+    assert torch.equal(obs[0].cpu(), obs[1])
+    before = (k1.launches, k2.launches, k4.launches, k5.launches)
+    for _ in range(12):
+        acts = rng.integers(0, envs[1].tables.n_actions, (E, A))
+        perm = torch.as_tensor(np.stack([rng.permutation(A) for _ in range(E)]))
+        outs = [env.step(acts, perm=perm) for env in envs]
+        for g, c in zip(*outs):
+            assert torch.equal(g.cpu(), c)
+    after = (k1.launches, k2.launches, k4.launches, k5.launches)
+    assert [b - a for a, b in zip(before, after)] == [0, 0, 0, 12]

@@ -96,7 +96,7 @@ def test_plain_matches_v3_plain_on_arena30(obs):
     cfg.game.map_builder.seed = 1234
     for k, v in obs.items():
         setattr(cfg.game.obs, k, v)
-    env = MettaGridEnv(cfg, num_envs=3, seed=0, device="cpu")
+    env = MettaGridEnv(cfg, num_envs=3, seed=0, step_mode="batched", device="cpu")
     t = env.tables
     nb = 1 + t.num_agents + t.n_object_types + t.n_assembler_slots + t.n_chest_slots
     assert nb == 149 and (t.height, t.width) == (62, 87) and not supports_v3(t, 3)
@@ -122,7 +122,7 @@ def test_dispatch_follows_the_jax_rule(monkeypatch):
             c.game.map_builder.seed = 1234
             for k, v in obs.items():
                 setattr(c.game.obs, k, v)
-        penv = MettaGridEnv(pc, num_envs=1, device="cpu")
+        penv = MettaGridEnv(pc, num_envs=1, step_mode="batched", device="cpu")
         compiled, _ = jax_compile_game(jc.game, jc.game.map_builder.create().build())
         jt = JaxTables(compiled)
         for E in (4, 170, 341, 4096):
@@ -136,7 +136,8 @@ def test_dispatch_follows_the_jax_rule(monkeypatch):
     cfg = make_arena(6)
     cfg.game.map_builder.seed = 1
     for E, want in ((4, "k1"), (10, "k4")):
-        env = MettaGridEnv(cfg, num_envs=E, device="cpu", track_stats=False)
+        env = MettaGridEnv(cfg, num_envs=E, device="cpu", track_stats=False,
+                           step_mode="batched")
         env.reset()
         env.step(np.zeros((E, 6), np.int64))
         assert calls[want] == 1, (E, calls)

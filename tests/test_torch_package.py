@@ -37,6 +37,8 @@ def test_port_imports_nothing_of_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "metta_tpu_torch.engine.env" in res["modules"]
     for name in ("ops.obs_render3", "ops.sim_fused", "ops.discounted_sum", "ops.obs_render2",
+                 "ops.obs_render", "engine.step", "engine.actions", "engine.assembler",
+                 "engine.refs", "engine.inventory_vec",
                  "engine.taskset", "cogworks.curriculum", "rl.advantage",
                  "rl.trainer", "rl.optim", "rl.checkpoint", "models.vit", "models.components"):
         assert f"metta_tpu_torch.{name}" in res["modules"], name

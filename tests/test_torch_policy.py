@@ -43,7 +43,8 @@ def arena():
     """(compiled config, [2, 24, 200, 3] uint8 obs after 6 random steps)."""
     cfg = make_arena_basic_easy_shaped(24)
     cfg.game.map_builder.seed = 0               # the same map on every run
-    env = MettaGridEnv(cfg, num_envs=2, seed=0, track_stats=False, device="cpu")
+    env = MettaGridEnv(cfg, num_envs=2, seed=0, track_stats=False, step_mode="batched",
+                       device="cpu")
     env.reset()
     gen = torch.Generator().manual_seed(0)
     for _ in range(6):

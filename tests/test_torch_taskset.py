@@ -273,7 +273,7 @@ def test_each_env_reads_its_own_tables():
     assert {"agent_lims", "proto_cooldown", "type_max_uses", "attack_consumed",
             "transfer_actor_delta", "stat_w"} <= mt.tsdata.tables.varying
     singles = [MettaGridEnv(copy.deepcopy(c), num_envs=n, seed=0, desync_episodes=False,
-                            track_stats=True, device="cpu") for c in cfgs]
+                            track_stats=True, step_mode="batched", device="cpu") for c in cfgs]
     obs = mt.reset(task_id=tid)
     for k, env in enumerate(singles):
         np.testing.assert_array_equal(env.reset().numpy()[tid == k], obs[tid == k])
@@ -310,7 +310,7 @@ def test_single_task_set_matches_plain_env():
     n = 3
     mt = MultiTaskEnv([copy.deepcopy(cfg)], num_envs=n, desync_episodes=False, device="cpu")
     plain = MettaGridEnv(copy.deepcopy(cfg), num_envs=n, desync_episodes=False,
-                         track_stats=False, device="cpu")
+                         track_stats=False, step_mode="batched", device="cpu")
     np.testing.assert_array_equal(mt.reset(), plain.reset().numpy())
     assert not mt.tsdata.tables.varying
     rng = np.random.default_rng(0)
