@@ -7,6 +7,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (each one a hard failure):
 
 1. build every CUDA kernel of the port from ``metta_tpu_torch/csrc`` (K1-K5,
+   with S5 and S4 as instantiations of K1's and K4's sources, and S1-S3,
    one ``nvcc`` per source, all started together) and print the card's name
    and power limit;
 2. K1 (``csrc/obs_render3.cu``) against its plain torch version
@@ -81,7 +82,22 @@ Phases (each one a hard failure):
    the device's busy share of a profiled step; then the sequential env on the
    GPU against the CPU over 30 steps with auto-reset and desync: combat with
    K5, and the arena with a shared limit group over laser and armor, asked
-   for ``step_mode="batched"`` and taken into the sequential step.
+   for ``step_mode="batched"`` and taken into the sequential step;
+13. the analysis path, the five kernel-analysis scripts of
+   ``metta_tpu_torch/scripts`` through their ``main`` at the JAX scripts'
+   default sizes: S5, K1's section ablation, and S4, K4's (combat, E=4096:
+   ``none``, each section stubbed alone, all stubbed), every variant equal to
+   its plain version in the bytes it defines and ``none`` byte-equal to the
+   production kernel; S3, the sim-kernel smoke check, at E=256 and 257; S2,
+   the nine pair-mat cases at E=4096, byte-equal; S1, the ten primitive
+   cases at G=1024, reps 16, eps 4 (float32 within rtol 1e-6, the bf16
+   GEMMs within 1e-3 of their largest magnitude); each variant's and case's
+   time, bound and plain time; the launch counts of the scripts' run; each
+   repeat loop found in the SASS (``cuobjdump -sass``) with the loads and
+   arithmetic it must hold, its instruction count printed; K1's and K4's
+   production instantiation at their registers (40 and 32) with no stack or
+   local memory; ``torch.bmm`` on the S1 GEMMs' operands as the library
+   yardstick.
 
 Prints a JSON line of kernels, the card's name and power limit, then as the
 last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
@@ -91,6 +107,7 @@ result, without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -100,13 +117,17 @@ import traceback
 import numpy as np
 import torch
 
+try:
+    from metta_tpu_torch.ops.ablate_obs import render_work
+    from metta_tpu_torch.ops.timing import (F32_OPS_PER_S, HBM_BYTES_PER_S, bound_of,
+                                            cuda_time_ms)
+    PORT_MISSING = None
+except ImportError as e:          # outside a checkout of the repository: main() refuses
+    PORT_MISSING = e
+
 E_MAIN = 4096
 AGENTS = 24
 SEED = 1234
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (NVIDIA data sheet)
-# H100 SXM int32 rate outside the tensor cores: half the data sheet's 67 T/s
-# float32 rate (64 int32 lanes per SM against 128 float32 lanes), counted alike
-INT32_OPS_PER_S = 33.5e12
 
 
 def log(*args):
@@ -129,25 +150,6 @@ def make_cfg(name="combat"):
     return cfg
 
 
-def cuda_time_ms(fn, reps: int, queue_ahead: bool = True) -> float:
-    """Milliseconds per call of ``fn`` between CUDA events around ``reps``
-    calls. With ``queue_ahead`` the stream first spins for about 0.25 s, so
-    the host queues the calls while the device is busy and the events time
-    the device's work alone; without it a wrapper whose host side outlasts its
-    kernel is timed at the host's pace."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    if queue_ahead:
-        torch.cuda._sleep(500_000_000)                 # clock cycles
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def phase_build(res):
     from metta_tpu_torch.ops import build
 
@@ -160,48 +162,6 @@ def phase_build(res):
 def render_args(tables):
     return (tables.obs_scan, tables.num_obs_tokens, tables.obs_height // 2,
             tables.obs_width // 2)
-
-
-def k1_work(args, scan, T):
-    """What K1 must do for these inputs: (bytes, operations, parts in bytes).
-
-    Each output byte is written once. Each input byte the render needs is
-    read once: the distinct grid cells of the windows up to the cell that
-    fills the T slots (the walk stops there), the count of each distinct
-    block those cells hold and the tokens taken from it, the agents'
-    positions, global-token counts and global tokens, the window offsets.
-    Operations: one add per walked cell (the prefix sum) and one select per
-    output slot."""
-    sb, tok, counts, rc, g_count, g_tok = args
-    E, H, W = sb.shape
-    A, NB, S = rc.shape[1], tok.shape[1], scan.shape[0]
-    rr = rc[..., 0:1].long() + scan[:, 0].long()                        # [E, A, S]
-    cc = rc[..., 1:2].long() + scan[:, 1].long()
-    inb = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < W)
-    flat = (rr.clamp(0, H - 1) * W + cc.clamp(0, W - 1)).reshape(E, -1)
-    b = torch.where(inb, sb.reshape(E, -1).gather(1, flat).reshape(E, A, S), 0).long()
-    n = counts.gather(1, b.reshape(E, -1)).reshape(E, A, S).long()
-    g = g_count.long().clamp(max=T)[..., None]
-    free = T - g - (n.cumsum(-1) - n)                 # slots left on reaching the cell
-    walked = inb & (free > 0)
-    taken = torch.where(walked, torch.minimum(n, free), 0)
-    cells = torch.zeros((E, H * W + 1), dtype=torch.int8, device=sb.device)
-    cells.scatter_(1, torch.where(walked, flat.reshape(E, A, S), H * W).reshape(E, -1), 1)
-    cells = cells[:, :H * W]                          # the spare column takes the unwalked
-    blocks = torch.zeros((E, NB), dtype=torch.int64, device=sb.device)
-    blocks.scatter_reduce_(1, b.reshape(E, -1), torch.where(walked, taken + 1, 0).reshape(E, -1),
-                           reduce="amax")             # 1 + tokens taken, 0 = unread
-    parts = {
-        "grid": 4 * int(cells.sum()),
-        "counts": 4 * int((blocks > 0).sum()),
-        "tokens": 2 * int((blocks - 1).clamp(min=0).sum()),
-        "rc+gcnt": 12 * E * A,
-        "gtok": 3 * int(g.sum()),
-        "scan": 8 * S,
-        "out": 3 * E * A * T,
-    }
-    ops = int(walked.sum()) + E * A * T
-    return sum(parts.values()), ops, parts
 
 
 def checked_render(err):
@@ -419,7 +379,7 @@ def phase_k4_vs_plain(res):
         if k1_too:
             entry["k1_ms"] = cuda_time_ms(lambda: k1.render_obs3(*args, *render_args(t)), 50)
         k4.launches, k1.launches = before, before1     # timing launches do not count
-        nbytes, ops, parts = k1_work(args, t.obs_scan, t.num_obs_tokens)
+        nbytes, ops, parts = render_work(args, t.obs_scan, t.num_obs_tokens)
         entry["bound_ms"], entry["bound_by"], _ = bound_of(nbytes, ops)
         entry["mb"] = nbytes / 1e6
         shapes[name] = entry
@@ -668,12 +628,6 @@ def k2_work(state, acts, t):
     return sum(parts.values()), ops, parts
 
 
-def bound_of(nbytes, ops):
-    """(bound ms, what binds): bytes at 3.35 TB/s against int32 ops at 33.5 T/s."""
-    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT32_OPS_PER_S
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), ops_ms
-
-
 def warmed_runner(env, gen, acc, warm=10):
     """A function stepping ``env`` n times with random actions, obs consumed
     every step (summed into ``acc``), after ``warm`` warm-up steps."""
@@ -765,7 +719,7 @@ def phase_throughput(res):
                          queue_ahead=False)
     plain1 = cuda_time_ms(lambda: k1.render_obs3_plain(*args, *render_args(t)), 5)
     k1.launches = before                               # timing launches do not count
-    nbytes, ops, parts = k1_work(args, t.obs_scan, t.num_obs_tokens)
+    nbytes, ops, parts = render_work(args, t.obs_scan, t.num_obs_tokens)
     bound1, by1, ops_ms1 = bound_of(nbytes, ops)
     whole = sum(x.numel() * x.element_size() for x in (*args, t.obs_scan, out))
     log(f"[k1] {ms1:.4f} ms per launch on the device ({host1:.4f} ms a call at the "
@@ -830,7 +784,6 @@ def phase_throughput(res):
         f"windows s {[round(w, 4) for w in walls]})")
 
 
-F32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside the tensor cores
 BUNDLE = "devops_runs/stable_100m/checkpoints/stable_100m:v48"
 E_TRAIN = 170                  # the learner's envs (metta_tpu/devops/stable.py:91-107)
 
@@ -1609,14 +1562,235 @@ def phase_sequential(res):
     })
 
 
+# Registers of the production renders' instantiation (mask 0), as `ptxas -v`
+# gave them in this script's build log before the sources became templates:
+# the templated source must compile K1 and K4 to the same code.
+PRODUCTION_REGISTERS = {"obs_render3": ("obs_render3_kernelILi0E", 40),
+                        "obs_render2": ("obs_render2_kernelILi0E", 32)}
+PRODUCTION_MS = {"K1": 0.1382, "K4": 0.1476}   # PERF.md's kernel table, combat E=4096
+# Each micro-benchmark kernel's repeat loop, found in the SASS: (library,
+# fragment of the mangled name, opcodes the loop body must hold: the rep's
+# arithmetic and, where the TPU body reads its block every rep, the load).
+# S3 has no repeat loop: its shuffles, ballot and shared atomics are counted
+# in the function.
+SASS_LOOPS = [
+    *[("ubench_pairmat", f"pairmat_kernelILi{i}E", ops) for i, ops in enumerate((
+        ("ISETP",), ("IADD3",), ("SHFL",), ("IADD3",), ("SHFL", "ISETP"), ("SHFL",),
+        ("IADD3",), ("ISETP",), ("I2F",)))],
+    ("ubench_mosaic", "tiny_kernel", ("FADD",)),
+    ("ubench_mosaic", "fold_kernel", ("FADD", "LDG")),
+    ("ubench_mosaic", "transpose_kernel", ("FADD", "LDG")),
+    ("ubench_mosaic", "droll_kernel", ("FADD", "LDG")),
+    ("ubench_mosaic", "rep_kernel", ("FADD", "LDG")),
+    ("ubench_mosaic", "compact_kernel", ("FSETP", "LDS")),
+    ("ubench_mosaic", "gemm_kernel", ("HMMA", "LDG")),
+]
+SASS_ADDR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+
+
+def sass_functions(text):
+    """{mangled name: [(address, instruction)]} from ``cuobjdump -sass``."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = SASS_ADDR.search(line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2).strip()))
+    return funcs
+
+
+def opcode(ins):
+    toks = ins.split()
+    if toks and toks[0].startswith("@"):
+        toks = toks[1:]
+    return toks[0].split(".")[0] if toks else ""
+
+
+def sass_loop(instrs, ops):
+    """The smallest loop (a backward branch's span) whose body holds every
+    opcode of ``ops``: (instructions in the body, {op: count}), or None."""
+    best = None
+    for addr, ins in instrs:
+        m = re.search(r"\b0x([0-9a-f]+)", ins)
+        if opcode(ins) != "BRA" or not m or int(m.group(1), 16) > addr:
+            continue
+        body = [i for a, i in instrs if int(m.group(1), 16) <= a <= addr]
+        counts = {op: sum(opcode(i).startswith(op) for i in body) for op in ops}
+        if all(counts.values()) and (best is None or len(body) < best[0]):
+            best = (len(body), counts)
+    return best
+
+
+def check_sass():
+    """Every micro-benchmark's repeat loop is in the SASS (hard failure), with
+    its instruction count; S3's shuffles, ballot and shared atomics are there."""
+    from metta_tpu_torch.ops import build
+
+    dumps = {lib: sass_functions(build.cuobjdump(lib, "-sass"))
+             for lib in ("ubench_pairmat", "ubench_mosaic", "smoke_sim")}
+    found = {}
+    for lib, frag, ops in SASS_LOOPS:
+        names = [n for n in dumps[lib] if frag in n]
+        if not names:
+            raise AssertionError(f"{lib}: no kernel {frag} in the SASS ({sorted(dumps[lib])})")
+        loop = sass_loop(dumps[lib][names[0]], ops)
+        if loop is None:
+            head = "\n".join(i for _, i in dumps[lib][names[0]][:80])
+            raise AssertionError(f"{lib} {frag}: no loop holding {ops} in the SASS:\n{head}")
+        found[frag] = dict(loop_instructions=loop[0], ops=loop[1],
+                           function_instructions=len(dumps[lib][names[0]]))
+        log(f"[sass] {lib} {frag}: repeat loop of {loop[0]} instructions, {loop[1]}; "
+            f"{len(dumps[lib][names[0]])} instructions in the kernel")
+    (name, instrs), = [(n, i) for n, i in dumps["smoke_sim"].items() if "smoke_sim_kernel" in n]
+    ops = {op: sum(opcode(i).startswith(op) for _, i in instrs) for op in ("SHFL", "VOTE", "ATOMS")}
+    if not all(ops.values()):
+        raise AssertionError(f"smoke_sim: warp primitives missing from the SASS: {ops}")
+    log(f"[sass] smoke_sim_kernel: {len(instrs)} instructions; {ops}")
+    found["smoke_sim_kernel"] = dict(function_instructions=len(instrs), **ops)
+    return found
+
+
+def check_registers():
+    """K1's and K4's production instantiation (mask 0) use the registers they
+    used before the ablation templates, with no stack or local memory."""
+    from metta_tpu_torch.ops import build
+
+    out = {}
+    for lib, (frag, want) in PRODUCTION_REGISTERS.items():
+        usage, cur = {}, None
+        for line in build.cuobjdump(lib, "-res-usage").splitlines():
+            m = re.search(r"Function (\S+?):?$", line.strip())
+            if m:
+                cur = m.group(1)
+            elif "REG:" in line and cur is not None:
+                usage[cur] = dict((k, int(v)) for k, v in re.findall(r"(\w+):(\d+)", line))
+        hits = [u for n, u in usage.items() if frag in n]
+        if not hits:
+            raise AssertionError(f"{lib}: no {frag} in the resource usage ({sorted(usage)})")
+        u = hits[0]
+        log(f"[registers] {lib} mask 0: {u.get('REG')} registers (want {want}), stack "
+            f"{u.get('STACK')}, local {u.get('LOCAL')}; {len(usage)} instantiations")
+        if u.get("REG") != want or u.get("STACK", 0) or u.get("LOCAL", 0):
+            raise AssertionError(f"{lib} mask 0 compiled to {u}, not {want} registers unspilled")
+        out[lib] = u
+    return out
+
+
+def sum_entry(rows, key):
+    vals = [r[key] for r in rows if r.get(key) is not None]
+    return sum(vals) if vals else None
+
+
+def phase_analysis(res):
+    """Phase 13, the analysis path: the five kernel-analysis scripts at the
+    JAX scripts' default sizes, each kernel held to its plain version inside
+    the script; the launch counts of the scripts' run, the SASS's repeat
+    loops, K1's and K4's production registers; S3's time and the S1 GEMMs'
+    ``torch.bmm`` time (the library yardstick) after the run."""
+    from metta_tpu_torch.ops import ablate_obs as ab
+    from metta_tpu_torch.ops import smoke_sim as s3
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+    from metta_tpu_torch.ops import ubench_pairmat as s2
+    from metta_tpu_torch.scripts import (ablate_obs, ablate_obs3, smoke_sim_kernel,
+                                         ubench_mosaic, ubench_pairmat)
+
+    registers = check_registers()
+    sass = check_sass()
+    ab.launches_obs3 = ab.launches_obs2 = s3.launches = s2.launches = s1.launches = 0
+    t0 = time.time()
+    s5_rows = ablate_obs3.main([])
+    s4_rows = ablate_obs.main([])
+    for n in (256, 257):
+        smoke_sim_kernel.main(["--num-envs", str(n)])
+    s2_rows = ubench_pairmat.main([])
+    s1_rows = ubench_mosaic.main([])
+    launches = {"S5": ab.launches_obs3, "S4": ab.launches_obs2, "S3": s3.launches,
+                "S2": s2.launches, "S1": s1.launches}                  # the run ends
+    log(f"[analysis] the five scripts in {time.time() - t0:.1f} s; launches {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the analysis path never launched: {launches}")
+
+    production = {
+        "K1": next((k["ms"] for k in res.get("kernels", []) if k["name"] == "obs_render3"), None),
+        "K4": res.get("k4_shapes", {}).get(f"combat E={E_MAIN}", {}).get("ms"),
+    }
+    for name, rows in (("K1", s5_rows), ("K4", s4_rows)):
+        none = next(r for r in rows if r["variant"] == "none")
+        prod = production[name]
+        log(f"[analysis] {name} at combat E={E_MAIN}: production "
+            + (f"{prod:.4f} ms ({100 * (prod / PRODUCTION_MS[name] - 1):+.1f}% from PERF.md's "
+               f"{PRODUCTION_MS[name]} ms)" if prod is not None else "not timed in this run")
+            + f", the ablation's none {none['ms']:.4f} ms")
+
+    s3_shapes = []
+    for n in (256, 257):
+        rng = np.random.default_rng(n)
+        r = torch.as_tensor(rng.integers(0, 5, (s3.A, n), dtype=np.int32), device="cuda")
+        inv = torch.as_tensor(rng.integers(0, 3, (s3.R, s3.A, n), dtype=np.int32), device="cuda")
+        before = s3.launches
+        ms = cuda_time_ms(lambda: s3.smoke_sim(r, inv), 50)
+        s3.launches = before                           # timing launches do not count
+        bound, by, _ = bound_of(4 * s3.A * n * (2 + s3.R), 2 * s3.A * s3.A * n + s3.R * s3.A * n)
+        s3_shapes.append(dict(shape=f"E={n}", ms=ms, bound_ms=bound, bound_by=by,
+                              plain_ms=cuda_time_ms(lambda: s3.smoke_sim_plain(r, inv), 5),
+                              max_abs_err=0))
+        log(f"[analysis] S3 E={n}: {ms:.4f} ms, bound {bound:.5f} ms ({by}), plain "
+            f"{s3_shapes[-1]['plain_ms']:.4f} ms")
+
+    for row in s1_rows:
+        row["library_ms"] = None
+        if row["case"] in s1.GEMMS:
+            a, b = s1.make_inputs(row["case"], 1024, 4, 0, "cuda")
+            a3, b3 = a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:])
+            row["library_ms"] = cuda_time_ms(lambda: torch.bmm(a3, b3), 10)
+            log(f"[analysis] S1 {row['case']}: kernel {row['ms']:.4f} ms, torch.bmm on the same "
+                f"bf16 operands {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+            del a, b, a3, b3
+
+    def entry(name, source, replaces, key, rows, label, shape, main=None):
+        top = main if main is not None else dict(
+            ms=sum_entry(rows, "ms"), plain_ms=sum_entry(rows, "plain_ms"),
+            bound_ms=sum_entry(rows, "bound_ms"),
+            bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"])
+        return {
+            "name": name, "route": "cuda", "source": f"metta_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": max(r.get("max_abs_err", 0) for r in rows),
+            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top.get("library_ms"),
+            "shape": shape,
+            "shapes": [dict(shape=r[label], **{k: v for k, v in r.items() if k != label})
+                       for r in rows],
+        }
+
+    none5 = next(r for r in s5_rows if r["variant"] == "none")
+    none4 = next(r for r in s4_rows if r["variant"] == "none")
+    res.setdefault("kernels", []).extend([
+        entry("obs_render3_ablate", "obs_render3.cu", "scripts/ablate_obs3.py:211", "S5",
+              s5_rows, "variant", f"combat E={E_MAIN}, the none variant", main=none5),
+        entry("obs_render2_ablate", "obs_render2.cu", "scripts/ablate_obs.py:226", "S4",
+              s4_rows, "variant", f"combat E={E_MAIN}, the none variant", main=none4),
+        entry("smoke_sim", "smoke_sim.cu", "scripts/smoke_sim_kernel.py:65", "S3",
+              s3_shapes, "shape", "E=256", main=s3_shapes[0]),
+        entry("ubench_pairmat", "ubench_pairmat.cu", "scripts/ubench_pairmat.py:156", "S2",
+              s2_rows, "case", f"the sum of the 9 cases at E={E_MAIN}"),
+        entry("ubench_mosaic", "ubench_mosaic.cu", "scripts/ubench_mosaic.py:42", "S1",
+              s1_rows, "case", "the sum of the 10 cases at G=1024, reps 16, eps 4 (torch.bmm "
+              "beside the GEMMs under shapes)"),
+    ])
+    res["analysis"] = dict(registers=registers, sass=sass, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    try:
-        import metta_tpu_torch  # noqa: F401
-    except ImportError as e:
-        print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
+    if PORT_MISSING is not None:
+        print(f"chip_smoke: run from a checkout of the repository ({PORT_MISSING})",
+              file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1626,7 +1800,8 @@ def main() -> int:
     t_start = time.time()
     for phase in (phase_build, phase_k1_vs_plain, phase_k2_vs_plain, phase_k4_vs_plain,
                   phase_gpu_vs_cpu, phase_throughput, phase_k3_vs_plain, phase_policy,
-                  phase_train, phase_curriculum, phase_k5_vs_plain, phase_sequential):
+                  phase_train, phase_curriculum, phase_k5_vs_plain, phase_sequential,
+                  phase_analysis):
         t0 = time.time()
         try:
             phase(res)

@@ -1,0 +1,342 @@
+// Primitive micro-benchmarks for Hopper (sm_90a), plain C interface for ctypes.
+//
+// Replaces the Pallas TPU kernels of scripts/ubench_mosaic.py (pallas_call
+// at :42 in run_kernel, and at :125, :170, :190, :206): ten cases, each
+// repeating one primitive that a redesigned render would be built from.
+// Their plain torch versions are metta_tpu_torch/ops/ubench_mosaic.py:plain.
+//
+//   M5  tiny      acc = x + 1 (reps times)                     [264, 128] f32
+//   M1  fold      acc += reshape(x, [264, 2048])               [4224, 128] f32
+//   M1b fold      acc += reshape(x, [EA, 1408])                [EA*11, 128] f32
+//   M2  transpose acc += x.T                                   [EA, 128] f32
+//   M3  droll     acc += roll(x, shift[i % 24], lanes)         [16, 128] f32
+//   M4  rep       acc += tile(x, 11 rows)                      [264, 128] f32
+//   M6a gemm      sum over EPS of a_e @ b_e, rows :128         [3072, 72] x [72, 128] bf16
+//   M6b gemm      a @ b, rows :128                             [EPS*3072, EPS*72] x [EPS*72, 128]
+//   M6c gemm      a @ b, rows :128                             [EPS*384, EPS*72] x [EPS*72, 128]
+//   M7  compact   ten roll/select stages over a [EA, 640] plane
+//
+// Every TPU case writes one output block from every grid step, so the last
+// step's write stands. Here blocks run in any order, so each block writes
+// its own slot [G, ...]; the wrapper's caller takes slot G-1. What the TPU
+// output drops (the relayouts' other columns, the GEMMs' other rows) goes
+// into a second output: a per-block checksum, the wrapping int32 sum of the
+// float bit patterns (exact in any order) or, for the GEMMs, a float32 sum.
+//
+// Keeping the work real: the relayouts (M1, M1b, M2, M3, M4) are address
+// arithmetic on Hopper, so every rep reloads each element it reads, from L1
+// after the first: its address is offset by r * rep_stride, a kernel
+// argument the launchers set to 0, so that no compiler stage can prove two
+// reps' loads alike and merge them (an empty asm barrier on the pointer
+// does not stop ptxas from merging them). Every repeat loop carries its sum
+// through `opaque`, an empty asm that stops the compiler from folding the
+// reps into one operation (as jax.lax.optimization_barrier does). The loops
+// stay loops: chip_smoke.py counts their instructions in the SASS and
+// checks that each holds its loads and its arithmetic.
+//
+// What bounds them: M1, M1b, M4 and M5 read their 0.1-2.2 GB inputs once
+// and add reps times; the adds bound them at 67 T f32 ops/s, the bytes at
+// 3.35 TB/s. The GEMMs are the tensor cores' (nvcuda::wmma 16x16x16, bf16
+// in, f32 accumulation; the depth 72 padded to 80 with zeros in shared
+// memory), a simple kernel: one block of 8 warps per 128-row tile, the
+// operands staged through shared memory 16 deep at a time. wgmma and TMA
+// are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kCols = 640;                 // M7's plane width
+constexpr int kPerLane = kCols / 32;
+
+__device__ __forceinline__ float opaque(float v) {
+  asm volatile("" : "+f"(v));
+  return v;
+}
+
+// The block's wrapping sum of `v` into *dst (thread 0 writes).
+__device__ void block_bitsum(uint32_t v, int32_t* dst) {
+  __shared__ uint32_t part[kWarps];
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t s = 0;
+    for (int w = 0; w < kWarps; ++w) s += part[w];
+    *dst = (int32_t)s;
+  }
+}
+
+// M5: acc = x[g] + 1, reps times -> out[g] (x, out: [G, n]).
+__global__ void __launch_bounds__(kThreads) tiny_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int n, int reps) {
+  const size_t base = (size_t)blockIdx.x * n;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    float acc = x[base + i];
+    for (int r = 0; r < reps; ++r) acc = opaque(acc + 1.0f);
+    out[base + i] = acc;
+  }
+}
+
+// M1, M1b: acc [n / width, width] += reshape(x[g]) (row-major: the same
+// flat index), reps times; columns < 128 -> out[g] [n / width, 128], the
+// rest's bits -> cks[g].
+__global__ void __launch_bounds__(kThreads) fold_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int32_t* __restrict__ cks,
+    int n, int width, int reps, int rep_stride) {
+  const float* xg = x + (size_t)blockIdx.x * n;
+  float* og = out + (size_t)blockIdx.x * (n / width) * 128;
+  uint32_t bits = 0;
+  for (int f = threadIdx.x; f < n; f += kThreads) {
+    float acc = 0.0f;
+    for (int r = 0; r < reps; ++r) acc = opaque(acc + xg[f + r * rep_stride]);
+    const int c = f % width;
+    if (c < 128) {
+      og[(f / width) * 128 + c] = acc;
+    } else {
+      bits += __float_as_uint(acc);
+    }
+  }
+  block_bitsum(bits, cks + blockIdx.x);
+}
+
+// M2: acc [128, rows] += x[g].T (x [G, rows, 128]), reps times -> out[g].
+__global__ void __launch_bounds__(kThreads) transpose_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int rows, int reps, int rep_stride) {
+  const int n = rows * 128;
+  const float* xg = x + (size_t)blockIdx.x * n;
+  float* og = out + (size_t)blockIdx.x * n;
+  for (int o = threadIdx.x; o < n; o += kThreads) {
+    const int c = o / rows, r = o - c * rows;
+    float acc = 0.0f;
+    for (int i = 0; i < reps; ++i) acc = opaque(acc + xg[r * 128 + c + i * rep_stride]);
+    og[o] = acc;
+  }
+}
+
+// M3: acc [rows, 128] += roll(x[g], shifts[i % nshift], lanes), reps times.
+__global__ void __launch_bounds__(kThreads) droll_kernel(
+    const float* __restrict__ x, const int32_t* __restrict__ shifts, float* __restrict__ out,
+    int rows, int nshift, int reps, int rep_stride) {
+  const int n = rows * 128;
+  const float* xg = x + (size_t)blockIdx.x * n;
+  float* og = out + (size_t)blockIdx.x * n;
+  for (int o = threadIdx.x; o < n; o += kThreads) {
+    const int r = o >> 7, j = o & 127;
+    float acc = 0.0f;
+    for (int i = 0; i < reps; ++i) {
+      const int s = shifts[i % nshift];
+      acc = opaque(acc + xg[r * 128 + ((j - s) & 127) + i * rep_stride]);
+    }
+    og[o] = acc;
+  }
+}
+
+// M4: acc [copies * rows, 128] += tile(x[g], copies rows), reps times; the
+// first `n` elements -> out[g], the rest's bits -> cks[g].
+__global__ void __launch_bounds__(kThreads) rep_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int32_t* __restrict__ cks,
+    int n, int copies, int reps, int rep_stride) {
+  const float* xg = x + (size_t)blockIdx.x * n;
+  float* og = out + (size_t)blockIdx.x * n;
+  uint32_t bits = 0;
+  for (int o = threadIdx.x; o < n * copies; o += kThreads) {
+    const int src = o % n;
+    float acc = 0.0f;
+    for (int r = 0; r < reps; ++r) acc = opaque(acc + xg[src + r * rep_stride]);
+    if (o < n) {
+      og[o] = acc;
+    } else {
+      bits += __float_as_uint(acc);
+    }
+  }
+  block_bitsum(bits, cks + blockIdx.x);
+}
+
+// M7: per row of x[g] [rows, 640]: v = x, d = x / 2; reps times, for b < 10:
+// the plane rolled left by 2^b where d rolled left is > 0.5 (d then less
+// 2^b). Columns < 128 of v -> out[g] [rows, 128], the rest's bits -> cks[g].
+// One warp a row, the row in shared memory, 20 columns a lane.
+__global__ void __launch_bounds__(kThreads) compact_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int32_t* __restrict__ cks,
+    int rows, int reps) {
+  __shared__ float sv[kWarps][kCols];
+  __shared__ float sd[kWarps][kCols];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* xg = x + (size_t)blockIdx.x * rows * kCols;
+  float* og = out + (size_t)blockIdx.x * rows * 128;
+  uint32_t bits = 0;
+  for (int row = warp; row < rows; row += kWarps) {
+    float v[kPerLane], d[kPerLane];
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int j = lane + 32 * k;
+      v[k] = xg[(size_t)row * kCols + j];
+      d[k] = v[k] * 0.5f;
+      sv[warp][j] = v[k];
+      sd[warp][j] = d[k];
+    }
+    __syncwarp();
+    for (int r = 0; r < reps; ++r) {
+#pragma unroll
+      for (int b = 0; b < 10; ++b) {
+        const int sh = 1 << b;
+#pragma unroll
+        for (int k = 0; k < kPerLane; ++k) {
+          int src = lane + 32 * k + sh;
+          if (src >= kCols) src -= kCols;
+          const float nv = sv[warp][src], nd = sd[warp][src];
+          const bool m = nd > 0.5f;
+          v[k] = m ? nv : v[k];
+          d[k] = m ? nd - (float)sh : d[k];
+        }
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < kPerLane; ++k) {
+          sv[warp][lane + 32 * k] = v[k];
+          sd[warp][lane + 32 * k] = d[k];
+        }
+        __syncwarp();
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int j = lane + 32 * k;
+      if (j < 128) {
+        og[(size_t)row * 128 + j] = v[k];
+      } else {
+        bits += __float_as_uint(v[k]);
+      }
+    }
+    __syncwarp();
+  }
+  block_bitsum(bits, cks + blockIdx.x);
+}
+
+// M6: out[g] = (sum over e < nE of a[g, e] @ b[g, e])[:128] and cks[g, t] =
+// the sum of row tile t of that sum. a: [B, nE, F, Kd], b: [B, nE, Kd, 128]
+// bf16 row-major, Kd a multiple of 8; grid (F / 128, B), 8 warps, warp w
+// owns rows 16w..16w+15 of the tile and its 8 16x16 accumulators.
+__global__ void __launch_bounds__(kThreads) gemm_kernel(
+    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
+    float* __restrict__ out, float* __restrict__ cks, int nE, int F, int Kd) {
+  using namespace nvcuda;
+  __shared__ __align__(32) __nv_bfloat16 sa[128 * 16];   // A: 128 rows x 16 deep
+  __shared__ __align__(32) __nv_bfloat16 sb[16 * 128];   // B: 16 deep x 128
+  __shared__ __align__(32) float sc[kWarps][16 * 16];
+  __shared__ float wsum[kWarps];
+  const int tile = blockIdx.x, g = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) wmma::fill_fragment(acc[n], 0.0f);
+
+  for (int e = 0; e < nE; ++e) {
+    const __nv_bfloat16* ae = a + (((size_t)g * nE + e) * F + (size_t)tile * 128) * Kd;
+    const __nv_bfloat16* be = b + ((size_t)g * nE + e) * Kd * 128;
+    for (int k0 = 0; k0 < Kd; k0 += 16) {
+      {  // A chunk: thread t loads 8 values of row t/2, zero past the depth
+        const int r = threadIdx.x >> 1, c8 = (threadIdx.x & 1) * 8;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (k0 + c8 < Kd) v = *reinterpret_cast<const uint4*>(ae + (size_t)r * Kd + k0 + c8);
+        *reinterpret_cast<uint4*>(sa + r * 16 + c8) = v;
+      }
+      {  // B chunk: thread t loads 8 values of depth row t/16
+        const int r = threadIdx.x >> 4, c8 = (threadIdx.x & 15) * 8;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (k0 + r < Kd) v = *reinterpret_cast<const uint4*>(be + (size_t)(k0 + r) * 128 + c8);
+        *reinterpret_cast<uint4*>(sb + r * 128 + c8) = v;
+      }
+      __syncthreads();
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+      wmma::load_matrix_sync(fa, sa + warp * 16 * 16, 16);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
+        wmma::load_matrix_sync(fb, sb + n * 16, 128);
+        wmma::mma_sync(acc[n], fa, fb, acc[n]);
+      }
+      __syncthreads();
+    }
+  }
+
+  float part = 0.0f;
+  float* og = out + (size_t)g * 128 * 128;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    wmma::store_matrix_sync(sc[warp], acc[n], 16, wmma::mem_row_major);
+    __syncwarp();
+    for (int i = lane; i < 256; i += 32) {
+      const float v = sc[warp][i];
+      part += v;
+      if (tile == 0) og[(warp * 16 + i / 16) * 128 + n * 16 + (i & 15)] = v;
+    }
+    __syncwarp();
+  }
+  for (int d = 16; d > 0; d >>= 1) part += __shfl_xor_sync(0xffffffffu, part, d);
+  if (lane == 0) wsum[warp] = part;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w) s += wsum[w];
+    cks[(size_t)g * gridDim.x + tile] = s;
+  }
+}
+
+}  // namespace
+
+// Each entry launches its case on `stream`, one block of 256 threads per
+// grid step (the GEMMs: per 128-row tile of a grid step), with rep_stride 0
+// (every rep reads the same block), and returns cudaGetLastError()
+// (0 = launched).
+extern "C" int mosaic_tiny(const void* x, void* out, int G, int n, int reps, void* stream) {
+  tiny_kernel<<<G, kThreads, 0, (cudaStream_t)stream>>>((const float*)x, (float*)out, n, reps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mosaic_fold(const void* x, void* out, void* cks, int G, int n, int width,
+                           int reps, void* stream) {
+  fold_kernel<<<G, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, (int32_t*)cks, n, width, reps, 0);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mosaic_transpose(const void* x, void* out, int G, int rows, int reps,
+                                void* stream) {
+  transpose_kernel<<<G, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, rows, reps, 0);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mosaic_droll(const void* x, const void* shifts, void* out, int G, int rows,
+                            int nshift, int reps, void* stream) {
+  droll_kernel<<<G, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const int32_t*)shifts, (float*)out, rows, nshift, reps, 0);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mosaic_rep(const void* x, void* out, void* cks, int G, int n, int copies,
+                          int reps, void* stream) {
+  rep_kernel<<<G, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, (int32_t*)cks, n, copies, reps, 0);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mosaic_compact(const void* x, void* out, void* cks, int G, int rows, int reps,
+                              void* stream) {
+  compact_kernel<<<G, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, (int32_t*)cks, rows, reps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mosaic_gemm(const void* a, const void* b, void* out, void* cks, int B, int nE,
+                           int F, int Kd, void* stream) {
+  gemm_kernel<<<dim3(F / 128, B), kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, (float*)out, (float*)cks, nE, F, Kd);
+  return (int)cudaGetLastError();
+}

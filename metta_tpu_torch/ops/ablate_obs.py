@@ -1,0 +1,392 @@
+"""Section ablations of the batched renders K1 and K4: wrappers and plain versions.
+
+Counterpart of the TPU kernels' variants in ``scripts/ablate_obs3.py``
+(K1, ``make_kernel`` :40) and ``scripts/ablate_obs.py`` (K4, ``make_kernel``
+:36). The CUDA kernels ``csrc/obs_render3.cu`` and ``csrc/obs_render2.cu``
+are templates on a mask of their sections; a set bit replaces the section by
+a stub that reads no device memory (K4's stubs still read the [S] rank
+table, which every cell of every env shares). Mask 0 is the render itself.
+
+- K1's sections (:data:`SECTIONS3`): ``globals`` (global tokens to the first
+  slots), ``winread`` (window offsets from ``scan``, block id from ``sb``),
+  ``count`` (the block's token count), ``scan`` (warp prefix sum and carry),
+  ``copy`` (tokens into the shared tile), ``fill`` (255 in the free slots),
+  ``store`` (the tile out in 16-byte stores).
+- K4's sections (:data:`SECTIONS2`): ``read`` (block id and count of every
+  (agent, cell) into rank slots), ``fill`` (the 255 prefill), ``prefix``
+  (exclusive prefix sums in rank order), ``globals``, ``scatter`` (every
+  cell's tokens to its slots), ``store``.
+
+The stubs keep every later index in range and the later sections' work near
+the render's: a stubbed window read puts a block of 1-3 tokens in about one
+cell in twelve (the combat render's mean is about 0.2 tokens a cell); a
+stubbed prefix gives each cell a quarter slot after the global tokens, so
+that the same cells copy their tokens and the fill starts near the render's
+total; a stubbed copy or scatter writes a cell's first slot only; a stubbed
+fill writes one slot an agent (K1 the first free one, K4 the last); a
+stubbed store writes every output word from one byte of the tile.
+
+Where a variant's slots overlap, or a slot is never written (without
+``fill``), the shared tile holds bytes no plain version can know. The plain
+versions return, beside the output, the mask of the bytes the variant
+defines: a slot written exactly once in a phase of the kernel (K1 writes
+its tile in one phase; K4 in three, ordered by barriers: the prefill, the
+global tokens, the scatter), and every output byte that a stubbed store
+computes from a defined byte.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from metta_tpu_torch.ops.build import check_tensor
+
+SECTIONS3 = ("globals", "winread", "count", "scan", "copy", "fill", "store")
+SECTIONS2 = ("read", "fill", "prefix", "globals", "scatter", "store")
+EMPTY = 255
+
+# Launches of the two ablation kernels, counted by the wrappers where they launch.
+launches_obs3 = 0
+launches_obs2 = 0
+
+
+def variants(sections):
+    """The ablation's variants: ``none``, each section alone, and all of them."""
+    return ["none", *sections, "+".join(sections)]
+
+
+def skips_of(variant: str, sections):
+    """The set of sections a variant name (``none`` or ``a+b+...``) stubs."""
+    skips = set() if variant == "none" else set(variant.split("+"))
+    unknown = skips - set(sections)
+    if unknown:
+        raise ValueError(f"unknown sections {sorted(unknown)}; known: {sections}")
+    return skips
+
+
+def mask_of(skips, sections) -> int:
+    return sum(1 << sections.index(name) for name in skips)
+
+
+def _apply(val, ok, slots, vals, valid, T):
+    """One phase of writes into the [E, A, T, 3] tile: a slot written once
+    takes its value and is defined; a slot written more than once is not."""
+    E, A = val.shape[:2]
+    idx = torch.where(valid, slots, T).reshape(E, A, -1)
+    cnt = torch.zeros((E, A, T + 1), dtype=torch.int32, device=val.device)
+    cnt.scatter_add_(2, idx, torch.ones_like(idx, dtype=torch.int32))
+    new = torch.zeros((E, A, T + 1, 3), dtype=torch.uint8, device=val.device)
+    new.scatter_(2, idx[..., None].expand(-1, -1, -1, 3), vals.reshape(E, A, -1, 3))
+    cnt, new = cnt[..., :T], new[:, :, :T]
+    val = torch.where((cnt == 1)[..., None], new, val)
+    ok = torch.where(cnt == 1, True, torch.where(cnt > 1, False, ok))
+    return val, ok
+
+
+def _store(tile, ok, stub: bool):
+    """The store section: the tile itself, or (stubbed) every output word
+    ``(i + e) ^ tile[e, 0, 0, 0]`` (16-byte words of four equal 32-bit
+    lanes where the env's bytes are a multiple of 16, else bytes)."""
+    E, A, T, _ = tile.shape
+    okb = ok[..., None].expand(-1, -1, -1, 3)
+    if not stub:
+        return torch.where(okb, tile, torch.zeros_like(tile)), okb.clone()
+    nbytes = A * T * 3
+    dev = tile.device
+    e = torch.arange(E, device=dev)[:, None]
+    x = tile[:, 0, 0, 0].long()[:, None]
+    if nbytes % 16 == 0:
+        v = ((torch.arange(nbytes // 16, device=dev) + e) & 0xFFFFFFFF) ^ x      # [E, words]
+        lanes = (v[..., None] >> (8 * torch.arange(4, device=dev))) & 255       # [E, words, 4]
+        flat = lanes[:, :, None, :].expand(-1, -1, 4, -1).reshape(E, nbytes)
+    else:
+        flat = ((torch.arange(nbytes, device=dev) + e) & 255) ^ x
+    out = flat.to(torch.uint8).reshape(E, A, T, 3)
+    okb = ok[:, 0, 0][:, None, None, None].expand(E, A, T, 3).clone()
+    return torch.where(okb, out, torch.zeros_like(out)), okb
+
+
+def _stub_blocks(E, A, S, NB, K, dev):
+    """The stubbed window read: block ids and counts as a function of (e, a, s)."""
+    h = (torch.arange(E, device=dev)[:, None, None] + torch.arange(A, device=dev)[None, :, None]
+         + torch.arange(S, device=dev))
+    b = torch.where((h % 12 == 0) & (NB > 1), 1 + h % max(NB - 1, 1), 0)
+    s = torch.arange(S, device=dev)
+    n = torch.where(b != 0, torch.clamp(1 + (b + s) % 3, max=K), 0)
+    return b, n
+
+
+def _stub_globals(A, G, T, dev):
+    """The stubbed global tokens: byte i of agent a is (i + a) & 255 in the
+    first min(G, T) slots -> [1, A, G, 3] uint8."""
+    i = torch.arange(3 * G, device=dev).reshape(1, 1, G, 3)
+    return ((i + torch.arange(A, device=dev).reshape(1, A, 1, 1)) & 255).to(torch.uint8)
+
+
+def render_obs3_ablated_plain(skips, sb, tok, counts, rc, g_count, g_tok, scan,
+                              num_tokens: int, ohr: int, owr: int):
+    """K1 with the sections in ``skips`` stubbed, in torch ops ->
+    (out [E, A, T, 3] uint8, defined [E, A, T, 3] bool); undefined bytes
+    are 0. With no skips it is ``render_obs3_plain``, every byte defined."""
+    skips = set(skips)
+    E, H, W = sb.shape
+    A = rc.shape[1]
+    NB, K = tok.shape[1], tok.shape[2]
+    S, G, T = scan.shape[0], g_tok.shape[2], num_tokens
+    dev = sb.device
+    s = torch.arange(S, device=dev)
+
+    if "globals" in skips:
+        g = torch.full((E, A), min(G, T), dtype=torch.long, device=dev)
+        gvals = _stub_globals(A, G, T, dev).expand(E, -1, -1, -1)
+    else:
+        g = g_count.long().clamp(max=T)
+        gvals = g_tok
+    gslot = torch.arange(G, device=dev).expand(E, A, G)
+    writes = [(gslot, gvals, gslot < g[..., None])]
+
+    if "winread" in skips:
+        dr, dc = s // (2 * owr + 1) - ohr, s % (2 * owr + 1) - owr
+        b, _ = _stub_blocks(E, A, S, NB, K, dev)
+        inb = torch.ones_like(b, dtype=torch.bool)
+    else:
+        dr, dc = scan[:, 0].long(), scan[:, 1].long()
+        rr, cc = rc[..., 0:1].long() + dr, rc[..., 1:2].long() + dc
+        inb = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < W)
+        flat = (rr.clamp(0, H - 1) * W + cc.clamp(0, W - 1)).reshape(E, -1)
+        b = torch.where(inb, sb.reshape(E, -1).gather(1, flat).reshape(E, A, S).long(), 0)
+    if "count" in skips:
+        n = torch.where(b != 0, torch.clamp(1 + (b + s) % 3, max=K), 0)
+    else:
+        n = torch.where(inb, counts.gather(1, b.reshape(E, -1)).reshape(E, A, S).long(), 0)
+
+    if "scan" in skips:
+        start = g[..., None] + 8 * (s // 32) + (s % 32 >> 2)
+        walked = ((T - g + 7) // 8).clamp(0, (S + 31) // 32)   # chunks begun below T
+        total = (g + 8 * walked).clamp(max=T)
+    else:
+        start = g[..., None] + n.cumsum(-1) - n
+        total = (g + n.sum(-1)).clamp(max=T)
+    stop = torch.minimum(n, T - start)
+    loc = ((((dr + ohr) << 4) | (dc + owr)) & 255).expand(E, A, S)
+    if "copy" in skips:
+        vals = torch.stack([loc, b & 255, n & 255], -1).to(torch.uint8)[..., None, :]
+        writes.append((start[..., None], vals, (stop > 0)[..., None]))
+    else:
+        k = torch.arange(K, device=dev)
+        ft = tok.reshape(E, NB * K, 2).gather(
+            1, (b[..., None] * K + k).reshape(E, -1, 1).expand(-1, -1, 2)).reshape(E, A, S, K, 2)
+        vals = torch.cat([loc[..., None, None].expand(-1, -1, -1, K, 1).to(torch.uint8), ft], -1)
+        writes.append((start[..., None] + k, vals, k < stop[..., None]))
+    if "fill" in skips:
+        fv = ((total[..., None] + torch.arange(3, device=dev)) & 255).to(torch.uint8)
+        writes.append((total, fv, total < T))
+    else:
+        t = torch.arange(T, device=dev).expand(E, A, T)
+        writes.append((t, torch.full((E, A, T, 3), EMPTY, dtype=torch.uint8, device=dev),
+                       t >= total[..., None]))
+
+    slots = torch.cat([w[0].reshape(E, A, -1) for w in writes], -1)
+    vals = torch.cat([w[1].reshape(E, A, -1, 3) for w in writes], 2)
+    valid = torch.cat([w[2].reshape(E, A, -1) for w in writes], -1)
+    tile = torch.zeros((E, A, T, 3), dtype=torch.uint8, device=dev)
+    ok = torch.zeros((E, A, T), dtype=torch.bool, device=dev)
+    tile, ok = _apply(tile, ok, slots, vals, valid, T)
+    return _store(tile, ok, "store" in skips)
+
+
+def render_obs2_ablated_plain(skips, sb, tok, counts, rc, g_count, g_tok, rank,
+                              num_tokens: int, wh: int, ww: int):
+    """K4 with the sections in ``skips`` stubbed, in torch ops ->
+    (out [E, A, T, 3] uint8, defined [E, A, T, 3] bool); undefined bytes
+    are 0. With no skips it is ``render_obs2_plain``, every byte defined."""
+    skips = set(skips)
+    E, H, W = sb.shape
+    A = rc.shape[1]
+    NB, K = tok.shape[1], tok.shape[2]
+    S, G, T = wh * ww, g_tok.shape[2], num_tokens
+    dev = sb.device
+    s = torch.arange(S, device=dev)
+    j, i = s // ww, s % ww
+
+    if "read" in skips:
+        b, n = _stub_blocks(E, A, S, NB, K, dev)
+    else:
+        rr, cc = rc[..., 0:1].long() + j - wh // 2, rc[..., 1:2].long() + i - ww // 2
+        inb = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < W)
+        flat = (rr.clamp(0, H - 1) * W + cc.clamp(0, W - 1)).reshape(E, -1)
+        b = torch.where(inb, sb.reshape(E, -1).gather(1, flat).reshape(E, A, S).long(), 0)
+        n = torch.where(inb, counts.gather(1, b.reshape(E, -1)).reshape(E, A, S).long(), 0)
+    rk = rank.long().expand(E, A, S)
+    if "prefix" in skips:
+        start = min(G, T) + (rk >> 2)
+    else:
+        in_rank = torch.zeros_like(n).scatter_(2, rk, n)                # counts by rank
+        start = (in_rank.cumsum(-1) - in_rank).gather(2, rk) + g_count.long()[..., None]
+
+    if "fill" in skips:
+        tile = torch.zeros((E, A, T, 3), dtype=torch.uint8, device=dev)
+        tile[:, :, T - 1] = torch.arange(A, device=dev).to(torch.uint8)[:, None]
+        ok = torch.zeros((E, A, T), dtype=torch.bool, device=dev)
+        ok[:, :, T - 1] = True
+    else:
+        tile = torch.full((E, A, T, 3), EMPTY, dtype=torch.uint8, device=dev)
+        ok = torch.ones((E, A, T), dtype=torch.bool, device=dev)
+
+    gi = torch.arange(G, device=dev).expand(E, A, G)
+    if "globals" in skips:
+        gvals = _stub_globals(A, G, T, dev).expand(E, -1, -1, -1)
+        gvalid = gi < min(G, T)
+    else:
+        gvals, gvalid = g_tok, (gi < g_count.long()[..., None]) & (gi < T)
+    tile, ok = _apply(tile, ok, gi, gvals, gvalid, T)
+
+    loc = ((j << 4) | i) & 255
+    if "scatter" in skips:
+        vals = torch.stack([loc.expand(E, A, S), b & 255, s.expand(E, A, S) & 255], -1)
+        tile, ok = _apply(tile, ok, start, vals.to(torch.uint8), (b != 0) & (start < T), T)
+    else:
+        nb = counts.gather(1, b.reshape(E, -1)).reshape(E, A, S).long()
+        stop = torch.minimum(nb, T - start)
+        k = torch.arange(K, device=dev)
+        ft = tok.reshape(E, NB * K, 2).gather(
+            1, (b[..., None] * K + k).reshape(E, -1, 1).expand(-1, -1, 2)).reshape(E, A, S, K, 2)
+        locs = loc.to(torch.uint8).expand(E, A, S)[..., None, None].expand(-1, -1, -1, K, 1)
+        tile, ok = _apply(tile, ok, start[..., None] + k, torch.cat([locs, ft], -1),
+                          k < stop[..., None], T)
+    return _store(tile, ok, "store" in skips)
+
+
+def render_work(args, scan, T):
+    """What the render (K1, and K4, the same function) must do for these
+    inputs: (bytes, operations, parts in bytes).
+
+    Each output byte is written once. Each input byte the render needs is
+    read once: the distinct grid cells of the windows up to the cell that
+    fills the T slots (the walk stops there), the count of each distinct
+    block those cells hold and the tokens taken from it, the agents'
+    positions, global-token counts and global tokens, the window offsets.
+    Operations: one add per walked cell (the prefix sum) and one select per
+    output slot."""
+    sb, tok, counts, rc, g_count, g_tok = args
+    E, H, W = sb.shape
+    A, NB, S = rc.shape[1], tok.shape[1], scan.shape[0]
+    rr = rc[..., 0:1].long() + scan[:, 0].long()                        # [E, A, S]
+    cc = rc[..., 1:2].long() + scan[:, 1].long()
+    inb = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < W)
+    flat = (rr.clamp(0, H - 1) * W + cc.clamp(0, W - 1)).reshape(E, -1)
+    b = torch.where(inb, sb.reshape(E, -1).gather(1, flat).reshape(E, A, S), 0).long()
+    n = counts.gather(1, b.reshape(E, -1)).reshape(E, A, S).long()
+    g = g_count.long().clamp(max=T)[..., None]
+    free = T - g - (n.cumsum(-1) - n)                 # slots left on reaching the cell
+    walked = inb & (free > 0)
+    taken = torch.where(walked, torch.minimum(n, free), 0)
+    cells = torch.zeros((E, H * W + 1), dtype=torch.int8, device=sb.device)
+    cells.scatter_(1, torch.where(walked, flat.reshape(E, A, S), H * W).reshape(E, -1), 1)
+    cells = cells[:, :H * W]                          # the spare column takes the unwalked
+    blocks = torch.zeros((E, NB), dtype=torch.int64, device=sb.device)
+    blocks.scatter_reduce_(1, b.reshape(E, -1), torch.where(walked, taken + 1, 0).reshape(E, -1),
+                           reduce="amax")             # 1 + tokens taken, 0 = unread
+    parts = {
+        "grid": 4 * int(cells.sum()),
+        "counts": 4 * int((blocks > 0).sum()),
+        "tokens": 2 * int((blocks - 1).clamp(min=0).sum()),
+        "rc+gcnt": 12 * E * A,
+        "gtok": 3 * int(g.sum()),
+        "scan": 8 * S,
+        "out": 3 * E * A * T,
+    }
+    ops = int(walked.sum()) + E * A * T
+    return sum(parts.values()), ops, parts
+
+
+def _checked_out(out, E, A, T, device):
+    if out is None:
+        return torch.zeros((E, A, T, 3), dtype=torch.uint8, device=device)
+    check_tensor("out", out, torch.uint8, (E, A, T, 3), device)
+    if out.data_ptr() % 16:
+        raise ValueError("out must be 16-byte aligned")
+    return out
+
+
+_entries = {}
+
+
+def _entry(module, name: str, n_ints: int):
+    """The ctypes function ``name`` of ``module``'s kernel library."""
+    if name not in _entries:
+        fn = getattr(module._library(), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        _entries[name] = fn
+    return _entries[name]
+
+
+def render_obs3_ablated(skips, sb, tok, counts, rc, g_count, g_tok, scan, num_tokens: int,
+                        ohr: int, owr: int, out=None):
+    """K1 with the sections in ``skips`` stubbed -> [E, A, T, 3] uint8, into
+    ``out`` if given, else into a zeroed tensor. The CUDA kernel for CUDA
+    tensors, the plain version's output for CPU tensors."""
+    global launches_obs3
+    skips = set(skips)
+    mask = mask_of(skips, SECTIONS3)
+    if sb.device.type == "cpu":
+        return render_obs3_ablated_plain(skips, sb, tok, counts, rc, g_count, g_tok, scan,
+                                         num_tokens, ohr, owr)[0]
+    from metta_tpu_torch.ops import obs_render3 as k1
+
+    E, H, W = sb.shape
+    A = rc.shape[1]
+    NB, K = tok.shape[1], tok.shape[2]
+    S, G, T = scan.shape[0], g_tok.shape[2], num_tokens
+    k1.check_inputs(sb, tok, counts, rc, g_count, g_tok, scan)
+    out = _checked_out(out, E, A, T, sb.device)
+    if E == 0:
+        return out
+    with torch.cuda.device(sb.device):
+        err = _entry(k1, "obs_render3_ablate_launch", 12)(
+            sb.data_ptr(), tok.data_ptr(), counts.data_ptr(), rc.data_ptr(),
+            g_count.data_ptr(), g_tok.data_ptr(), scan.data_ptr(), out.data_ptr(),
+            E, H, W, A, NB, K, S, G, T, ohr, owr, mask,
+            torch.cuda.current_stream(sb.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"obs_render3 ablation (mask {mask}) launch failed: CUDA error {err}")
+    launches_obs3 += 1
+    return out
+
+
+def render_obs2_ablated(skips, sb, tok, counts, rc, g_count, g_tok, rank, num_tokens: int,
+                        wh: int, ww: int, out=None):
+    """K4 with the sections in ``skips`` stubbed -> [E, A, T, 3] uint8, into
+    ``out`` if given, else into a zeroed tensor. The CUDA kernel for CUDA
+    tensors, the plain version's output for CPU tensors."""
+    global launches_obs2
+    skips = set(skips)
+    mask = mask_of(skips, SECTIONS2)
+    if sb.device.type == "cpu":
+        return render_obs2_ablated_plain(skips, sb, tok, counts, rc, g_count, g_tok, rank,
+                                         num_tokens, wh, ww)[0]
+    from metta_tpu_torch.ops import obs_render2 as k4
+
+    E, H, W = sb.shape
+    A = rc.shape[1]
+    NB, K = tok.shape[1], tok.shape[2]
+    G, T = g_tok.shape[2], num_tokens
+    k4.check_inputs(sb, tok, counts, rc, g_count, g_tok, rank, wh, ww)
+    out = _checked_out(out, E, A, T, sb.device)
+    if E == 0:
+        return out
+    with torch.cuda.device(sb.device):
+        err = _entry(k4, "obs_render2_ablate_launch", 11)(
+            sb.data_ptr(), tok.data_ptr(), counts.data_ptr(), rc.data_ptr(),
+            g_count.data_ptr(), g_tok.data_ptr(), rank.data_ptr(), out.data_ptr(),
+            E, H, W, A, NB, K, wh, ww, G, T, mask,
+            torch.cuda.current_stream(sb.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"obs_render2 ablation (mask {mask}) launch failed: CUDA error {err}")
+    launches_obs2 += 1
+    return out

@@ -83,6 +83,18 @@ def load_library(name: str):
     return ctypes.CDLL(str(build([name])[name]))
 
 
+def cuobjdump(name: str, *flags) -> str:
+    """The output of ``cuobjdump <flags>`` (the toolkit's, beside ``nvcc``)
+    on kernel library ``name``, built if needed: ``-sass`` for the machine
+    code, ``-res-usage`` for each kernel's registers, stack and local memory."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), *flags, str(build([name])[name])], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump {' '.join(flags)} {name} failed: {out.stderr.strip()}")
+    return out.stdout
+
+
 def check_tensor(name, x, dtype, shape, device):
     """Raise ValueError unless ``x`` is a contiguous ``dtype`` tensor of
     ``shape`` on the CUDA ``device`` (what a kernel wrapper hands its kernel)."""

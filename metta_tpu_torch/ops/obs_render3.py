@@ -132,6 +132,21 @@ def render_obs3_plain(sb, tok, counts, rc, g_count, g_tok, scan, num_tokens: int
                        torch.full_like(out, EMPTY))
 
 
+def check_inputs(sb, tok, counts, rc, g_count, g_tok, scan):
+    """Raise ValueError unless the render's inputs are what the kernel takes."""
+    E, H, W = sb.shape
+    A = rc.shape[1]
+    NB, K = tok.shape[1], tok.shape[2]
+    G = g_tok.shape[2]
+    for name, x, dtype, shape in (
+        ("sb", sb, torch.int32, (E, H, W)), ("tok", tok, torch.uint8, (E, NB, K, 2)),
+        ("counts", counts, torch.int32, (E, NB)), ("rc", rc, torch.int32, (E, A, 2)),
+        ("g_count", g_count, torch.int32, (E, A)), ("g_tok", g_tok, torch.uint8, (E, A, G, 3)),
+        ("scan", scan, torch.int32, (scan.shape[0], 2)),
+    ):
+        check_tensor(name, x, dtype, shape, sb.device)
+
+
 _lib = None
 
 
@@ -166,13 +181,7 @@ def render_obs3(sb, tok, counts, rc, g_count, g_tok, scan, num_tokens: int,
     S = scan.shape[0]
     G = g_tok.shape[2]
     T = num_tokens
-    for name, x, dtype, shape in (
-        ("sb", sb, torch.int32, (E, H, W)), ("tok", tok, torch.uint8, (E, NB, K, 2)),
-        ("counts", counts, torch.int32, (E, NB)), ("rc", rc, torch.int32, (E, A, 2)),
-        ("g_count", g_count, torch.int32, (E, A)), ("g_tok", g_tok, torch.uint8, (E, A, G, 3)),
-        ("scan", scan, torch.int32, (S, 2)),
-    ):
-        check_tensor(name, x, dtype, shape, sb.device)
+    check_inputs(sb, tok, counts, rc, g_count, g_tok, scan)
     out = torch.empty((E, A, T, 3), dtype=torch.uint8, device=sb.device)
     if E == 0:
         return out

@@ -1,0 +1,252 @@
+"""Primitive micro-benchmarks (S1): inputs, CUDA kernels and plain versions.
+
+Counterpart of ``scripts/ubench_mosaic.py`` (its Pallas kernels, ``pallas_call``
+at :42, :125, :170, :190, :206). Ten cases at grid G, ``reps`` repeats and
+EPS envs a step (EA = 24 EPS rows); ``csrc/ubench_mosaic.cu`` says what each
+computes. Every case returns (slots, checksum): ``slots[g]`` is what grid
+step g writes (the TPU output is the last step's, ``slots[-1]``), and the
+checksum covers what the TPU output drops (int32 sums of float bits, or
+float32 sums of the GEMMs' row tiles; None where nothing is dropped).
+
+Inputs come from a numpy seed: floats (u + 0.5) / 128 and bf16
+(2u - 255) / 128 for random bytes u, all exact in their types, and the
+M3 shifts in [0, 128).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from metta_tpu_torch.ops.build import check_tensor
+
+CASES = ("M5", "M1", "M1b", "M2", "M3", "M4", "M6a", "M6b", "M6c", "M7")
+GEMMS = ("M6a", "M6b", "M6c")
+F, HP, WP, FR = 3072, 72, 128, 384          # the GEMMs' rows, depth, width; M6c's rows
+NSHIFT, COPIES, COLS = 24, 11, 640
+
+# Launches of the CUDA kernels, counted by the wrapper where it launches.
+launches = 0
+
+
+def _bytes(rng, shape, device):
+    u = rng.integers(0, 256, size=shape, dtype=np.uint8)
+    return torch.from_numpy(u).to(device)
+
+
+def make_inputs(case: str, G: int, eps: int, seed: int, device="cuda"):
+    """The case's inputs, from ``seed`` with numpy, as a tuple of tensors."""
+    if case not in CASES:
+        raise ValueError(f"unknown case {case!r}; known: {CASES}")
+    rng = np.random.default_rng([seed, CASES.index(case)])
+    EA = 24 * eps
+
+    def f32(*shape):
+        return (_bytes(rng, shape, device).float() + 0.5) / 128
+
+    def bf16(*shape):
+        return ((2 * _bytes(rng, shape, device).float() - 255) / 128).to(torch.bfloat16)
+
+    if case in ("M5", "M4"):
+        return (f32(G, 264, 128),)
+    if case == "M1":
+        return (f32(G, 264 * 16, 128),)
+    if case == "M1b":
+        return (f32(G, EA * 11, 128),)
+    if case == "M2":
+        return (f32(G, EA, 128),)
+    if case == "M3":
+        shifts = torch.from_numpy(rng.integers(0, 128, size=(1, NSHIFT), dtype=np.int32))
+        return f32(G, 16, 128), shifts.to(device)
+    if case == "M6a":
+        return bf16(G // eps, eps, F, HP), bf16(G // eps, eps, HP, WP)
+    if case == "M6b":
+        return bf16(G // eps, eps * F, eps * HP), bf16(G // eps, eps * HP, WP)
+    if case == "M6c":
+        return bf16(G // eps, eps * FR, eps * HP), bf16(G // eps, eps * HP, WP)
+    return (f32(G, EA, COLS),)                                        # M7
+
+
+def bitsum(t):
+    """[G] int32: per leading index, the wrapping sum of the float32 bit patterns."""
+    s = t.contiguous().view(torch.int32).reshape(t.shape[0], -1).long().sum(1)
+    return ((s + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+def _gemm_plain(a, b):
+    """The GEMM in float32 (bf16 products are exact; sums in f32, TF32 as the
+    caller set it) -> (rows :128 [B, 128, 128], row-tile sums [B, rows/128])."""
+    r = torch.matmul(a.float(), b.float())
+    if r.dim() == 4:                                                   # M6a: sum over EPS
+        r = r.sum(1)
+    B, rows = r.shape[:2]
+    return r[:, :128].contiguous(), r.reshape(B, rows // 128, -1).sum(-1)
+
+
+def plain(case: str, inputs, reps: int):
+    """Case ``case`` in torch ops, rep for rep as the TPU body -> (slots, checksum)."""
+    x = inputs[0]
+    G = x.shape[0]
+    if case == "M5":
+        acc = x.clone()
+        for _ in range(reps):
+            acc = acc + 1.0
+        return acc, None
+    if case in ("M1", "M1b"):
+        width = 2048 if case == "M1" else 128 * COPIES
+        v = x.reshape(G, -1, width)
+        acc = torch.zeros_like(v)
+        for _ in range(reps):
+            acc = acc + v
+        return acc[..., :128].contiguous(), bitsum(acc[..., 128:])
+    if case == "M2":
+        acc = torch.zeros_like(x.transpose(1, 2))
+        for _ in range(reps):
+            acc = acc + x.transpose(1, 2)
+        return acc.contiguous(), None
+    if case == "M3":
+        shifts = inputs[1].reshape(-1).tolist()
+        acc = torch.zeros_like(x)
+        for i in range(reps):
+            acc = acc + torch.roll(x, shifts[i % len(shifts)], dims=2)
+        return acc, None
+    if case == "M4":
+        tiled = x.repeat(1, COPIES, 1)
+        acc = torch.zeros_like(tiled)
+        for _ in range(reps):
+            acc = acc + tiled
+        return acc[:, :x.shape[1]].contiguous(), bitsum(acc[:, x.shape[1]:])
+    if case in GEMMS:
+        return _gemm_plain(*inputs)
+    if case == "M7":
+        v, d = x.clone(), x * 0.5
+        for _ in range(reps):
+            for b in range(10):
+                sv = torch.roll(v, -(1 << b), dims=2)
+                sd = torch.roll(d, -(1 << b), dims=2)
+                m = sd > 0.5
+                v = torch.where(m, sv, v)
+                d = torch.where(m, sd - float(1 << b), d)
+        return v[..., :128].contiguous(), bitsum(v[..., 128:])
+    raise ValueError(f"unknown case {case!r}; known: {CASES}")
+
+
+def work(case: str, G: int, eps: int, reps: int):
+    """(bytes, operations, type) the case must move and do: each input read
+    once, each output written once; float32 adds and selects, or the GEMMs'
+    bf16 tensor-core FLOPs at the real depth (72, not the padded 80)."""
+    EA = 24 * eps
+    if case in GEMMS:
+        rows = {"M6a": F, "M6b": eps * F, "M6c": eps * FR}[case]
+        depth = HP if case == "M6a" else eps * HP
+        per = G // eps
+        mats = eps if case == "M6a" else 1
+        nbytes = 2 * per * mats * (rows * depth + depth * WP) + 4 * per * (128 * WP + rows // 128)
+        return nbytes, 2 * per * mats * rows * depth * WP, "bf16"
+    elems = {"M5": 264 * 128, "M1": 264 * 16 * 128, "M1b": EA * 11 * 128, "M2": EA * 128,
+             "M3": 16 * 128, "M4": 264 * 128, "M7": EA * COLS}[case]
+    out = {"M1": 264 * 128, "M1b": EA * 128, "M7": EA * 128}.get(case, elems)
+    ops = {"M4": elems * COPIES * reps, "M7": elems * 10 * reps * 4}.get(case, elems * reps)
+    extra = 4 * NSHIFT if case == "M3" else 0
+    return 4 * G * (elems + out + (1 if case in ("M1", "M1b", "M4", "M7") else 0)) + extra, \
+        G * ops, "f32"
+
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from metta_tpu_torch.ops.build import load_library
+
+        lib = load_library("ubench_mosaic")
+        p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
+        for name, args in (
+            ("mosaic_tiny", [p, p, i, i, i, s]),
+            ("mosaic_fold", [p, p, p, i, i, i, i, s]),
+            ("mosaic_transpose", [p, p, i, i, i, s]),
+            ("mosaic_droll", [p, p, p, i, i, i, i, s]),
+            ("mosaic_rep", [p, p, p, i, i, i, i, s]),
+            ("mosaic_compact", [p, p, p, i, i, i, s]),
+            ("mosaic_gemm", [p, p, p, p, i, i, i, i, s]),
+        ):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = args
+        _lib = lib
+    return _lib
+
+
+def run(case: str, inputs, reps: int):
+    """Case ``case``: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors -> (slots, checksum)."""
+    global launches
+    if case not in CASES:
+        raise ValueError(f"unknown case {case!r}; known: {CASES}")
+    x = inputs[0]
+    if x.device.type == "cpu":
+        return plain(case, inputs, reps)
+    dev = x.device
+    G = x.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _library()
+    cks = None
+    if case in GEMMS:
+        a, b = inputs
+        mats = a.shape[1] if case == "M6a" else 1
+        rows, depth = a.shape[-2], a.shape[-1]
+        check_tensor("a", a, torch.bfloat16, (G, mats, rows, depth) if case == "M6a"
+                     else (G, rows, depth), dev)
+        check_tensor("b", b, torch.bfloat16, (G, mats, depth, WP) if case == "M6a"
+                     else (G, depth, WP), dev)
+        if rows % 128 or depth % 8:
+            raise ValueError(f"{case}: rows must be a multiple of 128 and depth of 8, "
+                             f"got {rows}, {depth}")
+        out = torch.empty((G, 128, WP), dtype=f32, device=dev)
+        cks = torch.empty((G, rows // 128), dtype=f32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.mosaic_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), cks.data_ptr(),
+                                  G, mats, rows, depth, stream)
+    else:
+        check_tensor("x", x, f32, tuple(x.shape), dev)
+        n = x[0].numel()
+        with torch.cuda.device(dev):
+            if case == "M5":
+                out = torch.empty_like(x)
+                err = lib.mosaic_tiny(x.data_ptr(), out.data_ptr(), G, n, reps, stream)
+            elif case in ("M1", "M1b"):
+                width = 2048 if case == "M1" else 128 * COPIES
+                out = torch.empty((G, n // width, 128), dtype=f32, device=dev)
+                cks = torch.empty((G,), dtype=i32, device=dev)
+                err = lib.mosaic_fold(x.data_ptr(), out.data_ptr(), cks.data_ptr(), G, n, width,
+                                      reps, stream)
+            elif case == "M2":
+                out = torch.empty((G, 128, x.shape[1]), dtype=f32, device=dev)
+                err = lib.mosaic_transpose(x.data_ptr(), out.data_ptr(), G, x.shape[1], reps,
+                                           stream)
+            elif case == "M3":
+                shifts = inputs[1]
+                check_tensor("shifts", shifts, i32, (1, NSHIFT), dev)
+                out = torch.empty_like(x)
+                err = lib.mosaic_droll(x.data_ptr(), shifts.data_ptr(), out.data_ptr(), G,
+                                       x.shape[1], NSHIFT, reps, stream)
+            elif case == "M4":
+                out = torch.empty_like(x)
+                cks = torch.empty((G,), dtype=i32, device=dev)
+                err = lib.mosaic_rep(x.data_ptr(), out.data_ptr(), cks.data_ptr(), G, n, COPIES,
+                                     reps, stream)
+            else:                                                      # M7
+                if x.shape[2] != COLS:
+                    raise ValueError(f"M7 takes [G, rows, {COLS}], got {tuple(x.shape)}")
+                out = torch.empty((G, x.shape[1], 128), dtype=f32, device=dev)
+                cks = torch.empty((G,), dtype=i32, device=dev)
+                err = lib.mosaic_compact(x.data_ptr(), out.data_ptr(), cks.data_ptr(), G,
+                                         x.shape[1], reps, stream)
+    if err != 0:
+        raise RuntimeError(f"ubench_mosaic {case} launch failed: CUDA error {err}")
+    launches += 1
+    return out, cks

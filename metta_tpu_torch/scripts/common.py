@@ -1,0 +1,98 @@
+"""What the analysis scripts share: the device flag, the combat inputs of
+the render ablations, and the ablation loop itself."""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from metta_tpu_torch.ops.timing import bound_of, cuda_time_ms
+
+
+def add_device_flags(ap, seed: int):
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda: the kernels on the card; cpu: their plain versions")
+    ap.add_argument("--seed", type=int, default=seed)
+
+
+def device_of(args) -> torch.device:
+    """The device the flags ask for; a card that is missing is an error,
+    never a fall back to the CPU."""
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu to run the plain versions")
+    return torch.device(args.device)
+
+
+def time_ms(fn, reps: int, device) -> float:
+    """Device milliseconds per call on the card (``cuda_time_ms``); on the
+    CPU host milliseconds, which are no device metric."""
+    if device.type == "cuda":
+        return cuda_time_ms(fn, reps)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def combat_prep(num_envs: int, agents: int, seed: int, device):
+    """The combat map (map seed ``seed``) reset at ``num_envs`` envs with
+    ``track_stats=False``, as ``scripts/ablate_obs*.py`` build it, and its
+    render inputs from ``prep_env3`` -> (tables, the six inputs)."""
+    from metta_tpu_torch.builder.envs import make_combat
+    from metta_tpu_torch.engine.env import MettaGridEnv
+    from metta_tpu_torch.ops.obs_render3 import prep_env3
+
+    cfg = make_combat(agents)
+    cfg.game.map_builder.seed = seed
+    env = MettaGridEnv(cfg, num_envs=num_envs, seed=0, desync_episodes=True,
+                       track_stats=False, step_mode="batched", device=device)
+    env.reset()
+    s, t = env.state.env, env.tables
+    return t, prep_env3(s, t, s.executed_action, s.reward)
+
+
+def ablate(name, sections, kernel, plain, production, variants, steps, device, work):
+    """Time each variant of an ablated render and hold it to its plain version.
+
+    ``kernel(skips, out=None)`` launches the variant, ``plain(skips)`` gives
+    (out, defined), ``production()`` the unablated render; ``work`` is
+    (bytes, ops) of the render. On the card each variant must equal its
+    plain version in its defined bytes, and ``none`` the production render
+    byte for byte. Returns one dict per variant."""
+    from metta_tpu_torch.ops import ablate_obs as ab
+
+    bound_ms, bound_by, _ = bound_of(*work)
+    rows, base = [], None
+    for v in variants:
+        skips = ab.skips_of(v, sections)
+        want, defined = plain(skips)
+        row = dict(variant=v, defined=float(defined.float().mean()))
+        if device.type == "cuda":
+            counts = ab.launches_obs3, ab.launches_obs2
+            got = kernel(skips)
+            torch.cuda.synchronize()
+            ab.launches_obs3, ab.launches_obs2 = counts    # checking launches do not count
+            bad = int(((got != want) & defined).sum())
+            row["max_abs_err"] = int(((got.int() - want.int()).abs() * defined).max())
+            if bad:
+                raise AssertionError(f"{name} {v}: {bad} defined bytes differ from the plain version")
+            if not skips and not (defined.all() and torch.equal(got, production())):
+                raise AssertionError(f"{name} none differs from the production kernel")
+            buf = torch.zeros_like(got)
+            row["ms"] = time_ms(lambda: kernel(skips, out=buf), steps, device)
+        row["plain_ms"] = time_ms(lambda: plain(skips), 3 if device.type == "cuda" else 1, device)
+        row.update(bound_ms=bound_ms, bound_by=bound_by)
+        if "ms" in row:
+            base = row["ms"] if base is None and v == "none" else base
+            saves = f"(saves {base - row['ms']:7.4f})" if base is not None else ""
+            print(f"skip {v:44s} {row['ms']:8.4f} ms/launch {saves}  bound {bound_ms:.4f} ms "
+                f"({bound_by}), {100 * bound_ms / row['ms']:5.1f}% of it; plain "
+                f"{row['plain_ms']:.3f} ms; {100 * row['defined']:.1f}% of bytes defined")
+            row["saves_ms"] = None if base is None else base - row["ms"]
+        else:
+            print(f"skip {v:44s} plain {row['plain_ms']:.3f} ms on the host (cpu); "
+                f"{100 * row['defined']:.1f}% of bytes defined")
+        rows.append(row)
+    return rows

@@ -461,3 +461,89 @@ def test_sequential_env_gpu_matches_cpu():
             assert torch.equal(g.cpu(), c)
     after = (k1.launches, k2.launches, k4.launches, k5.launches)
     assert [b - a for a, b in zip(before, after)] == [0, 0, 0, 12]
+
+
+# ---- the analysis path: S5, S4 (K1's and K4's ablations), S3, S2, S1 ----
+
+def _ablation_inputs(steps=3):
+    env = _env(_cuda())
+    args, extra3 = _inputs(env, steps=steps)
+    t = env.tables
+    extra2 = (k4.rank_table(t.obs_scan, t.obs_width), t.num_obs_tokens, t.obs_height,
+              t.obs_width)
+    return args, extra3, extra2
+
+
+@pytest.mark.parametrize("which", ["k1", "k4"])
+def test_ablation_variants_match_plain(which):
+    """Every variant of K1's and K4's ablation equals its plain version in
+    the bytes it defines; ``none`` equals the production kernel."""
+    from metta_tpu_torch.ops import ablate_obs as ab
+
+    args, extra3, extra2 = _ablation_inputs()
+    if which == "k1":
+        sections, kernel, plain = ab.SECTIONS3, ab.render_obs3_ablated, ab.render_obs3_ablated_plain
+        extra, production = extra3, k1.render_obs3(*args, *extra3)
+    else:
+        sections, kernel, plain = ab.SECTIONS2, ab.render_obs2_ablated, ab.render_obs2_ablated_plain
+        extra, production = extra2, k4.render_obs2(*args, *extra2)
+    for v in ab.variants(sections):
+        skips = ab.skips_of(v, sections)
+        got = kernel(skips, *args, *extra)
+        want, defined = plain(skips, *args, *extra)
+        torch.cuda.synchronize()
+        assert not bool(((got != want) & defined).any()), v
+        if not skips:
+            assert torch.equal(got, production)
+
+
+def test_ablation_wrapper_checks_inputs():
+    from metta_tpu_torch.ops import ablate_obs as ab
+
+    args, extra3, _ = _ablation_inputs(steps=1)
+    bad = list(args)
+    bad[1] = bad[1].cpu()
+    with pytest.raises(ValueError):
+        ab.render_obs3_ablated(set(), *bad, *extra3)
+    with pytest.raises(ValueError):
+        ab.render_obs3_ablated({"antidiag"}, *args, *extra3)
+    out = torch.zeros(args[0].shape[0], A, extra3[1], 3, dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError):
+        ab.render_obs3_ablated(set(), *args, *extra3, out=out[:, :-1])
+
+
+@pytest.mark.parametrize("n_envs", [256, 257, 1])
+def test_smoke_sim_matches_plain(n_envs):
+    from metta_tpu_torch.ops import smoke_sim as s3
+
+    rng = np.random.default_rng(n_envs)
+    r = torch.as_tensor(rng.integers(0, 5, (s3.A, n_envs), dtype=np.int32), device=_cuda())
+    inv = torch.as_tensor(rng.integers(0, 3, (s3.R, s3.A, n_envs), dtype=np.int32),
+                          device="cuda")
+    got = s3.smoke_sim(r, inv)
+    want = s3.smoke_sim_plain(r, inv)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n_envs", [128, 300])
+def test_pairmat_cases_match_plain(n_envs):
+    from metta_tpu_torch.ops import ubench_pairmat as s2
+
+    x = torch.as_tensor(np.random.default_rng(1).integers(0, 24, (s2.A, n_envs),
+                                                           dtype=np.int32), device=_cuda())
+    for case in s2.CASES:
+        assert torch.equal(s2.run(case, x), s2.plain(case, x)), case
+
+
+@pytest.mark.parametrize("case", ["M5", "M1", "M1b", "M2", "M3", "M4", "M6a", "M6b", "M6c",
+                                  "M7"])
+def test_mosaic_case_matches_plain(case):
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+    from metta_tpu_torch.scripts.ubench_mosaic import check
+
+    _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = s1.make_inputs(case, 8, 2, seed=3, device="cuda")
+    got = s1.run(case, inputs, 3)
+    torch.cuda.synchronize()
+    check(case, got, s1.plain(case, inputs, 3))

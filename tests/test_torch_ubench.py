@@ -1,0 +1,276 @@
+"""The port's micro-benchmark plain versions against the JAX scripts' kernels.
+
+Each plain version must equal the JAX script's own Pallas kernel in
+interpret mode on the same inputs from a numpy seed: the sim-kernel smoke
+check (``scripts/smoke_sim_kernel.py:kernel``) at E=256, all nine pair-mat
+cases (``scripts/ubench_pairmat.py:KERNELS``) at E=128, byte for byte, and
+all ten primitive cases of ``scripts/ubench_mosaic.py`` at G=2, eps 1, two
+reps, the last block compared: float32 repeats within rtol 1e-6 (the sum
+taken in the same order), the bf16 GEMMs within 1e-3 of the largest
+magnitude (the accumulation order differs). The scripts are loaded by file
+path; ``ubench_mosaic.py`` defines its kernels inside ``main``, so their
+bodies and ``pallas_call`` wiring are copied here. Every CLI runs once with
+``--device cpu``. The CUDA kernels themselves are held to these plain
+versions on a GPU by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+
+import functools
+import importlib.util
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from metta_tpu_torch.ops import smoke_sim as s3
+from metta_tpu_torch.ops import ubench_mosaic as s1
+from metta_tpu_torch.ops import ubench_pairmat as s2
+from metta_tpu_torch.scripts import smoke_sim_kernel
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+VMEM = pltpu.VMEM
+
+
+def _script(name):
+    spec = importlib.util.spec_from_file_location(f"jax_script_{name}",
+                                                  REPO / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_smoke_sim_matches_jax_script_kernel():
+    """S3 at E=256 (two 128-env grid steps of the TPU kernel)."""
+    mod = _script("smoke_sim_kernel")
+    E = 256
+    rng = np.random.default_rng(0)
+    r = rng.integers(0, 5, (s3.A, E), dtype=np.int32)
+    inv = rng.integers(0, 3, (s3.R, s3.A, E), dtype=np.int32)
+    out1, out2 = pl.pallas_call(
+        mod.kernel,
+        out_shape=(jax.ShapeDtypeStruct((s3.A, E), jnp.int32),) * 2,
+        grid=(E // mod.EL,),
+        in_specs=[pl.BlockSpec((s3.A, mod.EL), lambda i: (0, i), memory_space=VMEM),
+                  pl.BlockSpec((s3.R, s3.A, mod.EL), lambda i: (0, 0, i), memory_space=VMEM)],
+        out_specs=(pl.BlockSpec((s3.A, mod.EL), lambda i: (0, i), memory_space=VMEM),) * 2,
+        interpret=True,
+    )(jnp.asarray(r), jnp.asarray(inv))
+    got1, got2 = s3.smoke_sim(torch.from_numpy(r), torch.from_numpy(inv))
+    np.testing.assert_array_equal(np.asarray(out1), got1.numpy())
+    np.testing.assert_array_equal(np.asarray(out2), got2.numpy())
+    ref1, ref2 = smoke_sim_kernel.reference(r, inv)
+    np.testing.assert_array_equal(ref1, got1.numpy())
+    np.testing.assert_array_equal(ref2, got2.numpy())
+
+
+@pytest.fixture(scope="module")
+def pairmat():
+    return _script("ubench_pairmat")
+
+
+@pytest.mark.parametrize("case", s2.CASES)
+def test_pairmat_case_matches_jax_script_kernel(pairmat, case):
+    """S2 at E=128 (one grid step), byte for byte."""
+    E = 128
+    x = np.random.default_rng(0).integers(0, 24, (s2.A, E), dtype=np.int32)
+    want = pl.pallas_call(
+        pairmat.KERNELS[case],
+        out_shape=jax.ShapeDtypeStruct((s2.A, E), jnp.int32),
+        grid=(E // s2.EL,),
+        in_specs=[pl.BlockSpec((s2.A, s2.EL), lambda i: (0, i), memory_space=VMEM)],
+        out_specs=pl.BlockSpec((s2.A, s2.EL), lambda i: (0, i), memory_space=VMEM),
+        interpret=True,
+    )(jnp.asarray(x))
+    got = s2.run(case, torch.from_numpy(x))
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+# ---- S1: the kernel bodies of scripts/ubench_mosaic.py:main, copied ----
+G, EPS, REPS = 2, 1, 2
+EA = EPS * 24
+F, HP, WP, FR = s1.F, s1.HP, s1.WP, s1.FR
+
+
+def k_tiny(x_ref, o_ref, *, inner):
+    acc = x_ref[0]
+    for _ in range(inner):
+        acc = acc + 1.0
+    o_ref[...] = acc
+
+
+def k_fold(x_ref, o_ref, *, inner):
+    acc = jnp.zeros((264, 2048), jnp.float32)
+    for _ in range(inner):
+        v = x_ref[0]
+        acc = acc + jnp.reshape(v, (264, 2048))
+    o_ref[...] = acc[:, :128]
+
+
+def k_fold2(x_ref, o_ref, *, inner):
+    acc = jnp.zeros((EA, 128 * 11), jnp.float32)
+    for _ in range(inner):
+        v = x_ref[0]
+        acc = acc + jnp.reshape(v, (EA, 11 * 128))
+    o_ref[...] = acc[:, :128]
+
+
+def k_tr(x_ref, o_ref, *, inner):
+    acc = jnp.zeros((128, EA), jnp.float32)
+    for _ in range(inner):
+        acc = acc + x_ref[0].T
+    o_ref[...] = acc
+
+
+def k_droll(x_ref, s_ref, o_ref, *, inner):
+    acc = jnp.zeros((16, 128), jnp.float32)
+    for i in range(inner):
+        acc = acc + pltpu.roll(x_ref[0], s_ref[0, i % 24], 1)
+    o_ref[...] = acc
+
+
+def k_rep(x_ref, o_ref, *, inner):
+    acc = jnp.zeros((264 * 11, 128), jnp.float32)
+    for _ in range(inner):
+        acc = acc + pltpu.repeat(x_ref[0], 11, 0)
+    o_ref[...] = acc[:264]
+
+
+def k_loop_gemm(a_ref, b_ref, o_ref, *, inner):
+    acc = jnp.zeros((128, WP), jnp.float32)
+    for _ in range(inner):
+        for e in range(EPS):
+            r = jax.lax.dot_general(a_ref[0, e], b_ref[0, e], (((1,), (0,)), ((), ())),
+                                    preferred_element_type=jnp.float32)
+            acc = acc + r[:128]
+    o_ref[...] = acc
+
+
+def k_bd_gemm(a_ref, b_ref, o_ref, *, inner):
+    r = jax.lax.dot_general(a_ref[0], b_ref[0], (((1,), (0,)), ((), ())),
+                            preferred_element_type=jnp.float32)
+    o_ref[...] = r[:128]
+
+
+def k_compact(x_ref, o_ref, *, inner):
+    v = x_ref[0]
+    d = x_ref[0] * 0.5
+    for _ in range(inner):
+        for b in range(10):
+            sv = pltpu.roll(v, -(1 << b) % 640, 1)
+            sd = pltpu.roll(d, -(1 << b) % 640, 1)
+            m = sd > 0.5
+            v = jnp.where(m, sv, v)
+            d = jnp.where(m, sd - float(1 << b), d)
+    o_ref[...] = v[:, :128]
+
+
+def _gemm_call(a, b, loop):
+    if loop:
+        in_specs = [pl.BlockSpec((1, EPS, F, HP), lambda i: (i, 0, 0, 0), memory_space=VMEM),
+                    pl.BlockSpec((1, EPS, HP, WP), lambda i: (i, 0, 0, 0), memory_space=VMEM)]
+    else:
+        in_specs = [pl.BlockSpec((1,) + a.shape[1:], lambda i: (i, 0, 0), memory_space=VMEM),
+                    pl.BlockSpec((1,) + b.shape[1:], lambda i: (i, 0, 0), memory_space=VMEM)]
+    return pl.pallas_call(
+        functools.partial(k_loop_gemm if loop else k_bd_gemm, inner=1),
+        out_shape=jax.ShapeDtypeStruct((128, WP), jnp.float32),
+        grid=(G // EPS,),
+        in_specs=in_specs,
+        out_specs=pl.BlockSpec((128, WP), lambda i: (0, 0), memory_space=VMEM),
+        interpret=True,
+    )(a, b)
+
+
+def _jax_case(case, inputs):
+    """The TPU case's output (the last grid step's block), in interpret mode."""
+    mod = _script("ubench_mosaic")
+    arr = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) if t.dtype == torch.bfloat16
+           else jnp.asarray(t.numpy()) for t in inputs]
+    if case in ("M6a", "M6b", "M6c"):
+        return _gemm_call(*arr, loop=case == "M6a")
+    if case == "M3":
+        return pl.pallas_call(
+            functools.partial(k_droll, inner=REPS),
+            out_shape=jax.ShapeDtypeStruct((16, 128), jnp.float32),
+            grid=(G,),
+            in_specs=[pl.BlockSpec((1, 16, 128), lambda i: (i, 0, 0), memory_space=VMEM),
+                      pl.BlockSpec((1, 24), lambda i: (0, 0), memory_space=pltpu.SMEM)],
+            out_specs=pl.BlockSpec((16, 128), lambda i: (0, 0), memory_space=VMEM),
+            interpret=True,
+        )(*arr)
+    kern, out = {
+        "M5": (k_tiny, None),
+        "M1": (k_fold, (264, 128)),
+        "M1b": (k_fold2, (EA, 128)),
+        "M2": (k_tr, (128, EA)),
+        "M4": (k_rep, (264, 128)),
+        "M7": (k_compact, (EA, 128)),
+    }[case]
+    out_shape = None if out is None else jax.ShapeDtypeStruct(out, jnp.float32)
+    return mod.run_kernel(kern, arr[0], G, REPS, out_shape=out_shape, interpret=True)(arr[0])
+
+
+@pytest.mark.parametrize("case", s1.CASES)
+def test_mosaic_case_matches_jax_script_kernel(case):
+    """S1 at G=2, eps 1, two reps: the plain version's last slot against the
+    TPU case's output; the checksum covers what that output drops."""
+    inputs = s1.make_inputs(case, G, EPS, seed=0, device="cpu")
+    slots, cks = s1.run(case, inputs, REPS)
+    want = np.asarray(_jax_case(case, inputs))
+    got = slots[-1].numpy()
+    assert got.shape == want.shape
+    if case in s1.GEMMS:
+        assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
+        r = torch.matmul(inputs[0].double(), inputs[1].double())
+        r = r.sum(1) if case == "M6a" else r
+        np.testing.assert_allclose(cks.double().numpy(), r.reshape(G // EPS, -1, 128 * WP)
+                                   .sum(-1).numpy(), rtol=1e-5)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+        if cks is not None:
+            assert cks.shape == (G,) and cks.dtype == torch.int32
+
+
+def test_mosaic_checksum_covers_dropped_columns():
+    """The int32 checksum is the wrapping sum of the bits of what the TPU
+    output drops: changing a dropped element changes it."""
+    inputs = s1.make_inputs("M1", G, EPS, seed=0, device="cpu")
+    _, cks = s1.run("M1", inputs, REPS)
+    x = inputs[0].clone()
+    x[-1, 1, 72] += 1.0                     # flat 200: row 0, column 200 of the fold
+    slots2, cks2 = s1.run("M1", (x,), REPS)
+    assert torch.equal(slots2[-1], s1.run("M1", inputs, REPS)[0][-1])
+    assert cks2[-1] != cks[-1] and cks2[0] == cks[0]
+
+
+@pytest.mark.parametrize("argv", [
+    ["smoke_sim_kernel"],
+    ["ubench_pairmat", "--num-envs", "128", "--only", "flat,pair_full,tdiv"],
+    ["ubench_mosaic", "--grid", "2", "--eps", "1", "--reps", "2", "--only", "M1,M3,M6c,M7"],
+], ids=["smoke_sim_kernel", "ubench_pairmat", "ubench_mosaic"])
+def test_cli_runs_on_cpu(argv):
+    out = subprocess.run(
+        [sys.executable, "-m", f"metta_tpu_torch.scripts.{argv[0]}", *argv[1:],
+         "--device", "cpu"], capture_output=True, text=True, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    if argv[0] == "smoke_sim_kernel":
+        assert out.stdout.strip().endswith("smoke OK cpu")
+    else:
+        assert len(out.stdout.strip().splitlines()) == len(argv[argv.index("--only") + 1]
+                                                             .split(","))
+
+
+def test_scripts_refuse_without_card():
+    """Without ``--device cpu`` the scripts ask for the card and never fall
+    back to the plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = subprocess.run([sys.executable, "-m", "metta_tpu_torch.scripts.smoke_sim_kernel"],
+                         capture_output=True, text=True, cwd=REPO, timeout=300)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
