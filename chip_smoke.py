@@ -6,10 +6,12 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phases (each one a hard failure):
 
-1. build every CUDA kernel of the port from ``metta_tpu_torch/csrc`` (K1-K5,
-   with S5 and S4 as instantiations of K1's and K4's sources, and S1-S3,
-   one ``nvcc`` per source, all started together) and print the card's name
-   and power limit;
+1. build every CUDA kernel of the port from ``metta_tpu_torch/csrc`` (K1-K5;
+   S5, K1's first design, in its own source and S4 as instantiations of K4's
+   source; S1's GEMMs and its other cases in two sources, S2 and S3; one
+   ``nvcc`` per source, all started together), keep ``ptxas -v``'s registers
+   and shared memory of the redesigned K1 and S1 GEMM kernels, and print the
+   card's name and power limit;
 2. K1 (``csrc/obs_render3.cu``) against its plain torch version
    (``render_obs3_plain``) at the shapes of the ``track_stats=True`` path: the
    combat map, 24 agents, 4096 envs, 20 random steps, byte-equal;
@@ -35,8 +37,9 @@ Phases (each one a hard failure):
    with ``track_stats=False`` as ``bench.py`` runs it: 100 steps after 10
    warm-up steps, obs consumed every step, median of 5 windows; K2's and K1's
    launch counts in that run; each kernel's time per launch, its plain
-   version's time and its bound; a short profile of where the step's device
-   time goes; ``hardware_sanity`` (ore and a converted resource present in the
+   version's time and its bound, and K1 beside its first design on the same
+   windows with no tokens (the launch shape's floor); a short profile of
+   where the step's device time goes; ``hardware_sanity`` (ore and a converted resource present in the
    inventories, as ``bench.py`` checks). Then the ``track_stats=True`` path's
    throughput, 3 windows;
 7. K3 (``csrc/discounted_sum.cu``) against its plain torch version
@@ -94,10 +97,13 @@ Phases (each one a hard failure):
    GEMMs within 1e-3 of their largest magnitude); each variant's and case's
    time, bound and plain time; the launch counts of the scripts' run; each
    repeat loop found in the SASS (``cuobjdump -sass``) with the loads and
-   arithmetic it must hold, its instruction count printed; K1's and K4's
-   production instantiation at their registers (40 and 32) with no stack or
-   local memory; ``torch.bmm`` on the S1 GEMMs' operands as the library
-   yardstick.
+   arithmetic it must hold, its instruction count printed, and the S1
+   GEMM kernel's main loops holding ``HGMMA`` (the consumers' ``wgmma``) and
+   ``UTMALDG`` (the producer's TMA loads); K1's and K4's production kernels
+   at their registers with no stack or local memory; the launch shape
+   (registers and shared memory from ``ptxas -v``, blocks an SM) of the
+   redesigned K1 and S1 GEMMs; ``torch.bmm`` on the S1 GEMMs' operands as the
+   library yardstick.
 
 Prints a JSON line of kernels, the card's name and power limit, then as the
 last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
@@ -155,7 +161,12 @@ def phase_build(res):
 
     log(f"[card] {card_line()}")
     t0 = time.time()
-    paths = build.build(log=log)
+    res["build_log"] = []
+
+    def keep(text):
+        res["build_log"].append(text)
+        log(text)
+    paths = build.build(log=keep)
     log(f"[build] {sorted(paths)} built in {time.time() - t0:.1f} s")
 
 
@@ -718,7 +729,18 @@ def phase_throughput(res):
     host1 = cuda_time_ms(lambda: k1.render_obs3(*args, *render_args(t)), 50,
                          queue_ahead=False)
     plain1 = cuda_time_ms(lambda: k1.render_obs3_plain(*args, *render_args(t)), 5)
-    k1.launches = before                               # timing launches do not count
+    # the launch shape's floor: the same windows with no tokens (every count and
+    # global count 0, so every row is all 255), K1 against its first design (S5's none)
+    from metta_tpu_torch.ops import ablate_obs as ab
+
+    empty = (args[0], args[1], torch.zeros_like(args[2]), args[3], torch.zeros_like(args[4]),
+             args[5])
+    before5 = ab.launches_obs3
+    floor1 = cuda_time_ms(lambda: k1.render_obs3(*empty, *render_args(t)), 50)
+    floor5 = cuda_time_ms(lambda: ab.render_obs3_ablated(set(), *empty, *render_args(t),
+                                                         out=out), 50)
+    k1.launches, ab.launches_obs3 = before, before5    # timing launches do not count
+    log(f"[k1] with no tokens (every row 255): {floor1:.4f} ms, its first design {floor5:.4f} ms")
     nbytes, ops, parts = render_work(args, t.obs_scan, t.num_obs_tokens)
     bound1, by1, ops_ms1 = bound_of(nbytes, ops)
     whole = sum(x.numel() * x.element_size() for x in (*args, t.obs_scan, out))
@@ -1562,12 +1584,12 @@ def phase_sequential(res):
     })
 
 
-# Registers of the production renders' instantiation (mask 0), as `ptxas -v`
-# gave them in this script's build log before the sources became templates:
-# the templated source must compile K1 and K4 to the same code.
-PRODUCTION_REGISTERS = {"obs_render3": ("obs_render3_kernelILi0E", 40),
+# Registers of the production renders, as `ptxas -v` gave them in this
+# script's build log: K4's instantiation of mask 0 (the templated source must
+# compile it to the code it had before the template), K1's persistent kernel.
+PRODUCTION_REGISTERS = {"obs_render3": ("obs_render3_kernel", 48),
                         "obs_render2": ("obs_render2_kernelILi0E", 32)}
-PRODUCTION_MS = {"K1": 0.1382, "K4": 0.1476}   # PERF.md's kernel table, combat E=4096
+PRODUCTION_MS = {"K1": 0.0909, "K4": 0.1476}   # PERF.md's kernel table, combat E=4096
 # Each micro-benchmark kernel's repeat loop, found in the SASS: (library,
 # fragment of the mangled name, opcodes the loop body must hold: the rep's
 # arithmetic and, where the TPU body reads its block every rep, the load).
@@ -1583,7 +1605,9 @@ SASS_LOOPS = [
     ("ubench_mosaic", "droll_kernel", ("FADD", "LDG")),
     ("ubench_mosaic", "rep_kernel", ("FADD", "LDG")),
     ("ubench_mosaic", "compact_kernel", ("FSETP", "LDS")),
-    ("ubench_mosaic", "gemm_kernel", ("HMMA", "LDG")),
+    # S1's GEMMs: the consumers' loop issues wgmma, the producer's TMA loads
+    ("ubench_gemm", "gemm_tma_kernel", ("HGMMA",)),
+    ("ubench_gemm", "gemm_tma_kernel", ("UTMALDG",)),
 ]
 SASS_ADDR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
 
@@ -1630,7 +1654,7 @@ def check_sass():
     from metta_tpu_torch.ops import build
 
     dumps = {lib: sass_functions(build.cuobjdump(lib, "-sass"))
-             for lib in ("ubench_pairmat", "ubench_mosaic", "smoke_sim")}
+             for lib in ("ubench_pairmat", "ubench_mosaic", "ubench_gemm", "smoke_sim")}
     found = {}
     for lib, frag, ops in SASS_LOOPS:
         names = [n for n in dumps[lib] if frag in n]
@@ -1640,8 +1664,9 @@ def check_sass():
         if loop is None:
             head = "\n".join(i for _, i in dumps[lib][names[0]][:80])
             raise AssertionError(f"{lib} {frag}: no loop holding {ops} in the SASS:\n{head}")
-        found[frag] = dict(loop_instructions=loop[0], ops=loop[1],
-                           function_instructions=len(dumps[lib][names[0]]))
+        found[f"{frag} {'+'.join(ops)}"] = dict(
+            loop_instructions=loop[0], ops=loop[1],
+            function_instructions=len(dumps[lib][names[0]]))
         log(f"[sass] {lib} {frag}: repeat loop of {loop[0]} instructions, {loop[1]}; "
             f"{len(dumps[lib][names[0]])} instructions in the kernel")
     (name, instrs), = [(n, i) for n, i in dumps["smoke_sim"].items() if "smoke_sim_kernel" in n]
@@ -1654,8 +1679,9 @@ def check_sass():
 
 
 def check_registers():
-    """K1's and K4's production instantiation (mask 0) use the registers they
-    used before the ablation templates, with no stack or local memory."""
+    """K1's and K4's production kernels use the registers they were built
+    with (K4's mask-0 instantiation those it had before the ablation
+    template), with no stack or local memory."""
     from metta_tpu_torch.ops import build
 
     out = {}
@@ -1671,12 +1697,47 @@ def check_registers():
         if not hits:
             raise AssertionError(f"{lib}: no {frag} in the resource usage ({sorted(usage)})")
         u = hits[0]
-        log(f"[registers] {lib} mask 0: {u.get('REG')} registers (want {want}), stack "
+        log(f"[registers] {lib} {frag}: {u.get('REG')} registers (want {want}), stack "
             f"{u.get('STACK')}, local {u.get('LOCAL')}; {len(usage)} instantiations")
         if u.get("REG") != want or u.get("STACK", 0) or u.get("LOCAL", 0):
-            raise AssertionError(f"{lib} mask 0 compiled to {u}, not {want} registers unspilled")
+            raise AssertionError(f"{lib} {frag} compiled to {u}, not {want} registers unspilled")
         out[lib] = u
     return out
+
+
+def ptxas_usage(build_log, lib, frag):
+    """(registers, static shared bytes) of kernel ``frag`` in library ``lib``
+    from this run's ``ptxas -v`` build log, or None where the library was
+    built before the run."""
+    text = "\n".join(t for t in build_log if t.startswith(f"[nvcc {lib}]"))
+    for m in re.finditer(r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry function|\Z)",
+                         text, re.S):
+        if frag in m.group(1):
+            regs = re.search(r"Used (\d+) registers", m.group(2))
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            return (int(regs.group(1)) if regs else None, int(smem.group(1)) if smem else 0)
+    return None
+
+
+def redesign_shapes(res):
+    """The launch shape of the redesigned K1 (combat's 121 window cells) and
+    S1 GEMMs (M6a's and M6b/c's shapes at eps 4): registers and static shared
+    memory from ``ptxas -v``, dynamic shared memory, blocks an SM, SMs."""
+    from metta_tpu_torch.ops import obs_render3 as k1
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    log_ = res.get("build_log", [])
+    shapes = {"K1 (S=121, T=200)": dict(k1.launch_shape(121, 200)),
+              "S1 GEMM M6a (nE=4, Kd=72)": dict(s1.gemm_launch_shape(4, 72)),
+              "S1 GEMM M6b/c (nE=1, Kd=288)": dict(s1.gemm_launch_shape(1, 288))}
+    k1_use = ptxas_usage(log_, "obs_render3", "obs_render3_kernel")
+    gemm_use = ptxas_usage(log_, "ubench_gemm", "gemm_tma_kernel")
+    for name, shape in shapes.items():
+        use = k1_use if name.startswith("K1") else gemm_use
+        missing = ("not in this run's build log",) * 2
+        shape["registers"], shape["static_smem"] = use if use else missing
+        log(f"[shape] {name}: {shape}")
+    return shapes
 
 
 def sum_entry(rows, key):
@@ -1699,7 +1760,9 @@ def phase_analysis(res):
 
     registers = check_registers()
     sass = check_sass()
-    ab.launches_obs3 = ab.launches_obs2 = s3.launches = s2.launches = s1.launches = 0
+    shapes = redesign_shapes(res)
+    ab.launches_obs3 = ab.launches_obs2 = s3.launches = s2.launches = 0
+    s1.launches = s1.launches_gemm = 0
     t0 = time.time()
     s5_rows = ablate_obs3.main([])
     s4_rows = ablate_obs.main([])
@@ -1708,7 +1771,8 @@ def phase_analysis(res):
     s2_rows = ubench_pairmat.main([])
     s1_rows = ubench_mosaic.main([])
     launches = {"S5": ab.launches_obs3, "S4": ab.launches_obs2, "S3": s3.launches,
-                "S2": s2.launches, "S1": s1.launches}                  # the run ends
+                "S2": s2.launches, "S1": s1.launches,
+                "S1 GEMMs": s1.launches_gemm}                          # the run ends
     log(f"[analysis] the five scripts in {time.time() - t0:.1f} s; launches {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the analysis path never launched: {launches}")
@@ -1754,7 +1818,8 @@ def phase_analysis(res):
         top = main if main is not None else dict(
             ms=sum_entry(rows, "ms"), plain_ms=sum_entry(rows, "plain_ms"),
             bound_ms=sum_entry(rows, "bound_ms"),
-            bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"])
+            bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+            library_ms=sum_entry(rows, "library_ms"))
         return {
             "name": name, "route": "cuda", "source": f"metta_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[key],
@@ -1766,10 +1831,11 @@ def phase_analysis(res):
                        for r in rows],
         }
 
+    gemm_rows = [r for r in s1_rows if r["case"] in s1.GEMMS]
     none5 = next(r for r in s5_rows if r["variant"] == "none")
     none4 = next(r for r in s4_rows if r["variant"] == "none")
     res.setdefault("kernels", []).extend([
-        entry("obs_render3_ablate", "obs_render3.cu", "scripts/ablate_obs3.py:211", "S5",
+        entry("obs_render3_ablate", "obs_render3_ablate.cu", "scripts/ablate_obs3.py:211", "S5",
               s5_rows, "variant", f"combat E={E_MAIN}, the none variant", main=none5),
         entry("obs_render2_ablate", "obs_render2.cu", "scripts/ablate_obs.py:226", "S4",
               s4_rows, "variant", f"combat E={E_MAIN}, the none variant", main=none4),
@@ -1778,10 +1844,13 @@ def phase_analysis(res):
         entry("ubench_pairmat", "ubench_pairmat.cu", "scripts/ubench_pairmat.py:156", "S2",
               s2_rows, "case", f"the sum of the 9 cases at E={E_MAIN}"),
         entry("ubench_mosaic", "ubench_mosaic.cu", "scripts/ubench_mosaic.py:42", "S1",
-              s1_rows, "case", "the sum of the 10 cases at G=1024, reps 16, eps 4 (torch.bmm "
-              "beside the GEMMs under shapes)"),
+              [r for r in s1_rows if r["case"] not in s1.GEMMS], "case",
+              "the sum of the 7 cases other than the GEMMs at G=1024, reps 16, eps 4"),
+        entry("ubench_gemm", "ubench_gemm.cu", "scripts/ubench_mosaic.py:170", "S1 GEMMs",
+              gemm_rows, "case", "the sum of the 3 GEMM cases at G=1024, eps 4 (torch.bmm "
+              "on the same bf16 operands as library_ms)"),
     ])
-    res["analysis"] = dict(registers=registers, sass=sass, launches=launches)
+    res["analysis"] = dict(registers=registers, sass=sass, launches=launches, shapes=shapes)
 
 
 def main() -> int:

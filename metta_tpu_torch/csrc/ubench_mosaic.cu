@@ -11,9 +11,7 @@
 //   M2  transpose acc += x.T                                   [EA, 128] f32
 //   M3  droll     acc += roll(x, shift[i % 24], lanes)         [16, 128] f32
 //   M4  rep       acc += tile(x, 11 rows)                      [264, 128] f32
-//   M6a gemm      sum over EPS of a_e @ b_e, rows :128         [3072, 72] x [72, 128] bf16
-//   M6b gemm      a @ b, rows :128                             [EPS*3072, EPS*72] x [EPS*72, 128]
-//   M6c gemm      a @ b, rows :128                             [EPS*384, EPS*72] x [EPS*72, 128]
+//   M6a-c gemm    in csrc/ubench_gemm.cu
 //   M7  compact   ten roll/select stages over a [EA, 640] plane
 //
 // Every TPU case writes one output block from every grid step, so the last
@@ -36,15 +34,10 @@
 //
 // What bounds them: M1, M1b, M4 and M5 read their 0.1-2.2 GB inputs once
 // and add reps times; the adds bound them at 67 T f32 ops/s, the bytes at
-// 3.35 TB/s. The GEMMs are the tensor cores' (nvcuda::wmma 16x16x16, bf16
-// in, f32 accumulation; the depth 72 padded to 80 with zeros in shared
-// memory), a simple kernel: one block of 8 warps per 128-row tile, the
-// operands staged through shared memory 16 deep at a time. wgmma and TMA
-// are later work.
+// 3.35 TB/s. The GEMMs (M6a-c) are in their own source, csrc/ubench_gemm.cu
+// (TMA and wgmma), so that this file's kernels keep their code.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -218,80 +211,10 @@ __global__ void __launch_bounds__(kThreads) compact_kernel(
   block_bitsum(bits, cks + blockIdx.x);
 }
 
-// M6: out[g] = (sum over e < nE of a[g, e] @ b[g, e])[:128] and cks[g, t] =
-// the sum of row tile t of that sum. a: [B, nE, F, Kd], b: [B, nE, Kd, 128]
-// bf16 row-major, Kd a multiple of 8; grid (F / 128, B), 8 warps, warp w
-// owns rows 16w..16w+15 of the tile and its 8 16x16 accumulators.
-__global__ void __launch_bounds__(kThreads) gemm_kernel(
-    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
-    float* __restrict__ out, float* __restrict__ cks, int nE, int F, int Kd) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 sa[128 * 16];   // A: 128 rows x 16 deep
-  __shared__ __align__(32) __nv_bfloat16 sb[16 * 128];   // B: 16 deep x 128
-  __shared__ __align__(32) float sc[kWarps][16 * 16];
-  __shared__ float wsum[kWarps];
-  const int tile = blockIdx.x, g = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) wmma::fill_fragment(acc[n], 0.0f);
-
-  for (int e = 0; e < nE; ++e) {
-    const __nv_bfloat16* ae = a + (((size_t)g * nE + e) * F + (size_t)tile * 128) * Kd;
-    const __nv_bfloat16* be = b + ((size_t)g * nE + e) * Kd * 128;
-    for (int k0 = 0; k0 < Kd; k0 += 16) {
-      {  // A chunk: thread t loads 8 values of row t/2, zero past the depth
-        const int r = threadIdx.x >> 1, c8 = (threadIdx.x & 1) * 8;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (k0 + c8 < Kd) v = *reinterpret_cast<const uint4*>(ae + (size_t)r * Kd + k0 + c8);
-        *reinterpret_cast<uint4*>(sa + r * 16 + c8) = v;
-      }
-      {  // B chunk: thread t loads 8 values of depth row t/16
-        const int r = threadIdx.x >> 4, c8 = (threadIdx.x & 15) * 8;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (k0 + r < Kd) v = *reinterpret_cast<const uint4*>(be + (size_t)(k0 + r) * 128 + c8);
-        *reinterpret_cast<uint4*>(sb + r * 128 + c8) = v;
-      }
-      __syncthreads();
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, sa + warp * 16 * 16, 16);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, sb + n * 16, 128);
-        wmma::mma_sync(acc[n], fa, fb, acc[n]);
-      }
-      __syncthreads();
-    }
-  }
-
-  float part = 0.0f;
-  float* og = out + (size_t)g * 128 * 128;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    wmma::store_matrix_sync(sc[warp], acc[n], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 256; i += 32) {
-      const float v = sc[warp][i];
-      part += v;
-      if (tile == 0) og[(warp * 16 + i / 16) * 128 + n * 16 + (i & 15)] = v;
-    }
-    __syncwarp();
-  }
-  for (int d = 16; d > 0; d >>= 1) part += __shfl_xor_sync(0xffffffffu, part, d);
-  if (lane == 0) wsum[warp] = part;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += wsum[w];
-    cks[(size_t)g * gridDim.x + tile] = s;
-  }
-}
-
 }  // namespace
 
 // Each entry launches its case on `stream`, one block of 256 threads per
-// grid step (the GEMMs: per 128-row tile of a grid step), with rep_stride 0
+// grid step, with rep_stride 0
 // (every rep reads the same block), and returns cudaGetLastError()
 // (0 = launched).
 extern "C" int mosaic_tiny(const void* x, void* out, int G, int n, int reps, void* stream) {
@@ -331,12 +254,5 @@ extern "C" int mosaic_compact(const void* x, void* out, void* cks, int G, int ro
                               void* stream) {
   compact_kernel<<<G, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (float*)out, (int32_t*)cks, rows, reps);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int mosaic_gemm(const void* a, const void* b, void* out, void* cks, int B, int nE,
-                           int F, int Kd, void* stream) {
-  gemm_kernel<<<dim3(F / 128, B), kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, (float*)out, (float*)cks, nE, F, Kd);
   return (int)cudaGetLastError();
 }

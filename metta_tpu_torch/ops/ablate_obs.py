@@ -2,8 +2,10 @@
 
 Counterpart of the TPU kernels' variants in ``scripts/ablate_obs3.py``
 (K1, ``make_kernel`` :40) and ``scripts/ablate_obs.py`` (K4, ``make_kernel``
-:36). The CUDA kernels ``csrc/obs_render3.cu`` and ``csrc/obs_render2.cu``
-are templates on a mask of their sections; a set bit replaces the section by
+:36). The CUDA kernels ``csrc/obs_render3_ablate.cu`` (K1's first design, a
+block per env with a shared tile, kept for this ablation when K1 became a
+persistent kernel) and ``csrc/obs_render2.cu`` are templates on a mask of
+their sections; a set bit replaces the section by
 a stub that reads no device memory (K4's stubs still read the [S] rank
 table, which every cell of every env shares). Mask 0 is the render itself.
 
@@ -314,10 +316,12 @@ def _checked_out(out, E, A, T, device):
 _entries = {}
 
 
-def _entry(module, name: str, n_ints: int):
-    """The ctypes function ``name`` of ``module``'s kernel library."""
+def _entry(library: str, name: str, n_ints: int):
+    """The ctypes function ``name`` of kernel library ``library``."""
     if name not in _entries:
-        fn = getattr(module._library(), name)
+        from metta_tpu_torch.ops.build import load_library
+
+        fn = getattr(load_library(library), name)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         _entries[name] = fn
@@ -346,7 +350,7 @@ def render_obs3_ablated(skips, sb, tok, counts, rc, g_count, g_tok, scan, num_to
     if E == 0:
         return out
     with torch.cuda.device(sb.device):
-        err = _entry(k1, "obs_render3_ablate_launch", 12)(
+        err = _entry("obs_render3_ablate", "obs_render3_ablate_launch", 12)(
             sb.data_ptr(), tok.data_ptr(), counts.data_ptr(), rc.data_ptr(),
             g_count.data_ptr(), g_tok.data_ptr(), scan.data_ptr(), out.data_ptr(),
             E, H, W, A, NB, K, S, G, T, ohr, owr, mask,
@@ -380,7 +384,7 @@ def render_obs2_ablated(skips, sb, tok, counts, rc, g_count, g_tok, rank, num_to
     if E == 0:
         return out
     with torch.cuda.device(sb.device):
-        err = _entry(k4, "obs_render2_ablate_launch", 11)(
+        err = _entry("obs_render2", "obs_render2_ablate_launch", 11)(
             sb.data_ptr(), tok.data_ptr(), counts.data_ptr(), rc.data_ptr(),
             g_count.data_ptr(), g_tok.data_ptr(), rank.data_ptr(), out.data_ptr(),
             E, H, W, A, NB, K, wh, ww, G, T, mask,

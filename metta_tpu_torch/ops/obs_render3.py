@@ -14,6 +14,8 @@ Counterpart of ``metta_tpu/ops/obs_render3.py`` (``prep_env3`` on
 - :func:`render_obs3` is the kernel's wrapper. A CUDA tensor launches the
   kernel in ``csrc/obs_render3.cu`` (or raises); a CPU tensor takes
   :func:`render_obs3_plain`, the same function in torch ops.
+  :func:`render_schedule` is the kernel's persistent schedule, which agents
+  each warp of its grid renders.
 - :func:`supports_v3` (with :func:`pick_eps`) is the JAX package's rule for
   which render a config and env count take: K1 here, else K4
   (``ops/obs_render2.py``).
@@ -31,6 +33,8 @@ from metta_tpu_torch.ops.build import check_tensor
 
 # Launches of the CUDA kernel, counted by the wrapper where it launches.
 launches = 0
+
+WARPS = 8           # warps a block of the CUDA kernel, one agent each at a time
 
 
 def prep_env3(state, tables, executed_actions, rewards_at_obs):
@@ -132,6 +136,21 @@ def render_obs3_plain(sb, tok, counts, rc, g_count, g_tok, scan, num_tokens: int
                        torch.full_like(out, EMPTY))
 
 
+def render_grid(E: int, A: int, sms: int, per_sm: int) -> int:
+    """Blocks the CUDA kernel launches: one warp an agent, no more blocks
+    than the card holds at once (``sms`` x ``per_sm``)."""
+    return min(-(-E * A // WARPS), sms * per_sm)
+
+
+def render_schedule(E: int, A: int, blocks: int):
+    """The (env, agent) pairs each warp of a grid of ``blocks`` renders, in
+    order (mirrors ``csrc/obs_render3.cu``): warp w of the grid takes the
+    flat agent indices w, w + nw, w + 2 nw, ... (nw = ``WARPS`` x blocks), so
+    consecutive warps write consecutive rows."""
+    nw = WARPS * blocks
+    return [[divmod(p, A) for p in range(w, E * A, nw)] for w in range(nw)]
+
+
 def check_inputs(sb, tok, counts, rc, g_count, g_tok, scan):
     """Raise ValueError unless the render's inputs are what the kernel takes."""
     E, H, W = sb.shape
@@ -162,8 +181,20 @@ def _library():
             + [ctypes.c_int] * 10                    # E H W A NB K S G T ohr
             + [ctypes.c_int, ctypes.c_void_p]        # owr stream
         )
+        lib.obs_render3_shape.restype = ctypes.c_int
+        lib.obs_render3_shape.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
         _lib = lib
     return _lib
+
+
+def launch_shape(S: int, T: int):
+    """The CUDA kernel's launch shape for S window cells and T tokens on the
+    current card: {smem bytes, blocks an SM holds, SMs} (needs the card)."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = _library().obs_render3_shape(S, T, *[ctypes.byref(v) for v in vals])
+    if err != 0:
+        raise RuntimeError(f"obs_render3_shape failed: CUDA error {err}")
+    return dict(zip(("smem", "per_sm", "sms"), (v.value for v in vals)))
 
 
 def render_obs3(sb, tok, counts, rc, g_count, g_tok, scan, num_tokens: int,

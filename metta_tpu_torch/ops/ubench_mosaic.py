@@ -3,7 +3,9 @@
 Counterpart of ``scripts/ubench_mosaic.py`` (its Pallas kernels, ``pallas_call``
 at :42, :125, :170, :190, :206). Ten cases at grid G, ``reps`` repeats and
 EPS envs a step (EA = 24 EPS rows); ``csrc/ubench_mosaic.cu`` says what each
-computes. Every case returns (slots, checksum): ``slots[g]`` is what grid
+computes, and ``csrc/ubench_gemm.cu`` holds the three GEMMs (TMA and wgmma;
+:func:`gemm_boxes` and :func:`gemm_schedule` mirror its depth boxes and its
+block schedule). Every case returns (slots, checksum): ``slots[g]`` is what grid
 step g writes (the TPU output is the last step's, ``slots[-1]``), and the
 checksum covers what the TPU output drops (int32 sums of float bits, or
 float32 sums of the GEMMs' row tiles; None where nothing is dropped).
@@ -27,8 +29,15 @@ GEMMS = ("M6a", "M6b", "M6c")
 F, HP, WP, FR = 3072, 72, 128, 384          # the GEMMs' rows, depth, width; M6c's rows
 NSHIFT, COPIES, COLS = 24, 11, 640
 
-# Launches of the CUDA kernels, counted by the wrapper where it launches.
+# Launches of the CUDA kernels, counted by the wrapper where it launches:
+# ``launches`` those of csrc/ubench_mosaic.cu, ``launches_gemm`` the GEMMs'.
 launches = 0
+launches_gemm = 0
+
+# The GEMM kernel's shared memory (mirrors csrc/ubench_gemm.cu): a ring of at
+# most 8 stages of 16 KB, B whole (nE x padded depth x 128 bf16), barriers.
+GEMM_STAGE_BYTES, GEMM_MAX_STAGES, GEMM_SMEM_LIMIT = 16384, 8, 232448
+GEMM_MAX_DEPTH = 512
 
 
 def _bytes(rng, shape, device):
@@ -83,6 +92,52 @@ def _gemm_plain(a, b):
         r = r.sum(1)
     B, rows = r.shape[:2]
     return r[:, :128].contiguous(), r.reshape(B, rows // 128, -1).sum(-1)
+
+
+def gemm_boxes(Kd: int):
+    """The TMA boxes that cover a GEMM's depth Kd (a multiple of 8), as
+    csrc/ubench_gemm.cu:make_plan picks them: [(first column, width, swizzle
+    bytes)]. 64-wide boxes (128-byte swizzle) while 64 columns are left, then
+    the rest r: a 16-wide box (32-byte swizzle) for r <= 16, 32-wide (64-byte)
+    for r <= 32, 32 + 16 for r <= 48, else 64. TMA zero-fills a box's columns
+    past Kd: fewer than 16 of them (72 -> 80, not 128). The kernel takes at
+    most 8 boxes, a depth of at most 512."""
+    if Kd <= 0 or Kd % 8 or Kd > GEMM_MAX_DEPTH:
+        raise ValueError(f"GEMM depth must be a multiple of 8 in [8, {GEMM_MAX_DEPTH}], "
+                         f"got {Kd}")
+    boxes, c = [], 0
+
+    def add(w):
+        nonlocal c
+        boxes.append((c, w, 2 * w))
+        c += w
+
+    while Kd - c >= 64:
+        add(64)
+    r = Kd - c
+    for w in ((64,) if r > 48 else (32, 16) if r > 32 else (32,) if r > 16
+              else (16,) if r > 0 else ()):
+        add(w)
+    return boxes
+
+
+def gemm_stages(nE: int, Kd: int) -> int:
+    """Ring stages the GEMM kernel gets for nE matrices of depth Kd: as many
+    of its 8 as fit beside B in a block's shared memory (it needs 2)."""
+    kpad = sum(w for _, w, _ in gemm_boxes(Kd))
+    for stages in range(GEMM_MAX_STAGES, 0, -1):
+        if (1024 + stages * GEMM_STAGE_BYTES + nE * kpad * 256 + 8 * (2 * stages + 2)
+                + 64 <= GEMM_SMEM_LIMIT):
+            return stages
+    return 0
+
+
+def gemm_schedule(pairs: int, blocks: int):
+    """The (g, 128-row tile) pairs each block of the GEMM kernel takes, in
+    g-major order: block i the range [i P / nb, (i + 1) P / nb), consecutive
+    tiles of one g (so it loads that g's B once). The kernel launches
+    ``min(pairs, SMs)`` blocks (one an SM). Mirrors csrc/ubench_gemm.cu."""
+    return [(pairs * i // blocks, pairs * (i + 1) // blocks) for i in range(blocks)]
 
 
 def plain(case: str, inputs, reps: int):
@@ -155,6 +210,42 @@ def work(case: str, G: int, eps: int, reps: int):
 
 
 _lib = None
+_gemm_lib = None
+
+
+def _gemm_library():
+    global _gemm_lib
+    if _gemm_lib is None:
+        from metta_tpu_torch.ops.build import load_library
+
+        lib = load_library("ubench_gemm")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mosaic_gemm.restype = ctypes.c_int
+        lib.mosaic_gemm.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.ubench_gemm_plan.restype = ctypes.c_int
+        lib.ubench_gemm_plan.argtypes = [i, p, p]
+        lib.ubench_gemm_shape.restype = ctypes.c_int
+        lib.ubench_gemm_shape.argtypes = [i, i, p, p, p, p]
+        _gemm_lib = lib
+    return _gemm_lib
+
+
+def gemm_launch_shape(nE: int, Kd: int):
+    """The GEMM kernel's launch shape on the current card: {stages, smem
+    bytes, blocks an SM holds, SMs} (needs the card)."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = _gemm_library().ubench_gemm_shape(nE, Kd, *[ctypes.byref(v) for v in vals])
+    if err != 0:
+        raise RuntimeError(f"ubench_gemm_shape failed: CUDA error {err}")
+    return dict(zip(("stages", "smem", "per_sm", "sms"), (v.value for v in vals)))
+
+
+def gemm_boxes_built(Kd: int):
+    """The depth boxes as the built kernel library picks them (needs the
+    card's toolchain): [(first column, width)]."""
+    col, width = (ctypes.c_int * 16)(), (ctypes.c_int * 16)()
+    n = _gemm_library().ubench_gemm_plan(Kd, col, width)
+    return [(col[j], width[j]) for j in range(n)]
 
 
 def _library():
@@ -171,7 +262,6 @@ def _library():
             ("mosaic_droll", [p, p, p, i, i, i, i, s]),
             ("mosaic_rep", [p, p, p, i, i, i, i, s]),
             ("mosaic_compact", [p, p, p, i, i, i, s]),
-            ("mosaic_gemm", [p, p, p, p, i, i, i, i, s]),
         ):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
@@ -183,7 +273,7 @@ def _library():
 def run(case: str, inputs, reps: int):
     """Case ``case``: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors -> (slots, checksum)."""
-    global launches
+    global launches, launches_gemm
     if case not in CASES:
         raise ValueError(f"unknown case {case!r}; known: {CASES}")
     x = inputs[0]
@@ -193,7 +283,6 @@ def run(case: str, inputs, reps: int):
     G = x.shape[0]
     f32, i32 = torch.float32, torch.int32
     stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _library()
     cks = None
     if case in GEMMS:
         a, b = inputs
@@ -206,12 +295,18 @@ def run(case: str, inputs, reps: int):
         if rows % 128 or depth % 8:
             raise ValueError(f"{case}: rows must be a multiple of 128 and depth of 8, "
                              f"got {rows}, {depth}")
+        if gemm_stages(mats, depth) < 2:                    # (gemm_boxes refuses depth > 512)
+            raise ValueError(f"{case}: B ({mats} x {depth} x {WP}) does not fit the "
+                             f"kernel's shared memory beside two stages")
+        if a.data_ptr() % 16 or b.data_ptr() % 16:
+            raise ValueError(f"{case}: a and b must be 16-byte aligned (TMA)")
         out = torch.empty((G, 128, WP), dtype=f32, device=dev)
         cks = torch.empty((G, rows // 128), dtype=f32, device=dev)
         with torch.cuda.device(dev):
-            err = lib.mosaic_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), cks.data_ptr(),
-                                  G, mats, rows, depth, stream)
+            err = _gemm_library().mosaic_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                              cks.data_ptr(), G, mats, rows, depth, stream)
     else:
+        lib = _library()
         check_tensor("x", x, f32, tuple(x.shape), dev)
         n = x[0].numel()
         with torch.cuda.device(dev):
@@ -248,5 +343,8 @@ def run(case: str, inputs, reps: int):
                                          x.shape[1], reps, stream)
     if err != 0:
         raise RuntimeError(f"ubench_mosaic {case} launch failed: CUDA error {err}")
-    launches += 1
+    if case in GEMMS:
+        launches_gemm += 1
+    else:
+        launches += 1
     return out, cks

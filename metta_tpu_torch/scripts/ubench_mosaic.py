@@ -73,10 +73,10 @@ def main(argv=None):
         want = s1.plain(case, inputs, R)
         row = dict(case=case)
         if device.type == "cuda":
-            before = s1.launches
+            before = s1.launches, s1.launches_gemm
             got = s1.run(case, inputs, R)
             torch.cuda.synchronize()
-            s1.launches = before                      # checking launches do not count
+            s1.launches, s1.launches_gemm = before    # checking launches do not count
             row["max_abs_err"] = check(case, got, want)
             row["ms"] = time_ms(lambda: s1.run(case, inputs, R), TIMED_LAUNCHES, device)
         row["plain_ms"] = time_ms(lambda: s1.plain(case, inputs, R), 1, device)

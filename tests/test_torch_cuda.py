@@ -547,3 +547,143 @@ def test_mosaic_case_matches_plain(case):
     got = s1.run(case, inputs, 3)
     torch.cuda.synchronize()
     check(case, got, s1.plain(case, inputs, 3))
+
+
+# ---- the redesigned kernels: K1 (persistent, word stores) and S1's GEMMs (TMA + wgmma) ----
+
+def _synthetic_render(E, A, T, G=5, g_all=None, seed=0, device="cuda"):
+    """Random render inputs from numpy: a 20x23 grid with 30 block ids of up
+    to 4 tokens (block 0 none), an 11x11 window in center-out order, agents
+    anywhere (windows past the map's edges), G global tokens of which each
+    agent has 0-G (or ``g_all``)."""
+    rng = np.random.default_rng(seed)
+    H, W, NB, K, half = 20, 23, 30, 4, 5
+    offs = sorted(((dr, dc) for dr in range(-half, half + 1) for dc in range(-half, half + 1)),
+                  key=lambda d: (abs(d[0]) + abs(d[1]), d))
+    sb = rng.integers(0, NB, (E, H, W))
+    sb[rng.random((E, H, W)) < 0.7] = 0
+    counts = rng.integers(0, K + 1, (E, NB))
+    counts[:, 0] = 0
+    rc = np.stack([rng.integers(0, H, (E, A)), rng.integers(0, W, (E, A))], -1)
+    g_count = (rng.integers(0, G + 1, (E, A)) if g_all is None else np.full((E, A), g_all))
+    arrays = (sb, rng.integers(0, 256, (E, NB, K, 2)), counts, rc, g_count,
+              rng.integers(0, 256, (E, A, G, 3)), np.array(offs))
+    dtypes = (torch.int32, torch.uint8, torch.int32, torch.int32, torch.int32, torch.uint8,
+              torch.int32)
+    args = tuple(torch.as_tensor(x).to(dt).contiguous().to(device)
+                 for x, dt in zip(arrays, dtypes))
+    return args[:6] + (args[6],), (T, half, half)
+
+
+def _cut_inside_a_cell(args, T):
+    """Whether some agent's cut at T falls inside a window cell's tokens."""
+    sb, _, counts, rc, g_count, _, scan = (x.cpu().long() for x in args)
+    E, H, W = sb.shape
+    rr, cc = rc[..., 0:1] + scan[:, 0], rc[..., 1:2] + scan[:, 1]
+    inb = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < W)
+    b = sb.reshape(E, -1).gather(1, (rr.clamp(0, H - 1) * W + cc.clamp(0, W - 1))
+                                 .reshape(E, -1)).reshape(rr.shape) * inb
+    n = counts.gather(1, b.reshape(E, -1)).reshape(b.shape) * inb
+    end = g_count[..., None] + n.cumsum(-1)
+    return bool(((end - n < T) & (end > T)).any())
+
+
+@pytest.mark.parametrize("E,A,T,G,g_all", [
+    (6, 40, 50, 5, None),        # more agents than a warp-per-agent block of the old design
+    (1, 24, 200, 5, None),       # one env: fewer agents than the grid has warps
+    (4097, 24, 30, 5, None),     # not a multiple of the grid
+    (16, 24, 7, 5, None),        # rows of 21 bytes; A*T*3 = 504, not a multiple of 16
+    (8, 24, 3, 5, 5),            # more global tokens than T
+], ids=["A40", "E1", "E4097", "T7", "globals_over_T"])
+def test_k1_matches_plain_on_synthetic_inputs(E, A, T, G, g_all):
+    """K1 byte-equal to its plain version where the persistent schedule and
+    the word stores meet their edges; S5's ``none`` (K1's first design)
+    byte-equal to it on the same inputs."""
+    from metta_tpu_torch.ops import ablate_obs as ab
+
+    args, extra = _synthetic_render(E, A, T, G, g_all, device=_cuda())
+    if T == 7:
+        assert _cut_inside_a_cell(args, T)
+    before = k1.launches
+    got = k1.render_obs3(*args, *extra)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    assert torch.equal(got, k1.render_obs3_plain(*args, *extra))
+    assert torch.equal(ab.render_obs3_ablated(set(), *args, *extra), got)
+
+
+def test_k1_wrapper_never_takes_the_plain_version(monkeypatch):
+    """A CUDA input launches the kernel or raises; it never reaches the plain
+    version (nor the first design, which lives in another library)."""
+    args, extra = _synthetic_render(3, 24, 40, device=_cuda())
+    want = k1.render_obs3_plain(*args, *extra)
+
+    def plain(*_):
+        raise AssertionError("the plain version ran on CUDA inputs")
+    monkeypatch.setattr(k1, "render_obs3_plain", plain)
+    before = k1.launches
+    assert torch.equal(k1.render_obs3(*args, *extra), want)
+    assert k1.launches == before + 1
+    shape = k1.launch_shape(args[6].shape[0], extra[0])
+    assert shape["per_sm"] >= 1 and shape["sms"] >= 1
+
+
+def _bf16(rng, *shape):
+    u = torch.as_tensor(rng.integers(0, 256, size=shape, dtype=np.uint8)).float()
+    return ((2 * u - 255) / 128).to(torch.bfloat16).to("cuda")
+
+
+@pytest.mark.parametrize("case", ["M6a", "M6b", "M6c"])
+def test_gemm_at_default_depth(case):
+    """The GEMMs at the JAX scripts' default depth (72, and 288 at eps 4)
+    with F=384 rows, within ``check``'s tolerance of the plain version."""
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+    from metta_tpu_torch.scripts.ubench_mosaic import check
+
+    _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    if case == "M6a":
+        inputs = _bf16(rng, 3, 4, 384, 72), _bf16(rng, 3, 4, 72, 128)
+    else:
+        inputs = _bf16(rng, 3, 384, 288), _bf16(rng, 3, 288, 128)
+    before = s1.launches_gemm
+    got = s1.run(case, inputs, 1)
+    torch.cuda.synchronize()
+    assert s1.launches_gemm == before + 1
+    check(case, got, s1.plain(case, inputs, 1))
+
+
+def test_gemm_boxes_match_the_kernel():
+    """The built library picks the depth boxes ``gemm_boxes`` mirrors."""
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    _cuda()
+    for Kd in range(8, 513, 8):
+        assert s1.gemm_boxes_built(Kd) == [(c, w) for c, w, _ in s1.gemm_boxes(Kd)], Kd
+    shape = s1.gemm_launch_shape(4, 72)
+    assert shape["stages"] == s1.gemm_stages(4, 72) and shape["per_sm"] == 1
+
+
+def test_gemm_wrapper_checks_inputs(monkeypatch):
+    """The GEMM wrapper refuses a depth that is not a multiple of 8 and rows
+    that are not a multiple of 128, and never reaches the plain version."""
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    _cuda()
+    rng = np.random.default_rng(1)
+
+    def plain(*_):
+        raise AssertionError("the plain version ran on CUDA inputs")
+    monkeypatch.setattr(s1, "_gemm_plain", plain)
+    monkeypatch.setattr(s1, "plain", plain)
+    before = s1.launches_gemm
+    for a, b in ((_bf16(rng, 2, 384, 140), _bf16(rng, 2, 140, 128)),
+                 (_bf16(rng, 2, 320, 144), _bf16(rng, 2, 144, 128))):
+        with pytest.raises(ValueError):
+            s1.run("M6b", (a, b), 1)
+    with pytest.raises(ValueError):
+        s1.run("M6a", (_bf16(rng, 2, 2, 384, 68), _bf16(rng, 2, 2, 68, 128)), 1)
+    assert s1.launches_gemm == before
+    s1.run("M6c", (_bf16(rng, 2, 384, 144), _bf16(rng, 2, 144, 128)), 1)
+    assert s1.launches_gemm == before + 1

@@ -149,6 +149,7 @@ def test_kernel_module_imports_without_nvcc():
             "assert m._lib is None and m.launches == 0; print('ok')")
     env = {"PATH": "/nonexistent", "CUDA_HOME": "/nonexistent"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         env=env, cwd=pathlib.Path(k4.__file__).resolve().parents[2])
+                         env=env, cwd=pathlib.Path(k4.__file__).resolve().parents[2],
+                         timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"

@@ -32,7 +32,7 @@ def test_port_imports_nothing_of_jax():
         "print(json.dumps({'modules': names, 'loaded': sorted(sys.modules)}))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         cwd=REPO)
+                         cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "metta_tpu_torch.engine.env" in res["modules"]
