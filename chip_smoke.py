@@ -37,7 +37,9 @@ Phases (each one a hard failure):
    with ``track_stats=False`` as ``bench.py`` runs it: 100 steps after 10
    warm-up steps, obs consumed every step, median of 5 windows; K2's and K1's
    launch counts in that run; each kernel's time per launch, its plain
-   version's time and its bound, and K1 beside its first design on the same
+   version's time and its bound (K2's from ``ops/sim_fused.py:span_work``,
+   the bytes and operations the span needs whatever the design), and K1
+   beside its first design on the same
    windows with no tokens (the launch shape's floor); a short profile of
    where the step's device time goes; ``hardware_sanity`` (ore and a converted resource present in the
    inventories, as ``bench.py`` checks). Then the ``track_stats=True`` path's
@@ -86,12 +88,17 @@ Phases (each one a hard failure):
    GPU against the CPU over 30 steps with auto-reset and desync: combat with
    K5, and the arena with a shared limit group over laser and armor, asked
    for ``step_mode="batched"`` and taken into the sequential step;
-13. the analysis path, the five kernel-analysis scripts of
+13. the analysis path, the six kernel-analysis scripts of
    ``metta_tpu_torch/scripts`` through their ``main`` at the JAX scripts'
    default sizes: S5, K1's section ablation, and S4, K4's (combat, E=4096:
    ``none``, each section stubbed alone, all stubbed), every variant equal to
    its plain version in the bytes it defines and ``none`` byte-equal to the
-   production kernel; S3, the sim-kernel smoke check, at E=256 and 257; S2,
+   production kernel; K2's section ablation (``ablate_fused``: combat,
+   E=4096, the seeded state of phase 3; ``full``, ``noasm``, ``noattack``,
+   ``noswap``, ``bare``, each the kernel instantiation of its flags, byte-equal
+   to its plain version), its launches counted and each section's cost
+   (``full`` minus the variant) logged; S3, the sim-kernel smoke check, at
+   E=256 and 257; S2,
    the nine pair-mat cases at E=4096, byte-equal; S1, the ten primitive
    cases at G=1024, reps 16, eps 4 (float32 within rtol 1e-6, the bf16
    GEMMs within 1e-3 of their largest magnitude); each variant's and case's
@@ -99,11 +106,12 @@ Phases (each one a hard failure):
    repeat loop found in the SASS (``cuobjdump -sass``) with the loads and
    arithmetic it must hold, its instruction count printed, and the S1
    GEMM kernel's main loops holding ``HGMMA`` (the consumers' ``wgmma``) and
-   ``UTMALDG`` (the producer's TMA loads); K1's and K4's production kernels
-   at their registers with no stack or local memory; the launch shape
-   (registers and shared memory from ``ptxas -v``, blocks an SM) of the
-   redesigned K1 and S1 GEMMs; ``torch.bmm`` on the S1 GEMMs' operands as the
-   library yardstick.
+   ``UTMALDG`` (the producer's TMA loads), and K2's production kernel
+   holding ``MATCH`` and ``REDUX`` (its per-key winners); K1's, K2's and
+   K4's production kernels at their registers with no stack or local
+   memory; the launch shape (registers and shared memory from ``ptxas -v``,
+   blocks an SM) of the redesigned K1, S1 GEMMs and K2; ``torch.bmm`` on the
+   S1 GEMMs' operands as the library yardstick.
 
 Prints a JSON line of kernels, the card's name and power limit, then as the
 last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
@@ -285,34 +293,18 @@ def phase_k1_vs_plain(res):
 def seeded_env(name, n_envs, track_gained=False, seed=5):
     """A ``track_stats=False`` env on the card, reset, with seeded inventories
     (0-3 of each resource) and vibes (the config's attack and transfer vibes
-    on a third of the agents each), so that every section of the span fires."""
-    from metta_tpu_torch.engine.env import MettaGridEnv
+    on a third of the agents each), so that every section of the span fires
+    (``scripts/common.py:seeded_span_env``, shared with K2's ablation)."""
+    from metta_tpu_torch.scripts.common import seeded_span_env
 
-    env = MettaGridEnv(make_cfg(name), num_envs=n_envs, seed=0, track_stats=False,
-                       step_mode="batched", device="cuda")
-    if track_gained:
-        env.tables.track_gained = True
-    env.reset()
-    t, s = env.tables, env.state.env
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    vibes = [0, 3] + [int(v) for m in (t.attack_vibe_mask, t.transfer_vibe_mask)
-                      for v in torch.nonzero(m).flatten()] * 2
-    vibes = torch.tensor(vibes, device="cuda")
-    pick = torch.randint(0, len(vibes), s.agent_vibe.shape, generator=gen, device="cuda")
-    env._state = env.state.replace(env=s.replace(
-        agent_inv=torch.randint(0, 4, s.agent_inv.shape, generator=gen, device="cuda",
-                                dtype=torch.int32),
-        agent_vibe=vibes[pick].to(torch.int32),
-    ))
-    return env, gen
+    return seeded_span_env(name, n_envs, AGENTS, SEED, seed, "cuda", track_gained)
 
 
 def random_actions(n_envs, n_actions, gen):
     """[E, A] int32: half moves, half any id in [-1, n_actions] (invalid too)."""
-    moves = torch.randint(1, 5, (n_envs, AGENTS), generator=gen, device="cuda")
-    anything = torch.randint(-1, n_actions + 1, (n_envs, AGENTS), generator=gen, device="cuda")
-    half = torch.rand((n_envs, AGENTS), generator=gen, device="cuda") < 0.5
-    return torch.where(half, moves, anything).to(torch.int32)
+    from metta_tpu_torch.scripts.common import span_actions
+
+    return span_actions(n_envs, AGENTS, n_actions, gen)
 
 
 def count_transfers(prev, new, acts, t):
@@ -592,53 +584,6 @@ def profile_steps(run, step_ms, n=10, what="step"):
             f"{key} {str(shapes)[:80]}")
 
 
-def k2_work(state, acts, t):
-    """What K2 must do for these inputs: (bytes, operations, parts in bytes).
-
-    Each input byte the span needs is read once and each output byte written
-    once, in the kernel's layout: the agents' actions, ranks, positions,
-    vibes, freezes and inventories (and gained/lost where tracked), the
-    step, the three grid cells at each mover's target, every station's
-    cooldowns, uses, clip state and unclip protocol (they pass through to the
-    new tensors), and type, validity and position of each bumped station; the
-    table pack. Out: positions, vibes, freezes, inventories (gained/lost),
-    success (1 byte) and executed action per agent, the station fields.
-    Operations: the pair terms, A*A compares each (winner per target for
-    attack, transfer and swap, four move rounds of occupancy and cell
-    winner, the station winner), and A*R per agent per inventory phase."""
-    from metta_tpu_torch.engine.compiler import ACT_MOVE
-    from metta_tpu_torch.engine.state import KIND_ASSEMBLER
-    from metta_tpu_torch.ops import sim_fused as k2
-
-    E, A = acts.shape
-    R, NA, H, W = t.num_resources, t.n_assembler_slots, t.height, t.width
-    a = acts.long().clamp(0, t.n_actions - 1)
-    act_ok = (acts >= 0) & (acts < t.n_actions)
-    has_req = (state.agent_inv >= t.action_required[a]).all(-1)
-    d = t.move_deltas[t.action_arg[a].long().clamp(0, 7)]
-    r1, c1 = state.agent_r + d[..., 0], state.agent_c + d[..., 1]
-    movers = (act_ok & (state.agent_frozen == 0) & has_req & (t.action_kind[a] == ACT_MOVE)
-              & (r1 >= 0) & (r1 < H) & (c1 >= 0) & (c1 < W))
-    flat = (r1.clamp(0, H - 1) * W + c1.clamp(0, W - 1)).long()
-    kind = state.static_kind.reshape(E, -1).gather(1, flat)
-    sidx = state.static_idx.reshape(E, -1).gather(1, flat).long().clamp(0, NA - 1)
-    bumped = torch.zeros((E, NA + 1), dtype=torch.bool, device=acts.device)
-    bumped.scatter_(1, torch.where(movers & (kind == KIND_ASSEMBLER), sidx, NA), True)
-    gl = 8 * E * A * R if t.track_gained else 0
-    pack, _ = k2.table_pack(t, acts.device)
-    parts = {
-        "agents in": 24 * E * A + 4 * E * A * R + gl + 4 * E,
-        "target cells": 12 * int(movers.sum()),
-        "stations in": 17 * E * NA + 13 * int(bumped[:, :NA].sum()),
-        "tables": 4 * pack.numel(),
-        "agents out": 21 * E * A + 4 * E * A * R + gl,
-        "stations out": 17 * E * NA,
-    }
-    pair_terms = 3 + 4 * 2 + 1
-    ops = E * A * A * pair_terms + E * A * R * 5
-    return sum(parts.values()), ops, parts
-
-
 def warmed_runner(env, gen, acc, warm=10):
     """A function stepping ``env`` n times with random actions, obs consumed
     every step (summed into ``acc``), after ``warm`` warm-up steps."""
@@ -712,7 +657,7 @@ def phase_throughput(res):
                          queue_ahead=False)
     plain2 = cuda_time_ms(lambda: k2.fused_span_plain(s, acts, rank, t), 5)
     k2.launches = before                               # timing launches do not count
-    nbytes, ops, parts = k2_work(s, acts, t)
+    nbytes, ops, parts = k2.span_work(s, acts, t)
     bound2, by2, ops_ms2 = bound_of(nbytes, ops)
     log(f"[k2] {ms2:.4f} ms per launch on the device ({host2:.4f} ms a call at the "
         f"wrapper's host pace), plain {plain2:.4f} ms, bound {bound2:.4f} ms: "
@@ -1584,12 +1529,19 @@ def phase_sequential(res):
     })
 
 
-# Registers of the production renders, as `ptxas -v` gave them in this
+# Registers of the production kernels, as `ptxas -v` gave them in this
 # script's build log: K4's instantiation of mask 0 (the templated source must
-# compile it to the code it had before the template), K1's persistent kernel.
+# compile it to the code it had before the template), K1's persistent kernel,
+# K2's instantiation for combat (attack, swap and assemblers, no transfer).
+K2_COMBAT = "sim_fused_kernelILb1ELb0ELb1ELb1E"
 PRODUCTION_REGISTERS = {"obs_render3": ("obs_render3_kernel", 48),
-                        "obs_render2": ("obs_render2_kernelILi0E", 32)}
-PRODUCTION_MS = {"K1": 0.0909, "K4": 0.1476}   # PERF.md's kernel table, combat E=4096
+                        "obs_render2": ("obs_render2_kernelILi0E", 32),
+                        "sim_fused": (K2_COMBAT, 64)}
+# PERF.md's kernel table, combat E=4096
+PRODUCTION_MS = {"K1": 0.0909, "K4": 0.1476, "K2": 0.0304}
+# Warp instructions K2's production kernel must hold (cuobjdump -sass
+# opcodes): the match and the reduce of each per-key winner.
+K2_SASS_OPS = ("MATCH", "REDUX")
 # Each micro-benchmark kernel's repeat loop, found in the SASS: (library,
 # fragment of the mangled name, opcodes the loop body must hold: the rep's
 # arithmetic and, where the TPU body reads its block every rep, the load).
@@ -1654,7 +1606,8 @@ def check_sass():
     from metta_tpu_torch.ops import build
 
     dumps = {lib: sass_functions(build.cuobjdump(lib, "-sass"))
-             for lib in ("ubench_pairmat", "ubench_mosaic", "ubench_gemm", "smoke_sim")}
+             for lib in ("ubench_pairmat", "ubench_mosaic", "ubench_gemm", "smoke_sim",
+                         "sim_fused")}
     found = {}
     for lib, frag, ops in SASS_LOOPS:
         names = [n for n in dumps[lib] if frag in n]
@@ -1675,12 +1628,19 @@ def check_sass():
         raise AssertionError(f"smoke_sim: warp primitives missing from the SASS: {ops}")
     log(f"[sass] smoke_sim_kernel: {len(instrs)} instructions; {ops}")
     found["smoke_sim_kernel"] = dict(function_instructions=len(instrs), **ops)
+    (name, instrs), = [(n, i) for n, i in dumps["sim_fused"].items() if K2_COMBAT in n]
+    ops = {op: sum(opcode(i) == op for _, i in instrs) for op in K2_SASS_OPS}
+    if not all(ops.values()):
+        raise AssertionError(f"sim_fused {K2_COMBAT}: warp match or reduce missing from the "
+                             f"SASS: {ops}")
+    log(f"[sass] sim_fused {K2_COMBAT}: {len(instrs)} instructions; {ops}")
+    found[K2_COMBAT] = dict(function_instructions=len(instrs), **ops)
     return found
 
 
 def check_registers():
-    """K1's and K4's production kernels use the registers they were built
-    with (K4's mask-0 instantiation those it had before the ablation
+    """K1's, K2's and K4's production kernels use the registers they were
+    built with (K4's mask-0 instantiation those it had before the ablation
     template), with no stack or local memory."""
     from metta_tpu_torch.ops import build
 
@@ -1720,20 +1680,31 @@ def ptxas_usage(build_log, lib, frag):
 
 
 def redesign_shapes(res):
-    """The launch shape of the redesigned K1 (combat's 121 window cells) and
-    S1 GEMMs (M6a's and M6b/c's shapes at eps 4): registers and static shared
-    memory from ``ptxas -v``, dynamic shared memory, blocks an SM, SMs."""
+    """The launch shape of the redesigned K1 (combat's 121 window cells), S1
+    GEMMs (M6a's and M6b/c's shapes at eps 4) and K2 (combat's and the
+    arena's tables): registers and static shared memory from ``ptxas -v``,
+    dynamic shared memory, blocks an SM, SMs."""
+    from metta_tpu_torch.engine.env import MettaGridEnv
     from metta_tpu_torch.ops import obs_render3 as k1
+    from metta_tpu_torch.ops import sim_fused as k2
     from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    def k2_tables(name):
+        return MettaGridEnv(make_cfg(name), num_envs=1, seed=0, track_stats=False,
+                            step_mode="batched", device="cuda").tables
 
     log_ = res.get("build_log", [])
     shapes = {"K1 (S=121, T=200)": dict(k1.launch_shape(121, 200)),
               "S1 GEMM M6a (nE=4, Kd=72)": dict(s1.gemm_launch_shape(4, 72)),
-              "S1 GEMM M6b/c (nE=1, Kd=288)": dict(s1.gemm_launch_shape(1, 288))}
-    k1_use = ptxas_usage(log_, "obs_render3", "obs_render3_kernel")
-    gemm_use = ptxas_usage(log_, "ubench_gemm", "gemm_tma_kernel")
+              "S1 GEMM M6b/c (nE=1, Kd=288)": dict(s1.gemm_launch_shape(1, 288)),
+              "K2 combat": dict(k2.launch_shape(k2_tables("combat"))),
+              "K2 arena": dict(k2.launch_shape(k2_tables("arena")))}
+    uses = {"K1": ptxas_usage(log_, "obs_render3", "obs_render3_kernel"),
+            "S1": ptxas_usage(log_, "ubench_gemm", "gemm_tma_kernel"),
+            "K2 combat": ptxas_usage(log_, "sim_fused", K2_COMBAT),
+            "K2 arena": ptxas_usage(log_, "sim_fused", "sim_fused_kernelILb0ELb0ELb1ELb1E")}
     for name, shape in shapes.items():
-        use = k1_use if name.startswith("K1") else gemm_use
+        use = next(u for k, u in uses.items() if name.startswith(k))
         missing = ("not in this run's build log",) * 2
         shape["registers"], shape["static_smem"] = use if use else missing
         log(f"[shape] {name}: {shape}")
@@ -1752,42 +1723,51 @@ def phase_analysis(res):
     loops, K1's and K4's production registers; S3's time and the S1 GEMMs'
     ``torch.bmm`` time (the library yardstick) after the run."""
     from metta_tpu_torch.ops import ablate_obs as ab
+    from metta_tpu_torch.ops import sim_fused as k2
     from metta_tpu_torch.ops import smoke_sim as s3
     from metta_tpu_torch.ops import ubench_mosaic as s1
     from metta_tpu_torch.ops import ubench_pairmat as s2
-    from metta_tpu_torch.scripts import (ablate_obs, ablate_obs3, smoke_sim_kernel,
-                                         ubench_mosaic, ubench_pairmat)
+    from metta_tpu_torch.scripts import (ablate_fused, ablate_obs, ablate_obs3,
+                                         smoke_sim_kernel, ubench_mosaic, ubench_pairmat)
 
     registers = check_registers()
     sass = check_sass()
     shapes = redesign_shapes(res)
     ab.launches_obs3 = ab.launches_obs2 = s3.launches = s2.launches = 0
-    s1.launches = s1.launches_gemm = 0
+    s1.launches = s1.launches_gemm = k2.launches = 0
     t0 = time.time()
     s5_rows = ablate_obs3.main([])
     s4_rows = ablate_obs.main([])
+    k2_rows = ablate_fused.main([])
     for n in (256, 257):
         smoke_sim_kernel.main(["--num-envs", str(n)])
     s2_rows = ubench_pairmat.main([])
     s1_rows = ubench_mosaic.main([])
-    launches = {"S5": ab.launches_obs3, "S4": ab.launches_obs2, "S3": s3.launches,
-                "S2": s2.launches, "S1": s1.launches,
+    launches = {"S5": ab.launches_obs3, "S4": ab.launches_obs2, "K2 ablation": k2.launches,
+                "S3": s3.launches, "S2": s2.launches, "S1": s1.launches,
                 "S1 GEMMs": s1.launches_gemm}                          # the run ends
-    log(f"[analysis] the five scripts in {time.time() - t0:.1f} s; launches {launches}")
+    log(f"[analysis] the six scripts in {time.time() - t0:.1f} s; launches {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the analysis path never launched: {launches}")
+    if len(k2_rows) != len(ablate_fused.VARIANTS):
+        raise AssertionError(f"K2's ablation timed {len(k2_rows)} variants")
+    full = next(r for r in k2_rows if r["variant"] == "full")
+    for r in k2_rows:
+        log(f"[analysis] K2 {r['variant']}: {r['ms']:.4f} ms, the section(s) it drops cost "
+            f"{full['ms'] - r['ms']:.4f} ms of full's {full['ms']:.4f}")
 
     production = {
         "K1": next((k["ms"] for k in res.get("kernels", []) if k["name"] == "obs_render3"), None),
         "K4": res.get("k4_shapes", {}).get(f"combat E={E_MAIN}", {}).get("ms"),
+        "K2": next((k["ms"] for k in res.get("kernels", []) if k["name"] == "sim_fused"), None),
     }
-    for name, rows in (("K1", s5_rows), ("K4", s4_rows)):
-        none = next(r for r in rows if r["variant"] == "none")
+    for name, rows in (("K1", s5_rows), ("K4", s4_rows), ("K2", k2_rows)):
+        none = next(r for r in rows if r["variant"] in ("none", "full"))
         prod = production[name]
         log(f"[analysis] {name} at combat E={E_MAIN}: production "
             + (f"{prod:.4f} ms ({100 * (prod / PRODUCTION_MS[name] - 1):+.1f}% from PERF.md's "
                f"{PRODUCTION_MS[name]} ms)" if prod is not None else "not timed in this run")
-            + f", the ablation's none {none['ms']:.4f} ms")
+            + f", the ablation's {none['variant']} {none['ms']:.4f} ms")
 
     s3_shapes = []
     for n in (256, 257):
@@ -1850,7 +1830,8 @@ def phase_analysis(res):
               gemm_rows, "case", "the sum of the 3 GEMM cases at G=1024, eps 4 (torch.bmm "
               "on the same bf16 operands as library_ms)"),
     ])
-    res["analysis"] = dict(registers=registers, sass=sass, launches=launches, shapes=shapes)
+    res["analysis"] = dict(registers=registers, sass=sass, launches=launches, shapes=shapes,
+                           k2_ablation=k2_rows)
 
 
 def main() -> int:

@@ -10,34 +10,45 @@
 // The chest phase is not here: no ported config has chests, and the wrapper
 // refuses them.
 //
-// Design: one warp per env, lane = agent (A <= 32; lanes >= A hold no agent
-// and only take part in the warp's shuffles and barriers), ENVS_PER_BLOCK
-// envs per block. What the TPU kernel spells as [A, A*EL] pair-mats becomes a
-// loop over the env's A agents with __shfl_sync (the target's frozen count,
-// vibe and position; the lowest rank per target, cell or station). Sums into
-// targets are atomicAdd on ints in shared memory: an integer sum is the same
-// in any order, so results stay byte-exact. The env's inventory rows [A][R],
-// a delta buffer [A][R] and the gained/lost accumulators live in shared
-// memory; every phase adds its deltas to the buffer and then each lane clamps
-// its own row once, as the plain version's one clamp per phase does. The
-// assembler phase runs on the winner lane of each claimed station: its 8
-// neighbours (from the agents' final positions), the sorted vibe key,
-// protocol pick, the rotated neighbour order, the occurrence-index output
-// selection and the two shared-consume passes over 8 slots x the protocol
-// resources, in registers. Tables are read from device memory (one int32
-// pack, offsets in the kernel's Static argument); the TPU kernel baked them
-// into its code. The kernel reads the target cells' static_kind, static_idx
-// and agent_grid itself (the TPU wrapper packed them in a pass before it),
-// and takes any E (no 128-env blocks).
+// What bounds it: instruction issue, per warp. At E=4096 on the combat map
+// the span moves 25 MB (7.4 us at 3.35 TB/s, ops/sim_fused.py:span_work), but
+// each env is one warp's serial chain of a few thousand instructions, and a
+// wave of 31 warps an SM issues them. On the section ablation's input
+// (metta_tpu_torch/scripts/ablate_fused.py, an H100 at 700 W) this design
+// takes 0.032 ms: 0.022 with every optional section off, the assembler
+// phase 0.008, the attack 0.006. The first design took 0.103 ms there
+// (0.041 with the sections off, the assembler phase 0.049): a warp walked A
+// lanes with two shuffles per candidate for each of seven per-key winners
+// and three per agent in each of four move rounds, and read every table from
+// device memory inside loops whose bounds were runtime fields.
 //
-// What bounds it: bytes. Per env it reads the agents' fields and inventories,
-// the cells its movers target and the station fields, and writes the same
-// back; at E=4096 on the combat map that is about 3 KB in and 3 KB out an
-// env, 25 MB in all, 7.4 us at 3.35 TB/s (chip_smoke.py:k2_work counts it
-// from a run's inputs). The work per env is small and serial (a warp walks A agents per
-// pair term), so the design keeps every intermediate on chip: inputs are read
-// once (inventories with the env's lanes reading consecutive words), phases
-// talk through shared memory, and outputs are written once.
+// Design: one warp per env, lane = agent (A <= kMaxA = 32); a persistent
+// grid of blocks of up to kMaxWarps warps, as many blocks as the SMs hold,
+// warp w of the grid taking envs w, w + nw, ... (nw warps in the grid).
+//   - Sections are template parameters (has_attack, has_transfer, has_swap,
+//     has_asm): the launcher picks the instantiation the config needs.
+//   - The table pack is loaded into shared memory once per block, with the
+//     agents' limits at an odd row stride; every table read is a shared load.
+//   - Loops over resources are unrolled to kMaxR with a runtime guard.
+//   - A winner per key (target agent, target cell, station) is two warp
+//     instructions: __match_any_sync on the key gives the lane's group, and
+//     __reduce_min_sync of the score (rank for a candidate, A + 1 otherwise)
+//     over that group's mask gives the group's lowest rank.
+//   - The move rounds read the agents' current (r, c) pairs from
+//     warp-private shared memory in 16-byte broadcast loads, no shuffles, and
+//     stop as soon as no mover is unresolved.
+//   - The assembler phase walks the env's winning stations in turn, the
+//     whole warp on each: eight ballots give each neighbour cell's agent;
+//     a lane per neighbour slot finds, by eight shuffles, its place in the
+//     sorted vibe key and in the neighbour order and writes it to the warp's
+//     slot arrays; a lane per protocol makes the pick (reduce and ballot), a
+//     lane per place its output test, and a lane per (resource, input or
+//     output) pass the resource checks and the shared consume.
+// Sums into other agents' rows stay integer atomics into shared memory: an
+// integer sum is the same in any order, so results stay byte-exact. Every
+// phase adds its deltas to a buffer, and each lane then clamps its own row
+// once, as the plain version's one clamp per phase does; a phase with no
+// delta skips its clamp once a clamp has put every row in range.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,7 +58,11 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int ENVS_PER_BLOCK = 4;
+constexpr int kMaxA = 32;       // agents: a lane each
+constexpr int kMaxR = 16;       // resources: loops unrolled to this
+constexpr int kMaxNP = 32;      // protocols: a lane each in the pick
+constexpr int kMaxWarps = 8;    // envs (warps) a block holds at once
+constexpr int kThreads = 32 * kMaxWarps;
 
 // Order of the tables in the int32 pack; ops/sim_fused.py:TABLES lists the
 // same names in the same order.
@@ -98,69 +113,153 @@ struct Out {
 constexpr int N_IN = 22;
 constexpr int N_OUT = 14;
 
-__constant__ int NEIGHBOR_OFFS[8][2] = {
-    {-1, -1}, {-1, 0}, {-1, 1}, {0, -1}, {0, 1}, {1, -1}, {1, 0}, {1, 1}};
-
-// Shared ints per env: inventory, delta buffer, gained, lost ([A][R] each),
-// then 32-entry arrays: scalar sums, final rows, final cols, vibes, claimed
-// station, its cooldown.
-__host__ __device__ inline int warp_ints(int A, int R) { return 4 * A * R + 6 * 32; }
+// Shared memory, in ints, each region a multiple of 4: the table pack, the
+// limits [A][RS] (RS = R | 1, an odd stride: a warp's lanes reading their own
+// rows hit distinct banks), then per warp: inventories and the delta buffer
+// [A][RS] (and gained, lost where tracked), positions [32] as (r, c) pairs,
+// ranks [32], three sums [3][32], and a station's sorted vibe key [8], the
+// agents of its neighbour order [8] and their vibes [8].
+// ops/sim_fused.py:span_smem_bytes mirrors it.
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline int row_stride(int R) { return R | 1; }
+__host__ __device__ inline int warp_ints(int A, int R, int track) {
+  return round4((track ? 4 : 2) * A * row_stride(R)) + 2 * 32 + 32 + 3 * 32 + 3 * 8;
+}
+__host__ __device__ inline int block_ints(int n_tab, int A, int R, int track, int warps) {
+  return round4(n_tab) + round4(A * row_stride(R)) + warps * warp_ints(A, R, track);
+}
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-__global__ void __launch_bounds__(32 * ENVS_PER_BLOCK)
-sim_fused_kernel(In in, Out out, Static s, const int32_t* __restrict__ tab, int E) {
-  extern __shared__ int smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int e = blockIdx.x * ENVS_PER_BLOCK + warp;
-  if (e >= E) return;  // the whole warp leaves; the kernel has no block barrier
+// The eight neighbour offsets of a cell, in slot order (protocols.py:NEIGHBOR_OFFS).
+__device__ __forceinline__ constexpr int nb_dr(int o) { return o < 3 ? -1 : (o < 5 ? 0 : 1); }
+__device__ __forceinline__ constexpr int nb_dc(int o) {
+  return o < 3 ? o - 1 : (o == 3 ? -1 : (o == 4 ? 1 : o - 6));
+}
 
+// Whether this lane is its key group's candidate of lowest rank: `group` is
+// __match_any_sync of the key, the same mask on every lane it names.
+__device__ __forceinline__ bool lowest_rank(bool cand, int rank, int A, unsigned group) {
+  const int score = cand ? rank : A + 1;
+  const int best = __reduce_min_sync(group, score);  // every lane, outside the &&
+  return cand && score == best;
+}
+
+// shared_update on local slot copies, a lane per place: each group of 8
+// lanes (places 0-7) spreads `delta` of resource r over its valid places:
+// three kick passes, then base + sign-surplus to the earliest actives. The
+// lane's place holds agent `agent`'s row (`valid`: an agent stands there);
+// its delta goes to that agent's buffer row. Every lane calls it: the sums
+// are shuffles and ballots within the group.
+__device__ __forceinline__ void consume(bool valid, int agent, int delta, int r,
+                                        const int* s_inv, const int* s_lim, int* s_acc, int RS) {
+  const int lane = threadIdx.x & 31;
+  const unsigned group = 0xffu << (lane & 24), below = group & ((1u << lane) - 1);
+  const int q = agent * RS + r;
+  const int cur = valid ? s_inv[q] : 0;
+  const int fr = valid ? max(s_lim[q] - cur, 0) : 0;
+  int app = 0;
+  bool act = valid && delta != 0;
+  int n = __popc(__ballot_sync(FULL, act) & group);
+  int rem = delta;
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) {
+    const int per = n > 0 ? rem / max(n, 1) : 0;  // C division truncates, as trunc_div
+    const bool kick = act && (rem > 0 ? fr - app <= per : cur + app <= -per);
+    const int take = min(max(kick ? per : 0, -(cur + app)), fr - app);
+    app += take;
+    int took = take;
+    took += __shfl_xor_sync(FULL, took, 1);
+    took += __shfl_xor_sync(FULL, took, 2);
+    took += __shfl_xor_sync(FULL, took, 4);
+    rem -= took;
+    n -= __popc(__ballot_sync(FULL, kick) & group);
+    act = act && !kick;
+  }
+  const int base = n > 0 ? rem / max(n, 1) : 0;
+  const int surplus = rem - base * n;
+  const int sgn = (surplus > 0) - (surplus < 0);
+  const int sab = surplus < 0 ? -surplus : surplus;
+  const int rl = __popc(__ballot_sync(FULL, act) & below);  // actives before this place
+  int fin = act ? base + (rl < sab ? sgn : 0) : 0;
+  fin = min(max(fin, -(cur + app)), fr - app);
+  if (valid && app + fin) atomicAdd(&s_acc[q], app + fin);
+}
+
+// The span of env e, on one warp. `s_tab`/`s_lim` are the block's tables,
+// `w_base` the warp's own shared arrays.
+template <bool ATTACK, bool TRANSFER, bool SWAP, bool ASM>
+__device__ __forceinline__ void env_span(int e, const In& in, const Out& out, const Static& s,
+                                         const int* s_tab, const int* s_lim, int* w_base) {
+  const int lane = threadIdx.x & 31;
   const int A = s.A, R = s.R, V = s.V, H = s.H, W = s.W, NA = s.NA;
-  const int AR = A * R;
-  int* s_inv = smem + warp * warp_ints(A, R);
-  int* s_acc = s_inv + AR;
-  int* s_gain = s_acc + AR;
-  int* s_lost = s_gain + AR;
-  int* s_sum = s_lost + AR;
-  int* s_r = s_sum + 32;
-  int* s_c = s_r + 32;
-  int* s_vibe = s_c + 32;
-  int* s_st = s_vibe + 32;
-  int* s_cd = s_st + 32;
-#define T(name) (tab + s.off[name])
-  const int* LIM = T(T_LIMS);
+  const int RS = row_stride(R);
+  const bool track = s.track_gained != 0;
+  int* s_inv = w_base;
+  int* s_acc = s_inv + A * RS;
+  int* s_gain = s_acc + A * RS;
+  int* s_lost = s_gain + A * RS;
+  int2* s_pos = reinterpret_cast<int2*>(w_base + round4((track ? 4 : 2) * A * RS));
+  int* s_rank = reinterpret_cast<int*>(s_pos + 32);
+  int* s_sum = s_rank + 32;
+  int* s_key = s_sum + 3 * 32;
+  int* s_ref = s_key + 8;
+  int* s_v8 = s_ref + 8;
+#define TAB(name) (s_tab + s.off[name])
 
   const bool live = lane < A;
   const int a = live ? lane : 0;
-  const int arow = a * R;
+  const int arow = a * RS;
   const size_t ea = (size_t)e * A + a;
-  const size_t eAR = (size_t)e * AR;
-  const int step = in.step[e];
+  const size_t eAR = ea * R;
+  const size_t eNA = (size_t)e * NA;
+  const int step = __ldg(in.step + e);
 
-  for (int i = lane; i < AR; i += 32) {
-    s_inv[i] = in.inv[eAR + i];
-    s_gain[i] = 0;
-    s_lost[i] = 0;
+  const int act_in = live ? __ldg(in.actions + ea) : -1;
+  const int rank = live ? __ldg(in.rank + ea) : A + 1 + lane;
+  const int r0 = live ? __ldg(in.r + ea) : 0;
+  const int c0 = live ? __ldg(in.c + ea) : 0;
+  const int frozen0 = live ? __ldg(in.frozen + ea) : 0;
+  int vibe = live ? __ldg(in.vibe + ea) : 0;
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      if (r >= R) break;
+      s_inv[arow + r] = __ldg(in.inv + eAR + r);
+      s_acc[arow + r] = 0;
+      if (track) {
+        s_gain[arow + r] = 0;
+        s_lost[arow + r] = 0;
+      }
+    }
   }
-  const int act_in = live ? in.actions[ea] : -1;
-  const int rank = live ? in.rank[ea] : A + 1 + lane;
-  const int r0 = live ? in.r[ea] : 0;
-  const int c0 = live ? in.c[ea] : 0;
-  const int frozen0 = live ? in.frozen[ea] : 0;
-  int vibe = live ? in.vibe[ea] : 0;
+  // station fields pass through; the winners overwrite their claimed stations
+  for (int i = lane; i < NA; i += 32) {
+    out.asm_cd_dur[eNA + i] = __ldg(in.asm_cd_dur + eNA + i);
+    out.asm_cd_end[eNA + i] = __ldg(in.asm_cd_end + eNA + i);
+    out.asm_uses[eNA + i] = __ldg(in.asm_uses + eNA + i);
+    out.asm_clipped[eNA + i] = __ldg(in.asm_clipped + eNA + i);
+    out.asm_uproto[eNA + i] = __ldg(in.asm_uproto + eNA + i);
+  }
   __syncwarp();
 
-  // clamp own row of inv + acc into [0, lim], gained/lost from the net change
-  auto apply_acc = [&](bool track_net) {
+  // clamp own row of inv + acc into [0, lim] and zero acc; gained/lost from
+  // the net change. Once every row is in range, a phase with no delta skips it.
+  bool clamped = false;
+  auto apply = [&](bool any_delta, bool track_net) {
+    if (clamped && !any_delta) return;  // warp-uniform
+    clamped = true;
     if (live) {
-      for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int r = 0; r < kMaxR; ++r) {
+        if (r >= R) break;
         const int old = s_inv[arow + r];
-        const int nw = clampi(old + s_acc[arow + r], 0, LIM[arow + r]);
+        const int nw = min(max(old + s_acc[arow + r], 0), s_lim[arow + r]);
         s_inv[arow + r] = nw;
-        if (s.track_gained) {
+        s_acc[arow + r] = 0;
+        if (track) {
           if (track_net) s_gain[arow + r] += max(nw - old, 0);
           s_lost[arow + r] += max(old - nw, 0);
         }
@@ -168,23 +267,24 @@ sim_fused_kernel(In in, Out out, Static s, const int32_t* __restrict__ tab, int 
     }
     __syncwarp();
   };
-  auto zero_acc = [&]() {
-    if (live)
-      for (int r = 0; r < R; ++r) s_acc[arow + r] = 0;
-    __syncwarp();
-  };
 
   // ---------- decode ----------
   const int NACT = s.NACT;
   const bool act_ok = live && act_in >= 0 && act_in < NACT;
   const int act = clampi(act_in, 0, NACT - 1);
-  const int kind = T(T_ACTION_KIND)[act];
-  const int arg = T(T_ACTION_ARG)[act];
+  const int kind = TAB(T_ACTION_KIND)[act];
+  const int arg = TAB(T_ACTION_ARG)[act];
   const bool is_frozen = frozen0 != 0;
   int frozen = (act_ok && is_frozen && frozen0 > 0) ? frozen0 - 1 : frozen0;
   bool has_req = true;
-  for (int r = 0; r < R; ++r)
-    has_req = has_req && s_inv[arow + r] >= T(T_ACTION_REQUIRED)[act * R + r];
+  {
+    const int* REQ = TAB(T_ACTION_REQUIRED) + act * R;
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      if (r >= R) break;
+      has_req = has_req && s_inv[arow + r] >= REQ[r];
+    }
+  }
   const bool attempt = act_ok && !is_frozen && has_req;
   bool success = attempt && kind == s.act_noop;
 
@@ -196,16 +296,16 @@ sim_fused_kernel(In in, Out out, Static s, const int32_t* __restrict__ tab, int 
   // ---------- movement proposals ----------
   bool movers = attempt && kind == s.act_move;
   const int a8 = clampi(arg, 0, 7);
-  const int r1 = r0 + T(T_MOVE_DELTAS)[2 * a8];
-  const int c1 = c0 + T(T_MOVE_DELTAS)[2 * a8 + 1];
+  const int r1 = r0 + TAB(T_MOVE_DELTAS)[2 * a8];
+  const int c1 = c0 + TAB(T_MOVE_DELTAS)[2 * a8 + 1];
   movers = movers && r1 >= 0 && r1 < H && c1 >= 0 && c1 < W;
   const int flat = clampi(r1, 0, H - 1) * W + clampi(c1, 0, W - 1);
   int skind = 0, sidx = 0, occ0 = 0;
   if (movers) {
     const size_t g = (size_t)e * H * W + flat;
-    skind = in.static_kind[g];
-    sidx = in.static_idx[g];
-    occ0 = in.agent_grid[g];
+    skind = __ldg(in.static_kind + g);
+    sidx = __ldg(in.static_idx + g);
+    occ0 = __ldg(in.agent_grid + g);
   }
   const bool has_tgt = movers && occ0 > 0;
   const int tgt = has_tgt ? occ0 - 1 : 0;
@@ -215,128 +315,149 @@ sim_fused_kernel(In in, Out out, Static s, const int32_t* __restrict__ tab, int 
     const int v = __shfl_sync(FULL, x, tgt);
     return has_tgt ? v : 0;
   };
-  auto lowest_rank = [&](bool cand, int key) {
-    const int score = cand ? rank : A + 1;
-    int best = A + 1;
-    for (int t = 0; t < A; ++t) {
-      const int kt = __shfl_sync(FULL, key, t);
-      const int st = __shfl_sync(FULL, score, t);
-      if (kt == key && st < best) best = st;
-    }
-    return cand && score == best;
-  };
-  auto sum_to_t = [&](int v, bool m) {
-    s_sum[lane] = 0;
-    __syncwarp();
-    if (m && has_tgt) atomicAdd(&s_sum[tgt], v);
-    __syncwarp();
-    const int out_v = s_sum[lane];
-    __syncwarp();
-    return out_v;
-  };
+  unsigned by_tgt = 0;  // lanes of the same target agent
+  if (ATTACK || TRANSFER || SWAP) by_tgt = __match_any_sync(FULL, tgt);
 
   // ---------- vibe-triggered attacks ----------
   bool handled_attack = false;
-  if (s.has_attack) {
-    const int* AC = T(T_ATTACK_CONSUMED);
-    const bool wants = movers && T(T_ATTACK_VIBE_MASK)[vibe_c] && has_tgt;
+  if (ATTACK) {
+    const int* AC = TAB(T_ATTACK_CONSUMED);
+    const int* WW = TAB(T_ATTACK_WEAPON_W);
+    const int* AW = TAB(T_ATTACK_ARMOR_W);
+    const bool wants = movers && TAB(T_ATTACK_VIBE_MASK)[vibe_c] && has_tgt;
     bool afford = true;
-    for (int r = 0; r < R; ++r) afford = afford && s_inv[arow + r] >= AC[r];
-    const bool t_free = from_t(frozen) <= 0;
-    const bool valid = lowest_rank(wants && t_free && afford, tgt);
-
     int weapon = 0;
-    for (int r = 0; r < R; ++r) weapon += s_inv[arow + r] * T(T_ATTACK_WEAPON_W)[r];
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      if (r >= R) break;
+      const int x = s_inv[arow + r];
+      afford = afford && x >= AC[r];
+      weapon += x * WW[r];
+    }
+    const bool t_free = from_t(frozen) <= 0;
+    const bool valid = lowest_rank(wants && t_free && afford, rank, A, by_tgt);
+
     const int t_vibe = from_t(vibe_c);
-    const int vb = T(T_ATTACK_VIBE_BONUS)[t_vibe];
-    const int trow = tgt * R;
+    const int vb = TAB(T_ATTACK_VIBE_BONUS)[t_vibe];
+    const int* VMR = TAB(T_VIBE_MATCHES_RESOURCE) + t_vibe * R;
+    const int trow = tgt * RS;
     int armor = 0;
-    for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      if (r >= R) break;
       const int it = has_tgt ? s_inv[trow + r] : 0;
-      const int amt = it + (T(T_VIBE_MATCHES_RESOURCE)[t_vibe * R + r] ? vb : 0);
-      armor += amt * T(T_ATTACK_ARMOR_W)[r];
+      armor += (it + (VMR[r] ? vb : 0)) * AW[r];
     }
     const int bonus = max(weapon - armor, 0);
 
     bool blocked = false;
     if (s.defense_any) {
-      const int* DEF = T(T_ATTACK_DEFENSE);
-      const int* DM = T(T_ATTACK_DEFENSE_MASK);
+      const int* DEF = TAB(T_ATTACK_DEFENSE);
+      const int* DM = TAB(T_ATTACK_DEFENSE_MASK);
       bool can_defend = true;
-      for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int r = 0; r < kMaxR; ++r) {
+        if (r >= R) break;
         const int it = has_tgt ? s_inv[trow + r] : 0;
         can_defend = can_defend && (!DM[r] || it >= DEF[r] + bonus);
       }
       blocked = valid && can_defend;
-      zero_acc();
-      if (blocked && has_tgt)
-        for (int r = 0; r < R; ++r)
+      if (blocked && has_tgt) {
+#pragma unroll
+        for (int r = 0; r < kMaxR; ++r) {
+          if (r >= R) break;
           if (DM[r]) atomicAdd(&s_acc[trow + r], -(DEF[r] + bonus));
+        }
+      }
+      const bool any = __any_sync(FULL, blocked && has_tgt);
       __syncwarp();
-      apply_acc(false);  // the defense clamp tracks only `lost`
+      apply(any, false);  // the defense clamp tracks only `lost`
     }
 
     const bool hit = valid && !blocked;
-    if (s.attack_freeze > 0) frozen += sum_to_t(s.attack_freeze, hit);
-    zero_acc();
+    if (s.attack_freeze > 0) {
+      s_sum[lane] = 0;
+      __syncwarp();
+      if (hit && has_tgt) atomicAdd(&s_sum[tgt], 1);
+      __syncwarp();
+      frozen += s.attack_freeze * s_sum[lane];
+      __syncwarp();
+    }
     if (live) {
-      const int* AAD = T(T_ATTACK_ACTOR_DELTA);
-      const int* ATD = T(T_ATTACK_TARGET_DELTA);
-      const int* LOOT = T(T_LOOT);
-      if (hit)
-        for (int r = 0; r < R; ++r) {
+      const int* AAD = TAB(T_ATTACK_ACTOR_DELTA);
+      const int* ATD = TAB(T_ATTACK_TARGET_DELTA);
+      const int* LOOT = TAB(T_LOOT);
+      if (hit) {
+#pragma unroll
+        for (int r = 0; r < kMaxR; ++r) {
+          if (r >= R) break;
           if (AAD[r]) atomicAdd(&s_acc[arow + r], AAD[r]);
           if (has_tgt && ATD[r]) atomicAdd(&s_acc[trow + r], ATD[r]);
         }
-      for (int li = 0; li < s.n_loot; ++li) {
-        const int rl = LOOT[li];
-        const int amount = has_tgt ? s_inv[trow + rl] : 0;
-        const int space = max(LIM[arow + rl] - s_inv[arow + rl], 0);
-        const int stolen = hit ? min(amount, space) : 0;
-        if (stolen) {
-          atomicAdd(&s_acc[arow + rl], stolen);
-          if (has_tgt) atomicAdd(&s_acc[trow + rl], -stolen);
+        for (int li = 0; li < s.n_loot; ++li) {
+          const int rl = LOOT[li];
+          const int amount = has_tgt ? s_inv[trow + rl] : 0;
+          const int space = max(s_lim[arow + rl] - s_inv[arow + rl], 0);
+          const int stolen = min(amount, space);
+          if (stolen) {
+            atomicAdd(&s_acc[arow + rl], stolen);
+            if (has_tgt) atomicAdd(&s_acc[trow + rl], -stolen);
+          }
         }
       }
-      if (valid)
-        for (int r = 0; r < R; ++r)
+      if (valid) {
+#pragma unroll
+        for (int r = 0; r < kMaxR; ++r) {
+          if (r >= R) break;
           if (AC[r]) atomicAdd(&s_acc[arow + r], -AC[r]);
+        }
+      }
     }
+    const bool any = __any_sync(FULL, valid);
     __syncwarp();
-    apply_acc(true);
+    apply(any, true);
     success = success || valid;
     handled_attack = valid;
   }
 
   // ---------- vibe-triggered transfers ----------
   bool handled_tr = false;
-  if (s.has_transfer) {
-    const int* TAD = T(T_TRANSFER_ACTOR_DELTA) + vibe_c * R;
-    const int* TTD = T(T_TRANSFER_TARGET_DELTA) + vibe_c * R;
-    const int* TREQ = T(T_TRANSFER_REQUIRED);
-    const bool wants = movers && !handled_attack && T(T_TRANSFER_VIBE_MASK)[vibe_c] && has_tgt;
+  if (TRANSFER) {
+    const int* TAD = TAB(T_TRANSFER_ACTOR_DELTA) + vibe_c * R;
+    const int* TTD = TAB(T_TRANSFER_TARGET_DELTA) + vibe_c * R;
+    const int* TREQ = TAB(T_TRANSFER_REQUIRED);
+    const bool wants = movers && !handled_attack && TAB(T_TRANSFER_VIBE_MASK)[vibe_c] && has_tgt;
     bool req_ok = true;
-    for (int r = 0; r < R; ++r) req_ok = req_ok && s_inv[arow + r] >= TREQ[r];
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      if (r >= R) break;
+      req_ok = req_ok && s_inv[arow + r] >= TREQ[r];
+    }
     const bool t_free = from_t(frozen) <= 0;
-    bool ok = lowest_rank(wants && t_free && req_ok, tgt);
-    const int trow = tgt * R;
-    for (int r = 0; r < R; ++r) {
+    bool ok = lowest_rank(wants && t_free && req_ok, rank, A, by_tgt);
+    const int trow = tgt * RS;
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      if (r >= R) break;
       const int da = TAD[r], dt = TTD[r];
       const int inv_a = s_inv[arow + r];
-      const int free_a = max(LIM[arow + r] - inv_a, 0);
+      const int free_a = max(s_lim[arow + r] - inv_a, 0);
       const int inv_t = has_tgt ? s_inv[trow + r] : 0;
-      const int free_t = has_tgt ? max(LIM[trow + r] - inv_t, 0) : 0;
+      const int free_t = has_tgt ? max(s_lim[trow + r] - inv_t, 0) : 0;
       ok = ok && (da >= 0 || inv_a >= -da) && (dt >= 0 || inv_t >= -dt) &&
            (da <= 0 || da <= free_a) && (dt <= 0 || dt <= free_t);
     }
-    zero_acc();
-    if (ok)
-      for (int r = 0; r < R; ++r) {
+    if (ok) {
+#pragma unroll
+      for (int r = 0; r < kMaxR; ++r) {
+        if (r >= R) break;
         if (TAD[r]) atomicAdd(&s_acc[arow + r], TAD[r]);
         if (has_tgt && TTD[r]) atomicAdd(&s_acc[trow + r], TTD[r]);
       }
+    }
+    const bool any = __any_sync(FULL, ok);
     __syncwarp();
-    apply_acc(true);
+    apply(any, true);
     success = success || ok;
     handled_tr = ok;
   }
@@ -344,16 +465,35 @@ sim_fused_kernel(In in, Out out, Static s, const int32_t* __restrict__ tab, int 
   // ---------- swaps with frozen agents ----------
   bool handled_station = false;
   int cur_r = r0, cur_c = c0;
-  if (s.has_swap) {
+  if (SWAP) {
     const int t_frozen = from_t(frozen);  // every lane shuffles, outside the &&
     const bool wants = movers && !handled_attack && !handled_tr && has_tgt && t_frozen > 0;
-    const bool swap_ok = lowest_rank(wants, tgt);
-    const bool swapped_in = sum_to_t(1, swap_ok) > 0;
-    const int in_r = sum_to_t(r0, swap_ok);
-    const int in_c = sum_to_t(c0, swap_ok);
+    const bool swap_ok = lowest_rank(wants, rank, A, by_tgt);
     const int t_r = from_t(r0), t_c = from_t(c0);
-    if (swap_ok) { cur_r = t_r; cur_c = t_c; }
-    if (swapped_in) { cur_r = in_r; cur_c = in_c; }
+    if (__any_sync(FULL, swap_ok)) {  // warp-uniform
+      // the swappers' counts and positions summed into their targets
+      s_sum[lane] = 0;
+      s_sum[32 + lane] = 0;
+      s_sum[64 + lane] = 0;
+      __syncwarp();
+      if (swap_ok && has_tgt) {
+        atomicAdd(&s_sum[tgt], 1);
+        atomicAdd(&s_sum[32 + tgt], r0);
+        atomicAdd(&s_sum[64 + tgt], c0);
+      }
+      __syncwarp();
+      const bool swapped_in = s_sum[lane] > 0;
+      const int in_r = s_sum[32 + lane], in_c = s_sum[64 + lane];
+      __syncwarp();
+      if (swap_ok) {
+        cur_r = t_r;
+        cur_c = t_c;
+      }
+      if (swapped_in) {
+        cur_r = in_r;
+        cur_c = in_c;
+      }
+    }
     success = success || swap_ok;
     handled_station = wants;
   }
@@ -362,294 +502,253 @@ sim_fused_kernel(In in, Out out, Static s, const int32_t* __restrict__ tab, int 
   // ---------- plain moves: rank-arbitrated rounds ----------
   bool unresolved = movers && !interacted && skind == 0;
   bool moved = false;
-  for (int round = 0; round < 4; ++round) {
-    const unsigned un_mask = __ballot_sync(FULL, unresolved);
-    const unsigned mv_mask = __ballot_sync(FULL, moved);
-    bool occ_any = false, blocker = false;
-    for (int t = 0; t < A; ++t) {
-      const int rt = __shfl_sync(FULL, cur_r, t);
-      const int ct = __shfl_sync(FULL, cur_c, t);
-      const int kt = __shfl_sync(FULL, rank, t);
-      if (t != lane && r1 == rt && c1 == ct) {
-        occ_any = true;
-        // blocked by a later-rank agent, or by one that already resolved
-        if (kt > rank || !(((un_mask | mv_mask) >> t) & 1u)) blocker = true;
+  if (__any_sync(FULL, unresolved)) {  // warp-uniform
+    const unsigned by_cell = __match_any_sync(FULL, flat);
+    s_pos[lane] = live ? make_int2(cur_r, cur_c) : make_int2(-1, -1);  // never a target
+    s_rank[lane] = rank;
+    __syncwarp();
+    for (int round = 0; round < 4; ++round) {
+      const unsigned un_mask = __ballot_sync(FULL, unresolved);
+      if (!un_mask) break;  // nothing left to resolve: the rounds change nothing more
+      const unsigned waiting = un_mask | __ballot_sync(FULL, moved);
+      bool occ_any = false, blocker = false;
+      if (unresolved) {
+        // another agent at my target: blocked by a later rank or by one that resolved
+#pragma unroll
+        for (int t = 0; t < kMaxA; t += 2) {
+          if (t >= A) break;
+          const int4 p = *reinterpret_cast<const int4*>(s_pos + t);
+          const int2 k = *reinterpret_cast<const int2*>(s_rank + t);
+          if (t != lane && p.x == r1 && p.y == c1) {
+            occ_any = true;
+            blocker = blocker || k.x > rank || !((waiting >> t) & 1u);
+          }
+          if (t + 1 != lane && p.z == r1 && p.w == c1) {
+            occ_any = true;
+            blocker = blocker || k.y > rank || !((waiting >> (t + 1)) & 1u);
+          }
+        }
       }
+      __syncwarp();  // every lane has read the round's positions
+      unresolved = unresolved && !blocker;
+      const bool wins = lowest_rank(unresolved, rank, A, by_cell) && !occ_any;
+      if (wins) {
+        cur_r = r1;
+        cur_c = c1;
+        s_pos[lane] = make_int2(r1, c1);
+      }
+      moved = moved || wins;
+      unresolved = unresolved && !wins;
+      __syncwarp();
     }
-    unresolved = unresolved && !blocker;
-    const bool wins = lowest_rank(unresolved, flat) && !occ_any;
-    if (wins) { cur_r = r1; cur_c = c1; }
-    moved = moved || wins;
-    unresolved = unresolved && !wins;
   }
   success = success || moved;
 
-  if (live) {
-    s_r[lane] = cur_r;
-    s_c[lane] = cur_c;
-    s_vibe[lane] = vibe;
-  }
-
-  // station fields pass through; claimed stations are overwritten below
-  const size_t eNA = (size_t)e * NA;
-  for (int i = lane; i < NA; i += 32) {
-    out.asm_cd_dur[eNA + i] = in.asm_cd_dur[eNA + i];
-    out.asm_cd_end[eNA + i] = in.asm_cd_end[eNA + i];
-    out.asm_uses[eNA + i] = in.asm_uses[eNA + i];
-    out.asm_clipped[eNA + i] = in.asm_clipped[eNA + i];
-    out.asm_uproto[eNA + i] = in.asm_uproto[eNA + i];
-  }
-  __syncwarp();
-
-  // ---------- assembler phase: the winner lane of each claimed station ----------
-  if (s.has_asm) {
+  // ---------- assembler phase: the env's winning stations in turn ----------
+  if (ASM) {
     const bool bump = movers && !interacted && skind == s.kind_asm;
     const int st = clampi(sidx, 0, NA - 1);
-    const bool is_winner = lowest_rank(bump, st);
-    zero_acc();
-    bool ok = false;
-    int cooldown = 0;
+    const bool is_winner = lowest_rank(bump, rank, A, __match_any_sync(FULL, st));
+    unsigned winners = __ballot_sync(FULL, is_winner);
+    int w_type = 0, w_ok = 0, w_clip = 0, w_uproto = 0, w_sr = 0, w_sc = 0;
     if (is_winner) {
       const size_t es = eNA + st;
-      const int s_type = in.asm_type[es];
-      const int uses = in.asm_uses[es];
-      const bool clipped = in.asm_clipped[es] != 0;
-      const int uproto = in.asm_uproto[es];
-      const int sr = in.asm_r[es], sc = in.asm_c[es];
-      const int max_uses = T(T_TYPE_MAX_USES)[s_type];
-      ok = in.asm_valid[es] != 0 && (max_uses == 0 || uses < max_uses);
-      ok = ok && max(in.asm_cd_end[es] - step, 0) == 0;
+      w_type = __ldg(in.asm_type + es);
+      w_clip = __ldg(in.asm_clipped + es) != 0;
+      w_uproto = __ldg(in.asm_uproto + es);
+      w_sr = __ldg(in.asm_r + es);
+      w_sc = __ldg(in.asm_c + es);
+      const int uses = __ldg(in.asm_uses + es);
+      const int max_uses = TAB(T_TYPE_MAX_USES)[w_type];
+      w_ok = __ldg(in.asm_valid + es) != 0 && (max_uses == 0 || uses < max_uses) &&
+             max(__ldg(in.asm_cd_end + es) - step, 0) == 0;
+    }
+    const bool any_winner = winners != 0;
+    bool my_ok = false;
+    int my_cd = 0;
+    const int j = lane & 7;                // lane j (and j + 8, ...): neighbour slot j
+    const bool res_lane = lane < s.n_pres;  // lane i checks resource PRES[i]
+    const int res = res_lane ? TAB(T_PROTO_RES)[lane] : 0;
+    while (winners) {  // warp-uniform
+      const int w = __ffs(winners) - 1;
+      winners &= winners - 1;
+      const int sr = __shfl_sync(FULL, w_sr, w), sc = __shfl_sync(FULL, w_sc, w);
+      const int s_type = __shfl_sync(FULL, w_type, w);
+      const bool clipped = __shfl_sync(FULL, w_clip, w) != 0;
+      const int uproto = __shfl_sync(FULL, w_uproto, w);
+      const int wr = __shfl_sync(FULL, cur_r, w), wc = __shfl_sync(FULL, cur_c, w);
+      const bool ok0 = __shfl_sync(FULL, w_ok, w) != 0;
 
-      // the 8 neighbours of the station, from the agents' final positions
-      bool inb[8], isag[8];
-      int nidx[8], nvib[8];
-      int n_agents = 0;
+      // slot j's agent, from the agents' final positions: one ballot per slot
+      const int dr = cur_r - sr, dc = cur_c - sc;
+      const int o9 = (dr + 1) * 3 + (dc + 1);
+      const int my_slot = (live && dr >= -1 && dr <= 1 && dc >= -1 && dc <= 1 && o9 != 4)
+                              ? o9 - (o9 > 4) : -1;
+      unsigned mj = 0;
 #pragma unroll
       for (int o = 0; o < 8; ++o) {
-        const int rr = sr + NEIGHBOR_OFFS[o][0], cc = sc + NEIGHBOR_OFFS[o][1];
-        inb[o] = rr >= 0 && rr < H && cc >= 0 && cc < W;
-        isag[o] = false;
-        nidx[o] = 0;
-        nvib[o] = 0;
-        if (inb[o])
-          for (int t = 0; t < A; ++t)
-            if (s_r[t] == rr && s_c[t] == cc) {
-              isag[o] = true;
-              nidx[o] = t;
-              nvib[o] = s_vibe[t];
-            }
-        n_agents += isag[o];
+        const unsigned m = __ballot_sync(FULL, my_slot == o);
+        if (o == j) mj = m;
       }
-      // sorted vibe key by counting: key[j] = #{v in [0, V): cum(v) <= j}
-      int key[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) key[j] = 0;
-      int cum = 0;
-      for (int v = 0; v < V; ++v) {
-#pragma unroll
-        for (int o = 0; o < 8; ++o) cum += nvib[o] == v;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) key[j] += cum <= j;
-      }
+      const int rr = sr + nb_dr(j), cc = sc + nb_dc(j);
+      const bool inb_j = rr >= 0 && rr < H && cc >= 0 && cc < W;
+      const bool ag_j = inb_j && mj != 0;
+      const int nidx_j = ag_j ? __ffs(mj) - 1 : 0;
+      const int vib = __shfl_sync(FULL, vibe, nidx_j);
+      const int nvib_j = ag_j ? vib : 0;
+      const unsigned inb = __ballot_sync(FULL, lane < 8 && inb_j);    // bit j: slot j
+      const unsigned isag = __ballot_sync(FULL, lane < 8 && ag_j);
+      const int n_agents = __popc(isag);
 
-      // protocol: exact key, else the empty key; highest proto_rank, first wins
-      const int* PK = T(T_PROTO_KEY);
-      int best_e = -1, idx_e = -1, best_0 = -1, idx_0 = -1;
-      for (int p = 0; p < s.NP; ++p) {
-        if (!T(T_PROTO_VALID)[p] || T(T_PROTO_TYPE)[p] != s_type ||
-            T(T_PROTO_MIN_AGENTS)[p] > n_agents)
-          continue;
+      // slot j's place in the sorted vibe key (out-of-range vibes sort as V)
+      // and in the neighbour order: agents by rotation from the winner's
+      // slot, then the other slots, both stable in slot order
+      const int x = (nvib_j >= 0 && nvib_j < V) ? nvib_j : V;
+      const int rank_inb = __popc(inb & ((2u << j) - 1)) - 1;
+      const bool w_slot = nb_dr(j) == wr - sr && nb_dc(j) == wc - sc;
+      const int start = __reduce_add_sync(FULL, (lane < 8 && w_slot) ? rank_inb : 0);
+      const int nim = max(__popc(inb), 1);
+      const int rot = (rank_inb - start) % nim;
+      const int okey = ag_j ? (rot < 0 ? rot + nim : rot) : 1000 + j;
+      int kpos = 0, opos = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int xk = __shfl_sync(FULL, x, k), okk = __shfl_sync(FULL, okey, k);
+        kpos += xk < x || (xk == x && k < j);
+        opos += okk < okey || (okk == okey && k < j);
+      }
+      if (lane < 8) {
+        s_key[kpos] = x;
+        s_ref[opos] = ag_j ? nidx_j : -1;  // -1: no agent in the slot
+        s_v8[opos] = nvib_j;
+      }
+      __syncwarp();
+
+      // protocol: exact key, else the empty key; highest proto_rank, first
+      // wins; lane p checks protocol p
+      int sc_e = -1, sc_0 = -1;
+      if (lane < s.NP) {
+        const int* PK = TAB(T_PROTO_KEY) + lane * 8;
+        const bool cand = TAB(T_PROTO_VALID)[lane] && TAB(T_PROTO_TYPE)[lane] == s_type &&
+                          TAB(T_PROTO_MIN_AGENTS)[lane] <= n_agents;
         bool exact = true, zero = true;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          exact = exact && PK[p * 8 + j] == key[j];
-          zero = zero && PK[p * 8 + j] == 0;
+        for (int k = 0; k < 8; ++k) {
+          exact = exact && PK[k] == s_key[k];
+          zero = zero && PK[k] == 0;
         }
-        const int sc_p = T(T_PROTO_RANK)[p];
-        if (exact && sc_p > best_e) { best_e = sc_p; idx_e = p; }
-        if (zero && sc_p > best_0) { best_0 = sc_p; idx_0 = p; }
+        const int pr = TAB(T_PROTO_RANK)[lane];
+        sc_e = cand && exact ? pr : -1;
+        sc_0 = cand && zero ? pr : -1;
       }
-      const int p_norm = idx_e >= 0 ? idx_e : idx_0;
+      const int best_e = __reduce_max_sync(FULL, sc_e);
+      const int best_0 = __reduce_max_sync(FULL, sc_0);
+      const unsigned be = __ballot_sync(FULL, best_e >= 0 && sc_e == best_e);
+      const unsigned b0 = __ballot_sync(FULL, best_0 >= 0 && sc_0 == best_0);
+      const int p_norm = be ? __ffs(be) - 1 : (b0 ? __ffs(b0) - 1 : -1);
       int p_un = -1;
       {
         const int i = clampi(uproto, 0, s.NUP - 1);
-        const int* UK = T(T_UPROTO_KEY) + i * 8;
+        const int* UK = TAB(T_UPROTO_KEY) + i * 8;
         bool km = true, kz = true;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          km = km && UK[j] == key[j];
-          kz = kz && UK[j] == 0;
+        for (int k = 0; k < 8; ++k) {
+          km = km && UK[k] == s_key[k];
+          kz = kz && UK[k] == 0;
         }
-        if (uproto >= 0 && T(T_UPROTO_MIN_AGENTS)[i] <= n_agents && (km || kz)) p_un = i;
+        if (uproto >= 0 && TAB(T_UPROTO_MIN_AGENTS)[i] <= n_agents && (km || kz)) p_un = i;
       }
       const int p_idx = clipped ? p_un : p_norm;
-      ok = ok && p_idx >= 0;
       const int pn = clampi(p_idx, 0, s.NP - 1), pu = clampi(p_idx, 0, s.NUP - 1);
-      auto pick = [&](int tn, int tu, int stride, int j) {
-        return clipped ? T(tu)[pu * stride + j] : T(tn)[pn * stride + j];
+      auto pick = [&](int tn, int tu, int stride, int k) {
+        return clipped ? TAB(tu)[pu * stride + k] : TAB(tn)[pn * stride + k];
       };
-      cooldown = pick(T_PROTO_COOLDOWN, T_UPROTO_COOLDOWN, 1, 0);
+      const int cooldown = pick(T_PROTO_COOLDOWN, T_UPROTO_COOLDOWN, 1, 0);
       const int nvibes = pick(T_PROTO_NVIBES, T_UPROTO_NVIBES, 1, 0);
 
-      // neighbour order: agents by rotation from the actor's slot, then the
-      // other slots, both stable in slot order
-      int rank_inb[8], run = 0, start = 0;
+      // output slots: lane p takes place p of the order; the occurrence index
+      // of its vibe among the earlier places against the protocol's count
+      const int ref_p = s_ref[j];
+      const int vc = clampi(s_v8[j], 0, V - 1);
+      int occ = 0;
 #pragma unroll
-      for (int o = 0; o < 8; ++o) {
-        run += inb[o];
-        rank_inb[o] = run - 1;
-        if (NEIGHBOR_OFFS[o][0] == cur_r - sr && NEIGHBOR_OFFS[o][1] == cur_c - sc)
-          start += rank_inb[o];
-      }
-      const int nim = max(run, 1);
-      int okey[8];
-#pragma unroll
-      for (int o = 0; o < 8; ++o) {
-        const int x = (rank_inb[o] - start) % nim;
-        okey[o] = isag[o] ? (x < 0 ? x + nim : x) : 1000 + o;
-      }
-      int ref_idx[8], v8[8];
-      bool ref_valid[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        int pos = 0;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) pos += okey[k] < okey[j] || (okey[k] == okey[j] && k < j);
-#pragma unroll
-        for (int p = 0; p < 8; ++p)
-          if (p == pos) {
-            ref_idx[p] = nidx[j];
-            ref_valid[p] = isag[j];
-            v8[p] = nvib[j];
-          }
-      }
+      for (int q = 0; q < 8; ++q) occ += q < j && clampi(s_v8[q], 0, V - 1) == vc;
+      const bool sel_p = ref_p >= 0 && s_v8[j] != 0 &&
+                         occ < pick(T_PROTO_VIBE_COUNTS, T_UPROTO_VIBE_COUNTS, V, vc);
+      const unsigned ref_valid = __ballot_sync(FULL, lane < 8 && ref_p >= 0);
+      const unsigned sel = __ballot_sync(FULL, lane < 8 && sel_p);
+      const bool use_multi = nvibes > 1 && sel != 0;
+      const unsigned out_valid = use_multi ? sel : 1u;
+      const int single = use_multi ? -1 : w;  // the output's one agent, else the places'
 
-      // output slots: the occurrence index of each slot's vibe among the
-      // earlier slots against the protocol's count of that vibe
-      bool sel[8], any_sel = false;
-#pragma unroll
-      for (int p = 0; p < 8; ++p) {
-        const int vc = clampi(v8[p], 0, V - 1);
-        int occ = 0;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) occ += q < p && clampi(v8[q], 0, V - 1) == vc;
-        sel[p] = ref_valid[p] && v8[p] != 0 &&
-                 occ < pick(T_PROTO_VIBE_COUNTS, T_UPROTO_VIBE_COUNTS, V, vc);
-        any_sel = any_sel || sel[p];
-      }
-      const bool use_multi = nvibes > 1 && any_sel;
-      int out_idx[8];
-      bool out_valid[8];
-#pragma unroll
-      for (int p = 0; p < 8; ++p) {
-        out_valid[p] = use_multi ? sel[p] : p == 0;
-        out_idx[p] = use_multi ? ref_idx[p] : lane;
-      }
-
-      const int* PRES = T(T_PROTO_RES);
-      bool has_output = false, can_absorb = false;
-      for (int ri = 0; ri < s.n_pres; ++ri) {
-        const int r = PRES[ri];
-        const int need = pick(T_PROTO_IN, T_UPROTO_IN, R, r);
-        const int give = pick(T_PROTO_OUT, T_UPROTO_OUT, R, r);
-        int total = 0, total_free = 0;
+      // resources: lane i checks resource PRES[i]
+      int need = 0, give = 0, total = 0, total_free = 0;
+      if (res_lane) {
+        need = pick(T_PROTO_IN, T_UPROTO_IN, R, res);
+        give = pick(T_PROTO_OUT, T_UPROTO_OUT, R, res);
 #pragma unroll
         for (int p = 0; p < 8; ++p) {
-          if (ref_valid[p]) total += s_inv[ref_idx[p] * R + r];
-          if (out_valid[p]) {
-            const int q = out_idx[p] * R + r;
-            total_free += max(LIM[q] - s_inv[q], 0);
+          if ((ref_valid >> p) & 1u) total += s_inv[s_ref[p] * RS + res];
+          if ((out_valid >> p) & 1u) {
+            const int q = (single >= 0 ? single : s_ref[p]) * RS + res;
+            total_free += max(s_lim[q] - s_inv[q], 0);
           }
         }
-        ok = ok && (need == 0 || total >= need);
-        has_output = has_output || give > 0;
-        can_absorb = can_absorb || (give > 0 && total_free >= 1);
       }
-      ok = ok && (!has_output || can_absorb || clipped);
+      const bool all_met = __all_sync(FULL, need == 0 || total >= need);
+      const bool has_output = __any_sync(FULL, give > 0);
+      const bool can_absorb = __any_sync(FULL, give > 0 && total_free >= 1);
+      const bool ok = ok0 && p_idx >= 0 && all_met && (!has_output || can_absorb || clipped);
 
-      // shared_update on local slot copies: spread `delta` of resource r over
-      // the valid slots, three kick passes, then base + sign-surplus to the
-      // earliest actives; each slot's delta goes to its agent's buffer row
-      auto consume = [&](const int* idx, const bool* valid, int delta, int r) {
-        int cur[8], lim[8], app[8];
-        bool act[8];
-        int n = 0;
-#pragma unroll
-        for (int o = 0; o < 8; ++o) {
-          const int q = idx[o] * R + r;
-          cur[o] = valid[o] ? s_inv[q] : 0;
-          lim[o] = valid[o] ? LIM[q] : 0;
-          app[o] = 0;
-          act[o] = valid[o] && delta != 0;
-          n += act[o];
+      // shared consume, a group of 8 lanes (one lane a place) per pass:
+      // resource PRES[k / 2]'s input pass for even k, its output pass for odd
+      if (ok) {  // warp-uniform
+        for (int k0 = 0; k0 < 2 * s.n_pres; k0 += 4) {
+          const int k = k0 + (lane >> 3);
+          const bool on = k < 2 * s.n_pres, out_pass = k & 1;
+          const int r = on ? TAB(T_PROTO_RES)[k >> 1] : 0;
+          const unsigned valid = on ? (out_pass ? out_valid : ref_valid) : 0u;
+          const bool v = (valid >> j) & 1u;
+          const int agent = v ? (out_pass && single >= 0 ? single : s_ref[j]) : 0;
+          const int delta = !on ? 0 : out_pass ? pick(T_PROTO_OUT, T_UPROTO_OUT, R, r)
+                                               : -pick(T_PROTO_IN, T_UPROTO_IN, R, r);
+          consume(v, agent, delta, r, s_inv, s_lim, s_acc, RS);
         }
-        int rem = delta;
-        for (int pass = 0; pass < 3; ++pass) {
-          const int per = n > 0 ? rem / max(n, 1) : 0;  // C division truncates
-          const bool pos = rem > 0;
-          int took = 0, kicked = 0;
-#pragma unroll
-          for (int o = 0; o < 8; ++o) {
-            const int fr = max(lim[o] - cur[o], 0);
-            const bool kick = act[o] && (pos ? fr - app[o] <= per : cur[o] + app[o] <= -per);
-            const int take = min(max(kick ? per : 0, -(cur[o] + app[o])), fr - app[o]);
-            app[o] += take;
-            took += take;
-            kicked += kick;
-            act[o] = act[o] && !kick;
-          }
-          rem -= took;
-          n -= kicked;
-        }
-        const int base = n > 0 ? rem / max(n, 1) : 0;
-        const int surplus = rem - base * n;
-        const int sgn = (surplus > 0) - (surplus < 0);
-        const int sab = surplus < 0 ? -surplus : surplus;
-        int rl = -1;
-#pragma unroll
-        for (int o = 0; o < 8; ++o) {
-          rl += act[o];
-          int fin = act[o] ? base + (rl < sab ? sgn : 0) : 0;
-          fin = min(max(fin, -(cur[o] + app[o])), max(lim[o] - cur[o], 0) - app[o]);
-          if (valid[o] && app[o] + fin) atomicAdd(&s_acc[idx[o] * R + r], app[o] + fin);
-        }
-      };
-      if (ok)
-        for (int ri = 0; ri < s.n_pres; ++ri) {
-          const int r = PRES[ri];
-          consume(ref_idx, ref_valid, -pick(T_PROTO_IN, T_UPROTO_IN, R, r), r);
-          consume(out_idx, out_valid, pick(T_PROTO_OUT, T_UPROTO_OUT, R, r), r);
-        }
-    }
-    __syncwarp();
-    apply_acc(true);
-    s_st[lane] = (is_winner && ok) ? st : -1;
-    s_cd[lane] = cooldown;
-    __syncwarp();
-    // station write-back: each claimed station has one winner
-    const unsigned claimed = __ballot_sync(FULL, is_winner && ok);
-    for (int i = lane; i < NA; i += 32) {
-      for (unsigned m = claimed; m; m &= m - 1) {
-        const int t = __ffs(m) - 1;
-        if (s_st[t] != i) continue;
-        const bool was_clipped = in.asm_clipped[eNA + i] != 0;
-        out.asm_cd_dur[eNA + i] = s_cd[t];
-        out.asm_cd_end[eNA + i] = step + s_cd[t];
-        if (!was_clipped) out.asm_uses[eNA + i] = in.asm_uses[eNA + i] + 1;
-        out.asm_clipped[eNA + i] = 0;
-        if (was_clipped) out.asm_uproto[eNA + i] = -1;
       }
+      if (lane == w) {
+        my_ok = ok;
+        my_cd = cooldown;
+      }
+      __syncwarp();  // the slot arrays are read: the next station may write them
     }
-    success = success || (is_winner && ok);
+    __syncwarp();
+    apply(any_winner, true);
+    // claimed stations: each winner writes its own, after the pass-through copy
+    if (my_ok) {
+      const size_t es = eNA + st;
+      const bool was_clipped = __ldg(in.asm_clipped + es) != 0;
+      out.asm_cd_dur[es] = my_cd;
+      out.asm_cd_end[es] = step + my_cd;
+      if (!was_clipped) out.asm_uses[es] = __ldg(in.asm_uses + es) + 1;
+      out.asm_clipped[es] = 0;
+      if (was_clipped) out.asm_uproto[es] = -1;
+    }
+    success = success || my_ok;
   }
 
   // ---------- action resource consumption ----------
   if (s.any_consumed) {
-    zero_acc();
-    if (live && success)
-      for (int r = 0; r < R; ++r) s_acc[arow + r] = -T(T_ACTION_CONSUMED)[act * R + r];
+    if (live && success) {
+      const int* CONS = TAB(T_ACTION_CONSUMED) + act * R;
+#pragma unroll
+      for (int r = 0; r < kMaxR; ++r) {
+        if (r >= R) break;
+        s_acc[arow + r] = -CONS[r];
+      }
+    }
+    const bool any = __any_sync(FULL, live && success);
     __syncwarp();
-    apply_acc(true);
+    apply(any, true);
   }
 
   // ---------- outputs ----------
@@ -660,39 +759,110 @@ sim_fused_kernel(In in, Out out, Static s, const int32_t* __restrict__ tab, int 
     out.frozen[ea] = frozen;
     out.success[ea] = success ? 1 : 0;
     out.executed[ea] = success ? act : 0;
-  }
-  for (int i = lane; i < AR; i += 32) {
-    out.inv[eAR + i] = s_inv[i];
-    if (s.track_gained) {
-      out.gained[eAR + i] = in.gained[eAR + i] + s_gain[i];
-      out.lost[eAR + i] = in.lost[eAR + i] + s_lost[i];
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      if (r >= R) break;
+      out.inv[eAR + r] = s_inv[arow + r];
+      if (track) {
+        out.gained[eAR + r] = __ldg(in.gained + eAR + r) + s_gain[arow + r];
+        out.lost[eAR + r] = __ldg(in.lost + eAR + r) + s_lost[arow + r];
+      }
     }
   }
-#undef T
+  __syncwarp();  // the warp's arrays are free for its next env
+#undef TAB
+}
+
+// At most 64 registers a thread: four blocks of kThreads an SM, 32 resident
+// warps, hold the 31 envs an SM takes at E=4096 in one wave.
+template <bool ATTACK, bool TRANSFER, bool SWAP, bool ASM>
+__global__ void __launch_bounds__(kThreads, 4)
+sim_fused_kernel(In in, Out out, Static s, const int32_t* __restrict__ tab, int n_tab, int E) {
+  extern __shared__ __align__(16) int smem[];
+  const int A = s.A, R = s.R, RS = row_stride(R);
+  const int warps = blockDim.x >> 5;
+  int* s_tab = smem;
+  int* s_lim = s_tab + round4(n_tab);
+  // the table pack and the padded limits, once per block (the pack is
+  // 16-byte aligned: the wrapper checks)
+  const int n4 = n_tab >> 2;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    reinterpret_cast<int4*>(s_tab)[i] = __ldg(reinterpret_cast<const int4*>(tab) + i);
+  for (int i = 4 * n4 + threadIdx.x; i < n_tab; i += blockDim.x) s_tab[i] = __ldg(tab + i);
+  for (int i = threadIdx.x; i < A * R; i += blockDim.x)
+    s_lim[(i / R) * RS + i % R] = __ldg(tab + s.off[T_LIMS] + i);
+  __syncthreads();  // the only block barrier
+
+  const int warp = threadIdx.x >> 5;
+  int* w_base = s_lim + round4(A * RS) + warp * warp_ints(A, R, s.track_gained);
+  for (int e = blockIdx.x * warps + warp; e < E; e += gridDim.x * warps)
+    env_span<ATTACK, TRANSFER, SWAP, ASM>(e, in, out, s, s_tab, s_lim, w_base);
+}
+
+using Kernel = void (*)(In, Out, Static, const int32_t*, int, int);
+
+// The instantiation of each section set: index has_attack | has_transfer << 1
+// | has_swap << 2 | has_asm << 3.
+#define K(m) sim_fused_kernel<((m)&1) != 0, ((m)&2) != 0, ((m)&4) != 0, ((m)&8) != 0>
+const Kernel KERNELS[16] = {K(0), K(1), K(2),  K(3),  K(4),  K(5),  K(6),  K(7),
+                            K(8), K(9), K(10), K(11), K(12), K(13), K(14), K(15)};
+#undef K
+
+Kernel kernel_of(const Static* st) {
+  return KERNELS[(st->has_attack != 0) | (st->has_transfer != 0) << 1 | (st->has_swap != 0) << 2 |
+                 (st->has_asm != 0) << 3];
+}
+
+bool fits(const Static* st, int warps) {
+  return st->A >= 1 && st->A <= kMaxA && st->R >= 1 && st->R <= kMaxR && st->NP <= kMaxNP &&
+         st->n_pres <= kMaxR && warps >= 1 && warps <= kMaxWarps;
 }
 
 }  // namespace
 
-// Launches the span on `stream`: `ins` and `outs` are the device pointers in
-// the order of In and Out, `st` the config's statics, `tab` the table pack.
-// Returns cudaGetLastError() (0 = launched).
-extern "C" int sim_fused_launch(const void* const* ins, void* const* outs, const void* statics,
-                                const void* tab, int E, void* stream) {
+// The launch shape of a config: shared memory a block, blocks an SM holds,
+// SMs (needs the card). Returns a CUDA error (0 = fine).
+extern "C" int sim_fused_shape(const void* statics, int n_tab, int warps, int* smem, int* per_sm,
+                               int* sms) {
   const Static* st = (const Static*)statics;
-  In in;
-  Out out;
-  static_assert(sizeof(In) == N_IN * sizeof(void*), "In is a list of pointers");
-  static_assert(sizeof(Out) == N_OUT * sizeof(void*), "Out is a list of pointers");
-  memcpy(&in, ins, sizeof(In));
-  memcpy(&out, outs, sizeof(Out));
-  const size_t smem = (size_t)ENVS_PER_BLOCK * warp_ints(st->A, st->R) * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sim_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (!fits(st, warps)) return (int)cudaErrorInvalidValue;
+  *smem = 4 * block_ints(n_tab, st->A, st->R, st->track_gained, warps);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  const Kernel k = kernel_of(st);
+  if (*smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int blocks = (E + ENVS_PER_BLOCK - 1) / ENVS_PER_BLOCK;
-  sim_fused_kernel<<<blocks, 32 * ENVS_PER_BLOCK, smem, (cudaStream_t)stream>>>(
-      in, out, *st, (const int32_t*)tab, E);
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, k, 32 * warps, *smem);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// Launches the span on `stream`: `ins` and `outs` are the device pointers in
+// the order of In and Out, `statics` the config's statics, `tab` the table
+// pack of `n_tab` ints, `warps` the envs (warps) a block holds. The grid is
+// min(ceil(E / warps), SMs x blocks an SM holds). Returns cudaGetLastError()
+// (0 = launched).
+extern "C" int sim_fused_launch(const void* const* ins, void* const* outs, const void* statics,
+                                const void* tab, int n_tab, int E, int warps, void* stream) {
+  const Static* st = (const Static*)statics;
+  static_assert(sizeof(In) == N_IN * sizeof(void*), "In is a list of pointers");
+  static_assert(sizeof(Out) == N_OUT * sizeof(void*), "Out is a list of pointers");
+  In in;
+  Out out;
+  memcpy(&in, ins, sizeof(In));
+  memcpy(&out, outs, sizeof(Out));
+  int smem, per_sm, sms;
+  const int err = sim_fused_shape(statics, n_tab, warps, &smem, &per_sm, &sms);
+  if (err != 0) return err;
+  if (per_sm < 1) return (int)cudaErrorInvalidValue;
+  const long long need = ((long long)E + warps - 1) / warps;
+  const long long most = (long long)sms * per_sm;
+  const int grid = (int)(need < most ? need : most);
+  if (grid == 0) return 0;
+  kernel_of(st)<<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(in, out, *st,
+                                                                 (const int32_t*)tab, n_tab, E);
   return (int)cudaGetLastError();
 }

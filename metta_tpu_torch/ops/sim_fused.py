@@ -8,9 +8,12 @@ the torch ops of ``engine/step_batched.py:interaction_span``.
 
 - :func:`supports_fused` is the JAX package's config gate, without the
   TPU's 128-env block rule: the CUDA kernel takes any E.
+  :func:`check_sizes` adds the kernel's own maxima (agents, resources,
+  protocols, shared memory), refused by name.
 - :func:`fused_span` is the kernel's wrapper. A CUDA tensor launches the
   kernel in ``csrc/sim_fused.cu`` (or raises); a CPU tensor takes
-  :func:`fused_span_plain`.
+  :func:`fused_span_plain`. :func:`span_schedule` and :func:`span_grid`
+  are the kernel's persistent schedule as pure functions.
 - :func:`fused_step_full` is the whole batched step around the span.
 """
 
@@ -92,6 +95,49 @@ class _Static(ctypes.Structure):
     )] + [("off", ctypes.c_int * len(TABLES))]
 
 
+def span_work(state, acts, t):
+    """What K2 must do for these inputs: (bytes, operations, parts in bytes).
+
+    Each input byte the span needs is read once and each output byte written
+    once, in the kernel's layout: the agents' actions, ranks, positions,
+    vibes, freezes and inventories (and gained/lost where tracked), the
+    step, the three grid cells at each mover's target, every station's
+    cooldowns, uses, clip state and unclip protocol (they pass through to the
+    new tensors), and type, validity and position of each bumped station; the
+    table pack. Out: positions, vibes, freezes, inventories (gained/lost),
+    success (1 byte) and executed action per agent, the station fields.
+    Operations: the pair terms, A*A compares each (winner per target for
+    attack, transfer and swap, four move rounds of occupancy and cell
+    winner, the station winner), and A*R per agent per inventory phase."""
+    E, A = acts.shape
+    R, NA, H, W = t.num_resources, t.n_assembler_slots, t.height, t.width
+    a = acts.long().clamp(0, t.n_actions - 1)
+    act_ok = (acts >= 0) & (acts < t.n_actions)
+    has_req = (state.agent_inv >= t.action_required[a]).all(-1)
+    d = t.move_deltas[t.action_arg[a].long().clamp(0, 7)]
+    r1, c1 = state.agent_r + d[..., 0], state.agent_c + d[..., 1]
+    movers = (act_ok & (state.agent_frozen == 0) & has_req & (t.action_kind[a] == ACT_MOVE)
+              & (r1 >= 0) & (r1 < H) & (c1 >= 0) & (c1 < W))
+    flat = (r1.clamp(0, H - 1) * W + c1.clamp(0, W - 1)).long()
+    kind = state.static_kind.reshape(E, -1).gather(1, flat)
+    sidx = state.static_idx.reshape(E, -1).gather(1, flat).long().clamp(0, NA - 1)
+    bumped = torch.zeros((E, NA + 1), dtype=torch.bool, device=acts.device)
+    bumped.scatter_(1, torch.where(movers & (kind == KIND_ASSEMBLER), sidx, NA), True)
+    gl = 8 * E * A * R if t.track_gained else 0
+    pack, _ = table_pack(t, acts.device)
+    parts = {
+        "agents in": 24 * E * A + 4 * E * A * R + gl + 4 * E,
+        "target cells": 12 * int(movers.sum()),
+        "stations in": 17 * E * NA + 13 * int(bumped[:, :NA].sum()),
+        "tables": 4 * pack.numel(),
+        "agents out": 21 * E * A + 4 * E * A * R + gl,
+        "stations out": 17 * E * NA,
+    }
+    pair_terms = 3 + 4 * 2 + 1
+    ops = E * A * A * pair_terms + E * A * R * 5
+    return sum(parts.values()), ops, parts
+
+
 def supports_fused(tables) -> bool:
     """Config gate of the fused span (``metta_tpu/ops/sim_fused.py:47-59``):
     singleton inventory limits, no bump handlers, no partial-usage
@@ -132,6 +178,68 @@ def _statics(tables, offs):
     return st
 
 
+# Sizes the kernel takes (csrc/sim_fused.cu: kMaxA, kMaxR, kMaxNP, kMaxWarps):
+# a lane per agent, resource loops unrolled to MAX_RESOURCES, a lane per
+# protocol in the pick, blocks of at most kMaxWarps envs (one warp each).
+MAX_AGENTS = 32
+MAX_RESOURCES = 16
+MAX_PROTOCOLS = 32
+# Envs (warps) a block of the launch may hold; WARPS is the production width.
+ENVS_PER_BLOCK = (1, 2, 4, 8)
+WARPS = 8
+SMEM_LIMIT = 232_448          # shared memory a block can use on an H100 (bytes)
+
+
+def check_envs_per_block(el):
+    """``el`` if the kernel takes it (None: the production launch), else
+    ValueError."""
+    if el is not None and el not in ENVS_PER_BLOCK:
+        raise ValueError(f"the kernel takes {ENVS_PER_BLOCK} envs a block, not {el}")
+    return el
+
+
+def span_smem_bytes(n_tab: int, A: int, R: int, track: bool, warps: int) -> int:
+    """Shared memory a block of ``warps`` envs needs (mirrors
+    ``csrc/sim_fused.cu:block_ints``): the table pack of ``n_tab`` ints, the
+    limits at an odd row stride, and each warp's rows, positions, ranks,
+    sums and station slot arrays, every region rounded up to 4 ints."""
+    def round4(n):
+        return (n + 3) & ~3
+    rs = R | 1
+    warp = round4((4 if track else 2) * A * rs) + 2 * 32 + 32 + 3 * 32 + 3 * 8
+    return 4 * (round4(n_tab) + round4(A * rs) + warps * warp)
+
+
+def check_sizes(tables, n_tab: int, warps: int = WARPS):
+    """Raise ValueError, naming the size, where the config is beyond what
+    the kernel takes."""
+    for name, value, most in (("num_agents", tables.num_agents, MAX_AGENTS),
+                              ("num_resources", tables.num_resources, MAX_RESOURCES),
+                              ("n_protocols", tables.n_protocols, MAX_PROTOCOLS)):
+        if value > most:
+            raise ValueError(f"{name} = {value} is beyond the fused kernel's {most}")
+    smem = span_smem_bytes(n_tab, tables.num_agents, tables.num_resources,
+                           tables.track_gained, warps)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the table pack ({4 * n_tab} B) and {warps} warps' rows need "
+                         f"{smem} B of shared memory, beyond a block's {SMEM_LIMIT}")
+
+
+def span_grid(E: int, warps: int, sms: int, per_sm: int) -> int:
+    """Blocks the kernel launches: a warp an env, no more blocks than the
+    card holds at once (``sms`` x ``per_sm``)."""
+    return min(-(-E // warps), sms * per_sm)
+
+
+def span_schedule(E: int, blocks: int, warps: int):
+    """The envs each warp of a grid of ``blocks`` blocks takes, in order
+    (mirrors ``csrc/sim_fused.cu:sim_fused_kernel``): warp w of the grid
+    (block b, warp k: w = b x ``warps`` + k) takes envs w, w + nw, ... with
+    nw = ``warps`` x ``blocks``."""
+    nw = warps * blocks
+    return [list(range(w, E, nw)) for w in range(nw)]
+
+
 _lib = None
 
 
@@ -144,8 +252,12 @@ def _library():
         lib.sim_fused_launch.restype = ctypes.c_int
         lib.sim_fused_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_Static),   # ins outs statics
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,              # tab E stream
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,   # tab n_tab E warps
+            ctypes.c_void_p,                                             # stream
         ]
+        lib.sim_fused_shape.restype = ctypes.c_int
+        lib.sim_fused_shape.argtypes = [ctypes.POINTER(_Static), ctypes.c_int, ctypes.c_int,
+                                        *[ctypes.POINTER(ctypes.c_int)] * 3]
         _lib = lib
     return _lib
 
@@ -156,21 +268,57 @@ def _refuse_chests(tables):
             "K2's chest phase is not ported (metta_tpu/ops/sim_fused.py:820-903)")
 
 
-def launch_fused_span(state, actions, rank, tables) -> dict:
+def _pack_of(tables, dev):
+    """The table pack and statics on ``dev``, cached on ``tables``. The flags
+    that set the statics are in the key: a copy of the tables with other
+    flags (``scripts/ablate_fused.py``) gets its own."""
+    key = (str(dev), tables.track_gained, tables.has_attack, tables.has_transfer,
+           tables.has_swap, tables.has_assemblers)
+    cache = tables.__dict__.setdefault("_sim_fused_pack", {})
+    if key not in cache:
+        pack, offs = table_pack(tables, dev)
+        if pack.data_ptr() % 16:
+            raise ValueError("the table pack must be 16-byte aligned")   # the kernel's int4 loads
+        cache[key] = (pack, _statics(tables, offs))
+    return cache[key]
+
+
+def launch_shape(tables, envs_per_block=None):
+    """The kernel's launch shape for ``tables`` on the current card: {smem
+    bytes a block, blocks an SM holds, SMs} (needs the card)."""
+    warps = check_envs_per_block(envs_per_block) or WARPS
+    pack, st = _pack_of(tables, torch.device("cuda", torch.cuda.current_device()))
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = _library().sim_fused_shape(ctypes.byref(st), pack.numel(), warps,
+                                     *[ctypes.byref(v) for v in vals])
+    if err != 0:
+        raise RuntimeError(f"sim_fused_shape failed: CUDA error {err}")
+    return dict(zip(("smem", "per_sm", "sms"), (v.value for v in vals)))
+
+
+def launch_fused_span(state, actions, rank, tables, envs_per_block=None) -> dict:
     """Launch the CUDA kernel once on the current stream: {output name:
     tensor} in :data:`_OUT` order, the agent grid not rebuilt.
 
     ``actions`` and ``rank`` are int32 [E, A] and every state field the
     kernel reads has its engine dtype and shape, a contiguous layout and the
     actions' CUDA device; anything else raises, as do chests (K2's chest
-    phase is not ported) and configs outside :func:`supports_fused`."""
+    phase is not ported), configs outside :func:`supports_fused` or beyond
+    the kernel's sizes (:func:`check_sizes`), and a block width the kernel
+    does not take. ``envs_per_block`` (None: :data:`WARPS`) sets the envs a
+    block holds at once."""
     global launches
     _refuse_chests(tables)
+    warps = check_envs_per_block(envs_per_block) or WARPS
     if not supports_fused(tables):
         raise ValueError("config outside supports_fused: the fused span cannot run it")
     if tables.per_env:
         raise ValueError("the fused span reads one task's tables, not a task set's per-env view")
     dev = actions.device
+    if dev.type != "cuda":
+        raise ValueError(f"actions must be a CUDA tensor, got {dev}")
+    pack, st = _pack_of(tables, dev)
+    check_sizes(tables, pack.numel(), warps)
     E, A = actions.shape
     shapes = {"E": (E,), "EA": (E, A), "EAR": (E, A, tables.num_resources),
               "EHW": (E, tables.height, tables.width), "EN": (E, tables.n_assembler_slots)}
@@ -182,17 +330,11 @@ def launch_fused_span(state, actions, rank, tables) -> dict:
         ins.append(x)
     outs = [torch.empty(shapes[shape], dtype=dtype, device=dev) for _, dtype, shape in _OUT]
     if E > 0:
-        key = (str(dev), tables.track_gained)
-        cache = tables.__dict__.setdefault("_sim_fused_pack", {})
-        if key not in cache:
-            pack, offs = table_pack(tables, dev)
-            cache[key] = (pack, _statics(tables, offs))
-        pack, st = cache[key]
         ptrs_in = (ctypes.c_void_p * len(ins))(*[x.data_ptr() for x in ins])
         ptrs_out = (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs])
         with torch.cuda.device(dev):
             err = _library().sim_fused_launch(
-                ptrs_in, ptrs_out, ctypes.byref(st), pack.data_ptr(), E,
+                ptrs_in, ptrs_out, ctypes.byref(st), pack.data_ptr(), pack.numel(), E, warps,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         if err != 0:
@@ -201,7 +343,7 @@ def launch_fused_span(state, actions, rank, tables) -> dict:
     return dict(zip((n for n, _, _ in _OUT), outs))
 
 
-def fused_span(state, actions, rank, tables):
+def fused_span(state, actions, rank, tables, envs_per_block=None):
     """The interaction span (see :func:`fused_span_plain` for the contract):
     the CUDA kernel for CUDA tensors (:func:`launch_fused_span`, then the
     agent grid rebuilt from the new positions), the plain version for CPU
@@ -209,7 +351,7 @@ def fused_span(state, actions, rank, tables):
     _refuse_chests(tables)
     if actions.device.type == "cpu":
         return fused_span_plain(state, actions, rank, tables)
-    new = launch_fused_span(state, actions, rank, tables)
+    new = launch_fused_span(state, actions, rank, tables, envs_per_block)
     success, executed = new.pop("success"), new.pop("executed")
     if not tables.track_gained:
         del new["agent_gained"], new["agent_lost"]

@@ -1,5 +1,6 @@
 """What the analysis scripts share: the device flag, the combat inputs of
-the render ablations, and the ablation loop itself."""
+the render ablations, the seeded state of K2's ablation, and the render
+ablation loop itself."""
 
 from __future__ import annotations
 
@@ -51,6 +52,47 @@ def combat_prep(num_envs: int, agents: int, seed: int, device):
     env.reset()
     s, t = env.state.env, env.tables
     return t, prep_env3(s, t, s.executed_action, s.reward)
+
+
+def seeded_span_env(name: str, num_envs: int, agents: int, map_seed: int, seed: int, device,
+                    track_gained: bool = False):
+    """A ``track_stats=False`` batched env of ``make_<name>(agents)`` (map
+    seed ``map_seed``), reset on ``device``, with seeded inventories (0-3 of
+    each resource) and vibes (the config's attack and transfer vibes on a
+    third of the agents each), so that every section of the interaction
+    span fires -> (env, the generator that seeded it, on ``device``)."""
+    from metta_tpu_torch.builder import envs
+    from metta_tpu_torch.engine.env import MettaGridEnv
+
+    cfg = getattr(envs, f"make_{name}")(agents)
+    cfg.game.map_builder.seed = map_seed
+    env = MettaGridEnv(cfg, num_envs=num_envs, seed=0, track_stats=False,
+                       step_mode="batched", device=device)
+    if track_gained:
+        env.tables.track_gained = True
+    env.reset()
+    t, s = env.tables, env.state.env
+    gen = torch.Generator(device=device).manual_seed(seed)
+    vibes = [0, 3] + [int(v) for m in (t.attack_vibe_mask, t.transfer_vibe_mask)
+                      for v in torch.nonzero(m).flatten()] * 2
+    vibes = torch.tensor(vibes, device=device)
+    pick = torch.randint(0, len(vibes), s.agent_vibe.shape, generator=gen, device=device)
+    env._state = env.state.replace(env=s.replace(
+        agent_inv=torch.randint(0, 4, s.agent_inv.shape, generator=gen, device=device,
+                                dtype=torch.int32),
+        agent_vibe=vibes[pick].to(torch.int32),
+    ))
+    return env, gen
+
+
+def span_actions(num_envs: int, agents: int, n_actions: int, gen):
+    """[E, A] int32 actions on ``gen``'s device: half moves, half any id in
+    [-1, n_actions] (invalid ids too)."""
+    dev = gen.device
+    moves = torch.randint(1, 5, (num_envs, agents), generator=gen, device=dev)
+    anything = torch.randint(-1, n_actions + 1, (num_envs, agents), generator=gen, device=dev)
+    half = torch.rand((num_envs, agents), generator=gen, device=dev) < 0.5
+    return torch.where(half, moves, anything).to(torch.int32)
 
 
 def ablate(name, sections, kernel, plain, production, variants, steps, device, work):

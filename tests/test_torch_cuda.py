@@ -4,9 +4,11 @@ Each kernel against its plain torch version, on the card, at small sizes:
 K1 (``csrc/obs_render3.cu``) on rolled combat states and on a window outside
 the TPU kernel's limits; K4 (``csrc/obs_render2.cu``) on the same and on
 ``make_arena(30)`` (149 block ids), and against K1's plain version; the
-multi-task env GPU against CPU and a tiny multi-task trainer update; K2 (``csrc/sim_fused.cu``) on combat, cooperation
-and arena with gained/lost tracking, and at an E that no 128-env block
-divides; K3 (``csrc/discounted_sum.cu``) forward and backward at odd shapes
+multi-task env GPU against CPU and a tiny multi-task trainer update; K2
+(``csrc/sim_fused.cu``) on combat, cooperation, arena with gained/lost
+tracking, navigation at A=4 and the arena at A=32, at E=1, at an E that no
+128-env block divides and at E=4097, each ablation variant, and every block
+width it takes; K3 (``csrc/discounted_sum.cu``) forward and backward at odd shapes
 and the advantages through it against the CPU; K5 (``csrc/obs_render.cu``)
 on the sequential env's inputs at E=1 and E=64, arena30, a cut at T and a
 wrapping location byte, and the sequential env with K5 on the GPU against
@@ -24,7 +26,8 @@ import torch
 
 import copy
 
-from metta_tpu_torch.builder.envs import make_arena, make_combat, make_cooperation
+from metta_tpu_torch.builder.envs import (make_arena, make_combat, make_cooperation,
+                                          make_navigation)
 from metta_tpu_torch.engine.env import MettaGridEnv
 from metta_tpu_torch.engine.step_batched import batched_step, rank_from_perm
 from metta_tpu_torch.ops import discounted_sum as k3
@@ -172,13 +175,14 @@ def test_env_gpu_matches_cpu():
             assert torch.equal(g.cpu(), c)
 
 
-K2_CONFIGS = {"combat": make_combat, "cooperation": make_cooperation, "arena": make_arena}
+K2_CONFIGS = {"combat": make_combat, "cooperation": make_cooperation, "arena": make_arena,
+              "navigation": lambda n: make_navigation(n, width=20, height=20)}
 
 
-def _k2_env(name, n_envs, gained=False):
+def _k2_env(name, n_envs, gained=False, agents=A):
     """A track_stats=False env on the card with seeded inventories and vibes
     (the attack and transfer vibes where the config has them)."""
-    cfg = K2_CONFIGS[name](A)
+    cfg = K2_CONFIGS[name](agents)
     cfg.game.map_builder.seed = 1234
     env = MettaGridEnv(cfg, num_envs=n_envs, seed=0, track_stats=False, step_mode="batched",
                        device=_cuda())
@@ -216,30 +220,98 @@ def _first_diffs(got, want, names):
     return "; ".join(lines)
 
 
-@pytest.mark.parametrize("name,n_envs,gained", [
-    ("combat", E, False), ("cooperation", E, False), ("arena", E, True), ("combat", 13, False),
-], ids=["combat", "cooperation", "arena_gained", "combat_e13"])
-def test_k2_matches_plain(name, n_envs, gained):
-    env, gen = _k2_env(name, n_envs, gained)
-    t = env.tables
+def _k2_checked(state, actions, rank, tables):
+    """K2 through its wrapper, held byte for byte to its plain version."""
+    before = k2.launches
+    got = k2.fused_span(state, actions, rank, tables)
+    assert k2.launches == before + 1
+    want = k2.fused_span_plain(state, actions, rank, tables)
+    torch.cuda.synchronize()
+    bad = k2.span_mismatches(got, want)
+    assert bad == [], _first_diffs(got, want, bad)
+    return got
+
+
+def _k2_steps(env, gen, tables, steps=8):
+    """``steps`` batched steps through K2 checked against its plain version,
+    half the actions moves (so the sections fire), half any id."""
+    n_envs, agents = env.state.env.agent_r.shape
     state = env.state.env
-
-    def checked(state, actions, rank, tables):
-        before = k2.launches
-        got = k2.fused_span(state, actions, rank, tables)
-        assert k2.launches == before + 1
-        want = k2.fused_span_plain(state, actions, rank, tables)
-        torch.cuda.synchronize()
-        bad = k2.span_mismatches(got, want)
-        assert bad == [], _first_diffs(got, want, bad)
-        return got
-
-    for _ in range(8):
-        moves = torch.randint(1, 5, (n_envs, A), generator=gen, device="cuda")
-        anything = torch.randint(-1, t.n_actions + 1, (n_envs, A), generator=gen, device="cuda")
-        pick = torch.rand((n_envs, A), generator=gen, device="cuda") < 0.5
+    for _ in range(steps):
+        moves = torch.randint(1, 5, (n_envs, agents), generator=gen, device="cuda")
+        anything = torch.randint(-1, tables.n_actions + 1, (n_envs, agents), generator=gen,
+                                 device="cuda")
+        pick = torch.rand((n_envs, agents), generator=gen, device="cuda") < 0.5
         acts = torch.where(pick, moves, anything).to(torch.int32)
-        state, _ = batched_step(state, acts, t, checked, generator=gen)
+        state, _ = batched_step(state, acts, tables, _k2_checked, generator=gen)
+    return state
+
+
+@pytest.mark.parametrize("name,n_envs,gained,agents", [
+    ("combat", E, False, A), ("cooperation", E, False, A), ("arena", E, True, A),
+    ("combat", 13, False, A), ("navigation", E, False, 4), ("combat", 1, False, A),
+    ("combat", 4097, False, A), ("arena", E, False, 32),
+], ids=["combat", "cooperation", "arena_gained", "combat_e13", "navigation_a4", "combat_e1",
+        "combat_e4097", "arena_a32"])
+def test_k2_matches_plain(name, n_envs, gained, agents):
+    env, gen = _k2_env(name, n_envs, gained, agents)
+    _k2_steps(env, gen, env.tables)
+
+
+@pytest.mark.parametrize("variant", ["full", "noasm", "noattack", "noswap", "bare"])
+def test_k2_ablation_variant_matches_plain(variant):
+    """Each of the ablation's variants (a copy of the tables with section
+    flags off, so another instantiation of the kernel) byte-equal to its plain
+    version over a few steps, on combat and cooperation; the script's own
+    check at a small E."""
+    from metta_tpu_torch.scripts import ablate_fused
+
+    for name in ("combat", "cooperation"):
+        env, gen = _k2_env(name, E)
+        _k2_steps(env, gen, ablate_fused.variant_tables(env.tables, variant), steps=4)
+    rows = ablate_fused.main(["--num-envs", "64", "--steps", "2", "--only", variant])
+    assert rows[0]["max_abs_err"] == 0 and rows[0]["ms"] > 0
+
+
+def test_k2_wrapper_never_takes_the_plain_version(monkeypatch):
+    """A CUDA input launches the kernel or raises; it never reaches the
+    plain version."""
+    env, gen = _k2_env("combat", E)
+    t, s = env.tables, env.state.env
+    acts = torch.randint(0, t.n_actions, (E, A), generator=gen, device="cuda", dtype=torch.int32)
+    rank = rank_from_perm(None, E, A, gen, "cuda")
+    want = k2.fused_span_plain(s, acts, rank, t)
+
+    def plain(*_):
+        raise AssertionError("the plain version ran on CUDA inputs")
+    monkeypatch.setattr(k2, "fused_span_plain", plain)
+    before = k2.launches
+    got = k2.fused_span(s, acts, rank, t)
+    assert k2.launches == before + 1
+    assert k2.span_mismatches(got, want) == []
+    shape = k2.launch_shape(t)
+    assert shape["per_sm"] >= 1 and shape["sms"] >= 1
+
+
+def test_k2_wrapper_refuses_sizes_beyond_its_maxima():
+    env, gen = _k2_env("combat", E)
+    t, s = env.tables, env.state.env
+    acts = torch.randint(0, t.n_actions, (E, A), generator=gen, device="cuda", dtype=torch.int32)
+    rank = rank_from_perm(None, E, A, gen, "cuda")
+    for name, value in (("num_resources", k2.MAX_RESOURCES + 1),
+                        ("n_protocols", k2.MAX_PROTOCOLS + 1)):
+        big = copy.copy(t)
+        setattr(big, name, value)
+        with pytest.raises(ValueError, match=name):
+            k2.fused_span(s, acts, rank, big)
+    for el in (0, 3, 16, 128):
+        with pytest.raises(ValueError):
+            k2.fused_span(s, acts, rank, t, envs_per_block=el)
+    before = k2.launches
+    for el in k2.ENVS_PER_BLOCK:                      # every width the kernel takes
+        assert k2.span_mismatches(k2.fused_span(s, acts, rank, t, envs_per_block=el),
+                                  k2.fused_span_plain(s, acts, rank, t)) == []
+    assert k2.launches == before + len(k2.ENVS_PER_BLOCK)
 
 
 def test_k2_wrapper_checks_inputs():

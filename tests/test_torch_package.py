@@ -43,7 +43,8 @@ def test_port_imports_nothing_of_jax():
                  "rl.trainer", "rl.optim", "rl.checkpoint", "models.vit", "models.components",
                  "ops.timing", "ops.ablate_obs", "ops.smoke_sim", "ops.ubench_pairmat",
                  "ops.ubench_mosaic", "scripts.ablate_obs3", "scripts.ablate_obs",
-                 "scripts.smoke_sim_kernel", "scripts.ubench_pairmat", "scripts.ubench_mosaic"):
+                 "scripts.smoke_sim_kernel", "scripts.ubench_pairmat", "scripts.ubench_mosaic",
+                 "scripts.ablate_fused"):
         assert f"metta_tpu_torch.{name}" in res["modules"], name
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, bad
