@@ -7,10 +7,10 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (each one a hard failure):
 
 1. build every CUDA kernel of the port from ``metta_tpu_torch/csrc`` (K1-K5;
-   S5, K1's first design, in its own source and S4 as instantiations of K4's
-   source; S1's GEMMs and its other cases in two sources, S2 and S3; one
-   ``nvcc`` per source, all started together), keep ``ptxas -v``'s registers
-   and shared memory of the redesigned K1 and S1 GEMM kernels, and print the
+   S5 and S4, K1's and K4's first designs, in their own sources; S1's GEMMs
+   and its other cases in two sources, S2 and S3; one ``nvcc`` per source,
+   all started together), keep ``ptxas -v``'s registers and shared memory
+   of the redesigned K1, K2, K3, K4 and S1 GEMM kernels, and print the
    card's name and power limit;
 2. K1 (``csrc/obs_render3.cu``) against its plain torch version
    (``render_obs3_plain``) at the shapes of the ``track_stats=True`` path: the
@@ -25,7 +25,9 @@ Phases (each one a hard failure):
    curriculum env (``MultiTaskEnv`` over the arena curriculum's 16 tasks,
    E=170, the learner's env), ``make_arena(30)`` (149 block ids) at E=4096,
    and combat at E=4096, where K1 renders the same inputs too; K4's time per
-   launch and its bound at each shape, K1's time beside it on combat;
+   launch and its bound at each shape, beside its first design's (S4's
+   ``none``, ``csrc/obs_render2_ablate.cu``, byte-equal to it, timed in
+   turns with it), K1's time beside them on combat;
 5. the port on the GPU against the port on the CPU: 8 envs, 30 steps, the
    same agent orders and desync draws, state and obs byte-identical, for
    combat with ``track_stats=True`` (the torch-ops step) and combat and
@@ -106,12 +108,15 @@ Phases (each one a hard failure):
    repeat loop found in the SASS (``cuobjdump -sass``) with the loads and
    arithmetic it must hold, its instruction count printed, and the S1
    GEMM kernel's main loops holding ``HGMMA`` (the consumers' ``wgmma``) and
-   ``UTMALDG`` (the producer's TMA loads), and K2's production kernel
-   holding ``MATCH`` and ``REDUX`` (its per-key winners); K1's, K2's and
-   K4's production kernels at their registers with no stack or local
-   memory; the launch shape (registers and shared memory from ``ptxas -v``,
-   blocks an SM) of the redesigned K1, S1 GEMMs and K2; ``torch.bmm`` on the
-   S1 GEMMs' operands as the library yardstick.
+   ``UTMALDG`` (the producer's TMA loads), K2's production kernel
+   holding ``MATCH`` and ``REDUX`` (its per-key winners), K3's chain loops
+   holding ``FMUL``, ``FADD`` and ``LDS`` with no ``FFMA`` or ``LDG`` (the
+   bit-exact chain from shared memory), and K4's per-agent loop holding
+   ``SHFL`` and no block barrier; K1's, K2's, K3's and K4's production
+   kernels at their registers with no stack or local memory; the launch
+   shape (registers and shared memory from ``ptxas -v``, blocks an SM) of
+   the redesigned K1, K2, K3, K4 and S1 GEMMs; ``torch.bmm`` on the S1
+   GEMMs' operands as the library yardstick.
 
 Prints a JSON line of kernels, the card's name and power limit, then as the
 last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
@@ -356,12 +361,14 @@ def phase_k4_vs_plain(res):
     """K4 against its plain version on every step of three runs: the
     curriculum env (16 stacked tasks, E=170, the learner's env), make_arena(30)
     (149 block ids) and combat at E=4096, where K1 renders the same inputs
-    too; then K4's time per launch at each shape, K1's beside it on combat."""
+    too; then K4's time per launch at each shape beside its first design's
+    (S4's ``none``, byte-equal to it), K1's beside them on combat."""
     from metta_tpu_torch.builder.envs import make_arena
     from metta_tpu_torch.engine import env as env_mod
     from metta_tpu_torch.engine.env import MettaGridEnv
     from metta_tpu_torch.engine.tables import tables_at
     from metta_tpu_torch.engine.taskset import MultiTaskEnv
+    from metta_tpu_torch.ops import ablate_obs as ab
     from metta_tpu_torch.ops import obs_render2 as k4
     from metta_tpu_torch.ops import obs_render3 as k1
 
@@ -373,21 +380,34 @@ def phase_k4_vs_plain(res):
 
     def time_k4(name, args, t, k1_too=False):
         r2 = render2_args(t)
-        before, before1 = k4.launches, k1.launches
+        first = ab.render_obs2_ablated(set(), *args, *r2)
+        got = k4.render_obs2(*args, *r2)
+        torch.cuda.synchronize()
+        if not torch.equal(first, got):
+            raise AssertionError(f"K4's first design (S4's none) differs from K4 on {name}")
+        before, before1, before4 = k4.launches, k1.launches, ab.launches_obs2
+        # the redesign and its first design in turns: first, new, new, first
+        first_ms = [cuda_time_ms(lambda: ab.render_obs2_ablated(set(), *args, *r2, out=first),
+                                 50)]
+        ms = [cuda_time_ms(lambda: k4.render_obs2(*args, *r2), 50) for _ in range(2)]
+        first_ms.append(cuda_time_ms(lambda: ab.render_obs2_ablated(set(), *args, *r2, out=first),
+                                     50))
         entry = dict(
-            ms=cuda_time_ms(lambda: k4.render_obs2(*args, *r2), 50),
+            ms=ms[0], first_design_ms=first_ms[0],     # one 50-launch run each, as elsewhere
             host_ms=cuda_time_ms(lambda: k4.render_obs2(*args, *r2), 50, queue_ahead=False),
             plain_ms=cuda_time_ms(lambda: k4.render_obs2_plain(*args, *r2), 3),
         )
         if k1_too:
             entry["k1_ms"] = cuda_time_ms(lambda: k1.render_obs3(*args, *render_args(t)), 50)
-        k4.launches, k1.launches = before, before1     # timing launches do not count
+        k4.launches, k1.launches, ab.launches_obs2 = before, before1, before4  # timing only
         nbytes, ops, parts = render_work(args, t.obs_scan, t.num_obs_tokens)
         entry["bound_ms"], entry["bound_by"], _ = bound_of(nbytes, ops)
         entry["mb"] = nbytes / 1e6
         shapes[name] = entry
         log(f"[k4] {name}: {entry['ms']:.4f} ms per launch on the device "
-            f"({entry['host_ms']:.4f} ms at the wrapper's host pace), plain "
+            f"({entry['host_ms']:.4f} ms at the wrapper's host pace; its first design, S4's "
+            f"none, {entry['first_design_ms']:.4f} ms on the same inputs; runs "
+            f"{[round(v, 4) for v in first_ms[:1] + ms + first_ms[1:]]}), plain "
             f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB "
             f"at 3.35 TB/s, {entry['bound_by']}), {100 * entry['bound_ms'] / entry['ms']:.1f}% "
             f"of the bound" + (f"; K1 on the same inputs {entry['k1_ms']:.4f} ms"
@@ -761,6 +781,20 @@ def k3_work(T, B):
     return 12 * T * B, 2 * T * B
 
 
+def k3_chain_floor_ms(T):
+    """The serial chain's floor, which no bit-exact K3 beats: T dependent
+    multiply-then-add pairs (a 4-cycle FMUL, then a 4-cycle FADD) at the
+    card's top SM clock (``nvidia-smi``'s clocks.max.sm); None without it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=30)
+    try:
+        mhz = float(out.stdout.strip().splitlines()[0])
+    except (ValueError, IndexError):
+        return None, None
+    return 8 * T / (1e3 * mhz), mhz
+
+
 def phase_k3_vs_plain(res):
     """K3 against its plain version at the learner's shapes: forward (reverse
     in time) and backward (``autograd.grad`` through the kernel's backward
@@ -813,10 +847,13 @@ def phase_k3_vs_plain(res):
         times[(T, B)] = dict(ms=fwd, bwd_ms=bwd, plain_ms=plain,
                              bound_ms=max(bytes_ms, ops_ms),
                              bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        floor, mhz = k3_chain_floor_ms(T)             # an estimate: logged, not reported
         log(f"[k3] [{T}, {B}]: forward {fwd:.4f} ms, backward {bwd:.4f} ms a launch on the "
             f"device ({host:.4f} ms a call at the wrapper's host pace), plain {plain:.4f} ms, "
             f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s; "
-            f"{ops / 1e6:.2f} M float32 ops at 67 T/s = {ops_ms:.5f} ms)")
+            f"{ops / 1e6:.2f} M float32 ops at 67 T/s = {ops_ms:.5f} ms); the serial chain's "
+            f"floor {T} x 8 cycles at {mhz} MHz = "
+            + (f"{floor:.4f} ms" if floor is not None else "not measured"))
     k3.launches = before                               # timing launches do not count
     res["k3"] = times
 
@@ -1530,15 +1567,27 @@ def phase_sequential(res):
 
 
 # Registers of the production kernels, as `ptxas -v` gave them in this
-# script's build log: K4's instantiation of mask 0 (the templated source must
-# compile it to the code it had before the template), K1's persistent kernel,
-# K2's instantiation for combat (attack, swap and assemblers, no transfer).
+# script's build log: K1's persistent kernel, K4's persistent kernel at one
+# pass (S <= 128), K2's instantiation for combat (attack, swap and
+# assemblers, no transfer), and K3's instantiations at the learner's tiles
+# (8 columns at B=60, 32 at B=4080): the forward pass, its gradient, the
+# gradient with gdecay.
 K2_COMBAT = "sim_fused_kernelILb1ELb0ELb1ELb1E"
-PRODUCTION_REGISTERS = {"obs_render3": ("obs_render3_kernel", 48),
-                        "obs_render2": ("obs_render2_kernelILi0E", 32),
-                        "sim_fused": (K2_COMBAT, 64)}
+K4_MAIN = "obs_render2_kernelILi1E"
+K3_KERNELS = {(direction, cols): f"discounted_sum_kernelIL{flags}ELi{cols}E"
+              for direction, flags in (("forward", "b0ELb0"), ("backward", "b1ELb0"),
+                                       ("backward with gdecay", "b1ELb1"))
+              for cols in (8, 32)}
+PRODUCTION_REGISTERS = [("obs_render3", "obs_render3_kernel", 48),
+                        ("obs_render2", K4_MAIN, 47),
+                        ("sim_fused", K2_COMBAT, 64),
+                        *[("discounted_sum", K3_KERNELS[key], regs) for key, regs in (
+                            (("forward", 8), 82), (("forward", 32), 81),
+                            (("backward", 8), 84), (("backward", 32), 84),
+                            (("backward with gdecay", 8), 79),
+                            (("backward with gdecay", 32), 114))]]
 # PERF.md's kernel table, combat E=4096
-PRODUCTION_MS = {"K1": 0.0909, "K4": 0.1476, "K2": 0.0304}
+PRODUCTION_MS = {"K1": 0.0909, "K4": 0.0884, "K2": 0.0304}
 # Warp instructions K2's production kernel must hold (cuobjdump -sass
 # opcodes): the match and the reduce of each per-key winner.
 K2_SASS_OPS = ("MATCH", "REDUX")
@@ -1585,29 +1634,39 @@ def opcode(ins):
     return toks[0].split(".")[0] if toks else ""
 
 
-def sass_loop(instrs, ops):
-    """The smallest loop (a backward branch's span) whose body holds every
-    opcode of ``ops``: (instructions in the body, {op: count}), or None."""
-    best = None
+def sass_loops(instrs):
+    """Every loop of a function (a backward branch's span): its bodies."""
+    loops = []
     for addr, ins in instrs:
         m = re.search(r"\b0x([0-9a-f]+)", ins)
-        if opcode(ins) != "BRA" or not m or int(m.group(1), 16) > addr:
-            continue
-        body = [i for a, i in instrs if int(m.group(1), 16) <= a <= addr]
-        counts = {op: sum(opcode(i).startswith(op) for i in body) for op in ops}
-        if all(counts.values()) and (best is None or len(body) < best[0]):
+        if opcode(ins) == "BRA" and m and int(m.group(1), 16) <= addr:
+            loops.append([i for a, i in instrs if int(m.group(1), 16) <= a <= addr])
+    return loops
+
+
+def sass_loop(instrs, ops, absent=()):
+    """The smallest loop whose body holds every opcode of ``ops``:
+    (instructions in the body, {op: count} over ``ops`` and ``absent``), or
+    None."""
+    best = None
+    for body in sass_loops(instrs):
+        counts = {op: sum(opcode(i).startswith(op) for i in body) for op in ops + absent}
+        if all(counts[op] for op in ops) and (best is None or len(body) < best[0]):
             best = (len(body), counts)
     return best
 
 
 def check_sass():
     """Every micro-benchmark's repeat loop is in the SASS (hard failure), with
-    its instruction count; S3's shuffles, ballot and shared atomics are there."""
+    its instruction count; S3's shuffles, ballot and shared atomics are there;
+    K2's match and reduce; K3's chain loops multiply and add from shared
+    memory without FFMA or LDG; K4's per-agent loop shuffles without a block
+    barrier."""
     from metta_tpu_torch.ops import build
 
     dumps = {lib: sass_functions(build.cuobjdump(lib, "-sass"))
              for lib in ("ubench_pairmat", "ubench_mosaic", "ubench_gemm", "smoke_sim",
-                         "sim_fused")}
+                         "sim_fused", "discounted_sum", "obs_render2")}
     found = {}
     for lib, frag, ops in SASS_LOOPS:
         names = [n for n in dumps[lib] if frag in n]
@@ -1635,19 +1694,46 @@ def check_sass():
                              f"SASS: {ops}")
     log(f"[sass] sim_fused {K2_COMBAT}: {len(instrs)} instructions; {ops}")
     found[K2_COMBAT] = dict(function_instructions=len(instrs), **ops)
+    # K3: each chain loop multiplies, then adds, reading shared memory, with
+    # no fused multiply-add and no global load
+    for frag in K3_KERNELS.values():
+        (name, instrs), = [(n, i) for n, i in dumps["discounted_sum"].items() if frag in n]
+        loop = sass_loop(instrs, ("FMUL", "FADD", "LDS"), absent=("FFMA", "LDG"))
+        if loop is None or loop[1]["FFMA"] or loop[1]["LDG"]:
+            raise AssertionError(f"discounted_sum {frag}: no chain loop of FMUL, FADD and LDS "
+                                 f"without FFMA or LDG in the SASS: {loop}")
+        log(f"[sass] discounted_sum {frag}: chain loop of {loop[0]} instructions, {loop[1]}; "
+            f"{len(instrs)} instructions in the kernel")
+        found[frag] = dict(loop_instructions=loop[0], ops=loop[1],
+                           function_instructions=len(instrs))
+    # K4: shuffles in the per-agent loop (the largest), and no block barrier
+    for name, instrs in dumps["obs_render2"].items():
+        if "obs_render2_kernel" not in name:
+            continue
+        agent_loop = max(sass_loops(instrs), key=len)
+        ops = {op: sum(opcode(i) == op for i in agent_loop) for op in ("SHFL", "BAR")}
+        if not ops["SHFL"] or ops["BAR"]:
+            raise AssertionError(f"obs_render2 {name}: the per-agent loop holds {ops}, not "
+                                 f"shuffles without a block barrier")
+        frag = re.search(r"obs_render2_kernelILi\d+E", name).group(0)
+        log(f"[sass] obs_render2 {frag}: per-agent loop of {len(agent_loop)} instructions, "
+            f"{ops}; {sum(opcode(i) == 'BAR' for _, i in instrs)} block barriers in the kernel")
+        found[frag] = dict(loop_instructions=len(agent_loop), function_instructions=len(instrs),
+                           **ops)
     return found
 
 
 def check_registers():
-    """K1's, K2's and K4's production kernels use the registers they were
-    built with (K4's mask-0 instantiation those it had before the ablation
-    template), with no stack or local memory."""
+    """K1's, K2's, K3's and K4's production kernels use the registers they
+    were built with, with no stack or local memory."""
     from metta_tpu_torch.ops import build
 
-    out = {}
-    for lib, (frag, want) in PRODUCTION_REGISTERS.items():
+    out, dumps = {}, {}
+    for lib, frag, want in PRODUCTION_REGISTERS:
+        if lib not in dumps:
+            dumps[lib] = build.cuobjdump(lib, "-res-usage")
         usage, cur = {}, None
-        for line in build.cuobjdump(lib, "-res-usage").splitlines():
+        for line in dumps[lib].splitlines():
             m = re.search(r"Function (\S+?):?$", line.strip())
             if m:
                 cur = m.group(1)
@@ -1661,7 +1747,7 @@ def check_registers():
             f"{u.get('STACK')}, local {u.get('LOCAL')}; {len(usage)} instantiations")
         if u.get("REG") != want or u.get("STACK", 0) or u.get("LOCAL", 0):
             raise AssertionError(f"{lib} {frag} compiled to {u}, not {want} registers unspilled")
-        out[lib] = u
+        out[frag] = u
     return out
 
 
@@ -1680,11 +1766,14 @@ def ptxas_usage(build_log, lib, frag):
 
 
 def redesign_shapes(res):
-    """The launch shape of the redesigned K1 (combat's 121 window cells), S1
-    GEMMs (M6a's and M6b/c's shapes at eps 4) and K2 (combat's and the
-    arena's tables): registers and static shared memory from ``ptxas -v``,
-    dynamic shared memory, blocks an SM, SMs."""
+    """The launch shape of the redesigned K1 (combat's 121 window cells), K4
+    (the same window), K3 (the learner's [255, 60] and [255, 4080], forward
+    and backward), S1 GEMMs (M6a's and M6b/c's shapes at eps 4) and K2
+    (combat's and the arena's tables): registers and static shared memory
+    from ``ptxas -v``, dynamic shared memory, blocks an SM, SMs."""
     from metta_tpu_torch.engine.env import MettaGridEnv
+    from metta_tpu_torch.ops import discounted_sum as k3
+    from metta_tpu_torch.ops import obs_render2 as k4
     from metta_tpu_torch.ops import obs_render3 as k1
     from metta_tpu_torch.ops import sim_fused as k2
     from metta_tpu_torch.ops import ubench_mosaic as s1
@@ -1695,14 +1784,22 @@ def redesign_shapes(res):
 
     log_ = res.get("build_log", [])
     shapes = {"K1 (S=121, T=200)": dict(k1.launch_shape(121, 200)),
+              "K4 (S=121, T=200)": dict(k4.launch_shape(121, 200)),
               "S1 GEMM M6a (nE=4, Kd=72)": dict(s1.gemm_launch_shape(4, 72)),
               "S1 GEMM M6b/c (nE=1, Kd=288)": dict(s1.gemm_launch_shape(1, 288)),
               "K2 combat": dict(k2.launch_shape(k2_tables("combat"))),
               "K2 arena": dict(k2.launch_shape(k2_tables("arena")))}
-    uses = {"K1": ptxas_usage(log_, "obs_render3", "obs_render3_kernel"),
+    uses = {}
+    for (direction, cols), frag in K3_KERNELS.items():
+        B = 60 if cols == 8 else E_TRAIN * AGENTS
+        name = f"K3 {direction} [255, {B}]"
+        shapes[name] = k3.launch_shape(255, B, direction != "forward", "gdecay" in direction)
+        uses[name] = ptxas_usage(log_, "discounted_sum", frag)
+    uses.update({"K1": ptxas_usage(log_, "obs_render3", "obs_render3_kernel"),
+            "K4": ptxas_usage(log_, "obs_render2", K4_MAIN),
             "S1": ptxas_usage(log_, "ubench_gemm", "gemm_tma_kernel"),
             "K2 combat": ptxas_usage(log_, "sim_fused", K2_COMBAT),
-            "K2 arena": ptxas_usage(log_, "sim_fused", "sim_fused_kernelILb0ELb0ELb1ELb1E")}
+            "K2 arena": ptxas_usage(log_, "sim_fused", "sim_fused_kernelILb0ELb0ELb1ELb1E")})
     for name, shape in shapes.items():
         use = next(u for k, u in uses.items() if name.startswith(k))
         missing = ("not in this run's build log",) * 2
@@ -1717,11 +1814,12 @@ def sum_entry(rows, key):
 
 
 def phase_analysis(res):
-    """Phase 13, the analysis path: the five kernel-analysis scripts at the
+    """Phase 13, the analysis path: the six kernel-analysis scripts at the
     JAX scripts' default sizes, each kernel held to its plain version inside
-    the script; the launch counts of the scripts' run, the SASS's repeat
-    loops, K1's and K4's production registers; S3's time and the S1 GEMMs'
-    ``torch.bmm`` time (the library yardstick) after the run."""
+    the script; the launch counts of the scripts' run; S3's time and the S1
+    GEMMs' ``torch.bmm`` time (the library yardstick) after the run; then
+    the redesigned kernels' launch shapes, the SASS's loops and the
+    production kernels' registers."""
     from metta_tpu_torch.ops import ablate_obs as ab
     from metta_tpu_torch.ops import sim_fused as k2
     from metta_tpu_torch.ops import smoke_sim as s3
@@ -1730,9 +1828,6 @@ def phase_analysis(res):
     from metta_tpu_torch.scripts import (ablate_fused, ablate_obs, ablate_obs3,
                                          smoke_sim_kernel, ubench_mosaic, ubench_pairmat)
 
-    registers = check_registers()
-    sass = check_sass()
-    shapes = redesign_shapes(res)
     ab.launches_obs3 = ab.launches_obs2 = s3.launches = s2.launches = 0
     s1.launches = s1.launches_gemm = k2.launches = 0
     t0 = time.time()
@@ -1817,7 +1912,7 @@ def phase_analysis(res):
     res.setdefault("kernels", []).extend([
         entry("obs_render3_ablate", "obs_render3_ablate.cu", "scripts/ablate_obs3.py:211", "S5",
               s5_rows, "variant", f"combat E={E_MAIN}, the none variant", main=none5),
-        entry("obs_render2_ablate", "obs_render2.cu", "scripts/ablate_obs.py:226", "S4",
+        entry("obs_render2_ablate", "obs_render2_ablate.cu", "scripts/ablate_obs.py:226", "S4",
               s4_rows, "variant", f"combat E={E_MAIN}, the none variant", main=none4),
         entry("smoke_sim", "smoke_sim.cu", "scripts/smoke_sim_kernel.py:65", "S3",
               s3_shapes, "shape", "E=256", main=s3_shapes[0]),
@@ -1830,6 +1925,9 @@ def phase_analysis(res):
               gemm_rows, "case", "the sum of the 3 GEMM cases at G=1024, eps 4 (torch.bmm "
               "on the same bf16 operands as library_ms)"),
     ])
+    shapes = redesign_shapes(res)
+    sass = check_sass()
+    registers = check_registers()
     res["analysis"] = dict(registers=registers, sass=sass, launches=launches, shapes=shapes,
                            k2_ablation=k2_rows)
 

@@ -5,53 +5,95 @@
 // agent of every env, global tokens first, then the tokens of the window
 // cells in center-out order, each (loc=(row<<4)|col, feat, val), truncated at
 // T tokens; the remaining slots are 255. Its plain torch version is
-// metta_tpu_torch/ops/obs_render2.py:render_obs2_plain.
+// metta_tpu_torch/ops/obs_render2.py:render_obs2_plain. The first design of
+// this kernel (a block per env, a shared tile, three block barriers) is kept
+// as the subject of the section ablation, csrc/obs_render2_ablate.cu.
 //
-// Design, in the TPU kernel's own formulation: the window is a flat,
-// row-major set of (agent, cell) pairs, and the center-out emission order
-// lives in a rank table (rank[s] = position of row-major cell s in the
-// center-out walk), where the TPU kernel baked it into a rank matrix.
-// One thread block per env, its threads striding over the A*S pairs:
-//   1. each pair reads its cell's block id from `sb` (outside the map:
-//      block 0, no tokens) and the block's token count, and stores the count
-//      at its agent's rank slot in shared memory;
-//   2. one warp per agent turns its S counts into exclusive prefix sums over
-//      rank order (__shfl_up_sync, 32 cells at a time with a carry), offset
-//      by the agent's global-token count: each cell's first output slot;
-//   3. each pair scatters its cell's tokens to their slots, truncated at T,
-//      into the env's [A, T, 3] tile in shared memory, prefilled with 255,
-//      and the global tokens go to the first slots;
-//   4. the tile leaves in coalesced 16-byte stores.
-// None of the TPU kernel's limits carry over: window cells, agents, block
-// ids and E are free (no 128-lane tiles, no one-hot products, no eps).
+// K4's own formulation: the window is walked in row-major order, and the
+// center-out emission order lives in a rank table (rank[s] = position of
+// row-major cell s in the center-out walk), where the TPU kernel baked it
+// into a rank matrix. Each cell's count goes to its rank slot, and the slots
+// are summed exclusively in rank order.
 //
-// Ablation: the kernel is a template on a mask of its sections (the k*
-// constants below). obs_render2_launch runs mask 0, the render itself;
-// obs_render2_ablate_launch runs a mask with some sections replaced by
-// stubs, the counterpart of the TPU kernel's variants in
-// scripts/ablate_obs.py:36 make_kernel (run by
-// metta_tpu_torch/scripts/ablate_obs.py; the plain version of every mask is
-// metta_tpu_torch/ops/ablate_obs.py:render_obs2_ablated_plain).
+// What bounds it: memory, on paper. At E=4096 on the combat map it writes
+// 59 MB of observations and reads the window cells of the block grid, the
+// token tables and the counts (99 MB in all as ops/ablate_obs.py:render_work
+// counts them); on the card each agent's few hundred instructions, issued
+// by the resident warps, set the time, as they do K1's. At the curriculum
+// learner's E=170 (4 MB) the depth of each agent's chain of dependent loads
+// sets it: the first design walked an env's 2,904 (agent, cell) pairs with
+// one block in about six rounds of dependent loads, 170 blocks for 132 SMs.
+//
+// Design: a persistent grid of 256-thread blocks, as many as the SMs hold,
+// one warp per agent at a time. Warp w of the grid takes the flat agent
+// indices w, w + nw, w + 2 nw, ... (nw warps in the grid). The only block
+// barrier is at the start, where the block tables each rank slot's location
+// byte; each lane keeps its cells' rank and window offsets in registers, and
+// each warp its own rank slots and staging row in shared memory. Lane l takes
+// cells l, l + 32, l + 64, l + 96 of each pass of 128 (NP passes, a template
+// parameter: one at S <= 128, two at S <= 256), so neighbouring lanes on one
+// window row read neighbouring `sb` words. For each agent, the dependent
+// loads come in four levels:
+//   1. its position, loaded under the previous agent's work;
+//   2. every grid load of its window, all issued at once, beside its
+//      global-token count and the first 32 bytes of its global tokens;
+//   3. every count load, all issued at once;
+//   4. its object tokens, one a lane (below).
+// In the warp, between levels 3 and 4:
+//   - each cell's count and block id go to its rank slot, slot[rank[s]];
+//     after a __syncwarp, lane l takes slots 4 NP l .. 4 NP l + 4 NP - 1 of
+//     the rank order, and one shuffle scan over the lanes' sums gives each
+//     lane the first object token of its slots;
+//   - slot-parallel tokens: lane j takes object token j (and j + 32, ...),
+//     finds the lane whose slots hold it by a binary search over the lanes'
+//     first tokens (shuffles), reads that lane's counts from the warp's
+//     slots to find the rank slot, and loads the token's (feat, val) from
+//     that slot's block; it writes (loc, feat, val) into the warp's staging
+//     row in shared memory, laid out with the output row's offset past a word
+//     boundary, after the global tokens, truncated at T;
+//   - the row leaves in word stores: the lanes take its 32-bit words in turn
+//     (each warp store covers 128 contiguous bytes), the words of tokens from
+//     the staging row, the rest 255 in 16-byte stores; the at most two words
+//     a row shares with its neighbours store only their own bytes.
+// Slot-parallel tokens keep the warp's lanes busy where a cell-parallel walk
+// (each lane its own cells' tokens, with the first four preloaded at level
+// 3) leaves most of them idle; on the card the cell-parallel walk was the
+// slower of the two at every shape of chip_smoke.py phase 4.
+// Limits (checked by the launcher and by the wrapper, ops/obs_render2.py):
+// at most kMaxCells window cells and kMaxTokens tokens a row (the staging
+// row), E * A < 2^31. Agents, block ids and E are otherwise free.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kCells = 4;              // window cells a lane takes per pass
+constexpr int kPass = 128;            // window cells of a pass (32 lanes x kCells)
+constexpr int kMaxCells = 256;         // window cells the kernel takes (two passes)
+constexpr int kMaxTokens = 2048;       // tokens a warp's staging row holds
 
-// Sections of the kernel, as bits of the ablation mask kSkip. A set bit
-// replaces the section by a stub that reads no device memory but the [S]
-// rank table; kSkip = 0 is the render itself.
-constexpr int kRead = 1;      // block id and count of every (agent, cell) into rank slots
-constexpr int kFill = 2;      // the 255 prefill of the tile
-constexpr int kPrefix = 4;    // exclusive prefix sums in rank order
-constexpr int kGlobals = 8;   // global tokens to the first slots
-constexpr int kScatter = 16;  // every cell's tokens to its slots
-constexpr int kStore = 32;    // the tile out in 16-byte stores
-constexpr int kAll = 63;
+// A warp's staging row: 3T bytes after up to 3 bytes of word offset.
+__host__ __device__ size_t stage_bytes(int T) { return ((size_t)3 * T + 3 + 15) / 16 * 16; }
 
-template <int kSkip>
+// A warp's shared memory: its rank slots' counts and block ids [kPass NP]
+// (int each) and its staging row.
+__host__ __device__ size_t warp_bytes(int passes, int T) {
+  return (size_t)8 * kPass * passes + stage_bytes(T);
+}
+
+// A block's: each rank slot's location byte [kPass NP], then its warps'.
+__host__ __device__ size_t block_bytes(int passes, int T) {
+  return (size_t)kPass * passes + kWarps * warp_bytes(passes, T);
+}
+
+__device__ __forceinline__ uint32_t ldg_u16(const uint8_t* p) {
+  return __ldg(reinterpret_cast<const uint16_t*>(p));
+}
+
+template <int NP>
 __global__ void __launch_bounds__(kThreads) obs_render2_kernel(
     const int32_t* __restrict__ sb,      // [E, H, W] combined block grid
     const uint8_t* __restrict__ tok,     // [E, NB, K, 2] (feat, val) per block
@@ -61,210 +103,223 @@ __global__ void __launch_bounds__(kThreads) obs_render2_kernel(
     const uint8_t* __restrict__ gtok,    // [E, A, G, 3] global tokens
     const int32_t* __restrict__ rank,    // [S] center-out rank of row-major cell s
     uint8_t* __restrict__ out,           // [E, A, T, 3]
-    int H, int W, int A, int NB, int K, int WH, int WW, int G, int T) {
+    int E, int H, int W, int A, int NB, int K, int WH, int WW, int G, int T) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const int S = WH * WW;
-  const int P = A * S;                                  // (agent, cell) pairs
-  int32_t* slot = reinterpret_cast<int32_t*>(smem);    // [A, S] by rank: count, then start
-  int32_t* blk = slot + P;                              // [A, S] row-major: block id
-  uint8_t* tile = smem + ((size_t)8 * P + 15) / 16 * 16;  // [A, T, 3], 16-byte aligned
-  const size_t row = (size_t)T * 3;
-  const size_t nbytes = (size_t)A * row;
-  const int e = blockIdx.x;
-  const int32_t* sb_e = sb + (size_t)e * H * W;
-  const uint8_t* tok_e = tok + (size_t)e * NB * K * 2;
-  const int32_t* cnt_e = counts + (size_t)e * NB;
-  const int32_t* rc_e = rc + (size_t)e * A * 2;
-  const int32_t* g_e = gcnt + (size_t)e * A;
-  const int ohr = WH / 2, owr = WW / 2;
-
-  // 1. block id and token count of every (agent, cell); tile prefill
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const int a = p / S, s = p - a * S;
-    int b = 0, n = 0;
-    if constexpr ((kSkip & kRead) != 0) {
-      // about one cell in twelve holds a block of 1-3 tokens
-      const int h = e + a + s;
-      b = (h % 12 == 0 && NB > 1) ? 1 + h % (NB - 1) : 0;
-      n = b ? min(K, 1 + (b + s) % 3) : 0;
-    } else {
-      const int r = __ldg(rc_e + 2 * a) + s / WW - ohr;
-      const int c = __ldg(rc_e + 2 * a + 1) + s % WW - owr;
-      if (r >= 0 && r < H && c >= 0 && c < W) {
-        b = __ldg(sb_e + r * W + c);
-        n = __ldg(cnt_e + b);
-      }
-    }
-    blk[p] = b;
-    slot[a * S + __ldg(rank + s)] = n;
-  }
-  if constexpr ((kSkip & kFill) != 0) {
-    // each agent's last slot only
-    for (int a = threadIdx.x; a < A; a += blockDim.x) {
-      uint8_t* last = tile + a * row + (size_t)(T - 1) * 3;
-      last[0] = last[1] = last[2] = (uint8_t)a;
-    }
-  } else {
-    uint32_t* tile32 = reinterpret_cast<uint32_t*>(tile);
-    for (size_t i = threadIdx.x; i < (nbytes + 3) / 4; i += blockDim.x) tile32[i] = 0xffffffffu;
-  }
-  __syncthreads();
-
-  // 2. exclusive prefix sum of each agent's counts in rank order
+  constexpr int kC = kCells * NP;    // cells a lane holds
+  constexpr int kSlots = kPass * NP;
+  constexpr int kPer = 4 * NP;       // rank slots a lane takes in the scan
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int a = warp; a < A; a += blockDim.x >> 5) {
-    int32_t* sa = slot + a * S;
-    if constexpr ((kSkip & kPrefix) != 0) {
-      // a quarter slot a cell after the global tokens
-      const int g0 = min(G, T);
-      for (int q = lane; q < S; q += 32) sa[q] = g0 + (q >> 2);
-    } else {
-      int carry = __ldg(g_e + a);
-      for (int base = 0; base < S; base += 32) {
-        const int q = base + lane;
-        const int n = q < S ? sa[q] : 0;
-        int incl = n;
+  uint8_t* loc_r = smem;             // [kSlots] location byte of each rank slot
+  int* cnt_r = reinterpret_cast<int*>(smem + kSlots + (size_t)warp * warp_bytes(NP, T));
+  int* blk_r = cnt_r + kSlots;       // [kSlots] the warp's counts and block ids by rank
+  uint8_t* stage = reinterpret_cast<uint8_t*>(blk_r + kSlots);
+  const int S = WH * WW;
+  const int ohr = WH / 2, owr = WW / 2;
+  for (int s = threadIdx.x; s < S; s += kThreads)
+    loc_r[__ldg(rank + s)] = (uint8_t)((((s / WW) << 4) | (s % WW)) & 255);
+  // the lane's cells s = 32 k + lane: rank | window row << 8 | window col << 16, -1 past S
+  int cell[kC];
 #pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int v = __shfl_up_sync(0xffffffffu, incl, d);
-          if (lane >= d) incl += v;
-        }
-        if (q < S) sa[q] = carry + incl - n;
-        carry += __shfl_sync(0xffffffffu, incl, 31);
-      }
-    }
+  for (int k = 0; k < kC; ++k) {
+    const int s = 32 * k + lane;
+    cell[k] = s < S ? (__ldg(rank + s) | (s / WW) << 8 | (s % WW) << 16) : -1;
   }
-  // global tokens to the first slots (disjoint from the cells' slots)
-  for (int q = threadIdx.x; q < A * G; q += blockDim.x) {
-    const int a = q / G, gi = q - a * G;
-    if constexpr ((kSkip & kGlobals) != 0) {
-      if (gi < T) {
-        uint8_t* dst = tile + a * row + (size_t)gi * 3;
-        dst[0] = (uint8_t)(3 * gi + a);
-        dst[1] = (uint8_t)(3 * gi + 1 + a);
-        dst[2] = (uint8_t)(3 * gi + 2 + a);
-      }
-    } else {
-      if (gi < __ldg(g_e + a) && gi < T) {
-        const uint8_t* src = gtok + (((size_t)e * A + a) * G + gi) * 3;
-        uint8_t* dst = tile + a * row + (size_t)gi * 3;
-        dst[0] = __ldg(src);
-        dst[1] = __ldg(src + 1);
-        dst[2] = __ldg(src + 2);
-      }
-    }
-  }
-  __syncthreads();
+  for (int i = lane; i < kSlots; i += 32) cnt_r[i] = blk_r[i] = 0;  // past S: stay 0
+  __syncthreads();  // the only block barrier: loc_r
 
-  // 3. scatter every cell's tokens to its slots
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const int a = p / S, s = p - a * S;
-    const int b = blk[p];
-    const int start = slot[a * S + __ldg(rank + s)];
-    if constexpr ((kSkip & kScatter) != 0) {
-      // the cell's first slot only, from what shared memory holds
-      if (b != 0 && start < T) {
-        uint8_t* dst = tile + a * row + (size_t)start * 3;
-        dst[0] = (uint8_t)((((s / WW) << 4) | (s % WW)) & 255);
-        dst[1] = (uint8_t)b;
-        dst[2] = (uint8_t)s;
-      }
-    } else {
-      const int stop = min(__ldg(cnt_e + b), T - start);
-      if (stop > 0) {
-        const uint8_t loc = (uint8_t)((((s / WW) << 4) | (s % WW)) & 255);
-        const uint8_t* bt = tok_e + (size_t)b * K * 2;
-        uint8_t* dst = tile + a * row + (size_t)start * 3;
-        for (int k = 0; k < stop; ++k) {
-          dst[3 * k] = loc;
-          dst[3 * k + 1] = __ldg(bt + 2 * k);
-          dst[3 * k + 2] = __ldg(bt + 2 * k + 1);
-        }
-      }
-    }
-  }
-  __syncthreads();
+  const int n_agents = E * A;  // < 2^31 (the launcher checks)
+  const int stride = gridDim.x * kWarps;
+  const int row = 3 * T;
+  const int g3 = min(3 * G, 32);  // global-token bytes loaded with the grid
 
-  // 4. the env's tile to global memory
-  uint8_t* out_e = out + (size_t)e * nbytes;
-  if ((nbytes & 15) == 0 && (reinterpret_cast<uintptr_t>(out_e) & 15) == 0) {
-    uint4* dst = reinterpret_cast<uint4*>(out_e);
-    if constexpr ((kSkip & kStore) != 0) {
-      // every output word, from one byte of the tile
-      const uint32_t x = tile[0];
-      for (size_t i = threadIdx.x; i < nbytes / 16; i += blockDim.x) {
-        const uint32_t v = ((uint32_t)i + (uint32_t)e) ^ x;
-        dst[i] = make_uint4(v, v, v, v);
+  int p = blockIdx.x * kWarps + warp;
+  int ar = 0, ac = 0;
+  if (p < n_agents) {  // level 1 of the first agent
+    ar = __ldg(rc + 2 * p);
+    ac = __ldg(rc + 2 * p + 1);
+  }
+  for (; p < n_agents; p += stride) {
+    const int pn = p + stride;
+    int ar_n = 0, ac_n = 0;
+    if (pn < n_agents) {  // level 1 of the next agent, loaded under this agent's work
+      ar_n = __ldg(rc + 2 * pn);
+      ac_n = __ldg(rc + 2 * pn + 1);
+    }
+    // level 2: the global-token count and bytes (past the G global tokens:
+    // 255), and the grid loads, all issued (outside the map: -1, no tokens)
+    const int gc = min(__ldg(gcnt + p), T);
+    const uint32_t gbyte = lane < g3 ? __ldg(gtok + (size_t)p * G * 3 + lane) : 255u;
+    const int e = p / A;
+    const int32_t* sb_e = sb + (size_t)e * H * W;
+    const int32_t* cnt_e = counts + (size_t)e * NB;
+    const uint8_t* tok_e = tok + (size_t)e * NB * K * 2;
+    int b[kC];
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      b[k] = -1;
+      if (cell[k] >= 0) {
+        const int r = ar + ((cell[k] >> 8) & 255) - ohr;
+        const int c = ac + (cell[k] >> 16) - owr;
+        if ((unsigned)r < (unsigned)H && (unsigned)c < (unsigned)W) b[k] = __ldg(sb_e + r * W + c);
       }
-    } else {
-      const uint4* src = reinterpret_cast<const uint4*>(tile);
-      for (size_t i = threadIdx.x; i < nbytes / 16; i += blockDim.x) dst[i] = src[i];
     }
-  } else {
-    if constexpr ((kSkip & kStore) != 0) {
-      const uint8_t x = tile[0];
-      for (size_t i = threadIdx.x; i < nbytes; i += blockDim.x)
-        out_e[i] = (uint8_t)((uint8_t)(i + e) ^ x);
-    } else {
-      for (size_t i = threadIdx.x; i < nbytes; i += blockDim.x) out_e[i] = tile[i];
+    // level 3: the count loads, all issued; counts and block ids to their rank slots
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      const int n = b[k] >= 0 ? __ldg(cnt_e + b[k]) : 0;
+      if (cell[k] >= 0) {
+        cnt_r[cell[k] & 255] = n;
+        blk_r[cell[k] & 255] = max(b[k], 0);
+      }
     }
+    __syncwarp();
+
+    // the scan in rank order: each lane's first object token
+    int4 v[NP];
+    int local = 0;
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      v[q] = reinterpret_cast<const int4*>(cnt_r)[NP * lane + q];
+      local += v[q].x + v[q].y + v[q].z + v[q].w;
+    }
+    int incl = local;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += u;
+    }
+    const int total = __shfl_sync(0xffffffffu, incl, 31);  // the agent's object tokens
+    const int first = incl - local;
+
+    // the global tokens, then the object tokens, into the staging row: row
+    // byte i at srow[i]
+    uint8_t* orow = out + (size_t)p * row;
+    const int mis = (int)(reinterpret_cast<uintptr_t>(orow) & 3);
+    uint8_t* srow = stage + mis;
+    const uint8_t* gt = gtok + (size_t)p * G * 3;
+    if (lane < 3 * gc) srow[lane] = (uint8_t)gbyte;
+    for (int i = 32 + lane; i < 3 * gc; i += 32) srow[i] = i < 3 * G ? __ldg(gt + i) : 255;
+    const int stop = min(total, T - gc);  // object tokens that fit
+    for (int jb = 0; jb < stop; jb += 32) {  // uniform: every lane shuffles
+      const int j = jb + lane;
+      int L = 0;  // the last lane whose first token is <= j: its slots hold j
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1) {
+        const int u = __shfl_sync(0xffffffffu, first, L + step);
+        if (u <= j) L += step;
+      }
+      const int f = __shfl_sync(0xffffffffu, first, L);
+      if (j < stop) {
+        int acc = f, k = 0, ck = f;  // j's slot among L's, and its first token
+#pragma unroll
+        for (int q = 0; q < NP; ++q) {
+          const int4 nq = reinterpret_cast<const int4*>(cnt_r)[NP * L + q];
+          const int ns[4] = {nq.x, nq.y, nq.z, nq.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (q == NP - 1 && u == 3) break;
+            acc += ns[u];
+            if (acc <= j) {
+              k = 4 * q + u + 1;
+              ck = acc;
+            }
+          }
+        }
+        const int slot = kPer * L + k;
+        const uint32_t fv = ldg_u16(tok_e + ((size_t)blk_r[slot] * K + (j - ck)) * 2);
+        uint8_t* d = srow + 3 * (gc + j);
+        d[0] = loc_r[slot];
+        d[1] = (uint8_t)fv;  // feat
+        d[2] = (uint8_t)(fv >> 8);  // val
+      }
+    }
+    __syncwarp();
+
+    // 6. the token words: word k covers row bytes [4k - mis, 4k - mis + 4)
+    const int filled = min(T, gc + total);
+    uint32_t* wrow = reinterpret_cast<uint32_t*>(orow - mis);
+    const uint32_t* swords = reinterpret_cast<const uint32_t*>(stage);
+    const int n_words = (3 * filled + mis + 3) >> 2;
+    for (int k = lane; k < n_words; k += 32) {
+      const int i0 = 4 * k - mis;  // row byte of the word's byte 0 (>= -3)
+      uint32_t word = swords[k];
+      const int valid = 3 * filled - i0;  // its bytes that hold tokens (>= 1)
+      if (valid < 4) word |= 0xFFFFFFFFu << (8 * valid);
+      if (i0 >= 0 && i0 + 4 <= row) {
+        wrow[k] = word;
+      } else {
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          if (i0 + x >= 0 && i0 + x < row) orow[i0 + x] = (uint8_t)(word >> (8 * x));
+      }
+    }
+    // the rest of the row is 255: 16-byte stores, words and bytes at its ends
+    // (offsets from the 16-byte boundary at or before the row's start)
+    uint8_t* b16 = reinterpret_cast<uint8_t*>(reinterpret_cast<uintptr_t>(orow) & ~(uintptr_t)15);
+    const int o16 = (int)(orow - b16);
+    const int fa = o16 + max(4 * n_words - mis, 0), fb = o16 + row;  // fa is a word boundary
+    for (int c = (fa >> 4) + lane; c < ((fb + 15) >> 4); c += 32) {
+      const int lo = c << 4, hi = lo + 16;
+      if (lo >= fa && hi <= fb) {
+        *reinterpret_cast<uint4*>(b16 + lo) = make_uint4(~0u, ~0u, ~0u, ~0u);
+      } else {
+        int x = max(lo, fa);
+        const int end = min(hi, fb);
+        for (; x + 4 <= end; x += 4) *reinterpret_cast<uint32_t*>(b16 + x) = ~0u;
+        for (; x < end; ++x) b16[x] = 255;
+      }
+    }
+    // The next agent rewrites the slots and the staging row only after its
+    // loads and a __syncwarp(): no barrier is needed here.
+    ar = ar_n;
+    ac = ac_n;
   }
 }
 
-template <int kSkip>
-int launch(const void* sb, const void* tok, const void* counts, const void* rc,
-           const void* gcnt, const void* gtok, const void* rank, void* out,
-           int E, int H, int W, int A, int NB, int K, int WH, int WW, int G, int T,
-           void* stream) {
-  const size_t pairs = (size_t)A * WH * WW;
-  const size_t smem = (8 * pairs + 15) / 16 * 16 + ((size_t)A * T * 3 + 15) / 16 * 16;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        obs_render2_kernel<kSkip>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  obs_render2_kernel<kSkip><<<E, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)sb, (const uint8_t*)tok, (const int32_t*)counts,
-      (const int32_t*)rc, (const int32_t*)gcnt, (const uint8_t*)gtok,
-      (const int32_t*)rank, (uint8_t*)out, H, W, A, NB, K, WH, WW, G, T);
+template <int NP>
+int shape_of(int T, int* smem, int* per_sm, int* sms) {
+  *smem = (int)block_bytes(NP, T);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*smem > 48 * 1024)
+    cudaFuncSetAttribute(obs_render2_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         *smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, obs_render2_kernel<NP>, kThreads, *smem);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the render on `stream`; returns cudaGetLastError() (0 = launched).
+// The launch shape for S window cells and T tokens: dynamic shared memory
+// bytes, blocks an SM holds and the SMs of the current device; returns 0 or a
+// CUDA error (cudaErrorInvalidValue past kMaxCells or kMaxTokens).
+extern "C" int obs_render2_shape(int S, int T, int* smem, int* per_sm, int* sms) {
+  if (S < 1 || S > kMaxCells || T < 1 || T > kMaxTokens) return (int)cudaErrorInvalidValue;
+  return S <= kPass ? shape_of<1>(T, smem, per_sm, sms) : shape_of<2>(T, smem, per_sm, sms);
+}
+
+// Launches the render on `stream`: min(ceil(E A / 8), SMs x blocks an SM
+// holds) blocks; returns cudaGetLastError() (0 = launched).
 extern "C" int obs_render2_launch(
     const void* sb, const void* tok, const void* counts, const void* rc,
     const void* gcnt, const void* gtok, const void* rank, void* out,
     int E, int H, int W, int A, int NB, int K, int WH, int WW, int G, int T,
     void* stream) {
-  return launch<0>(sb, tok, counts, rc, gcnt, gtok, rank, out, E, H, W, A, NB, K, WH, WW,
-                   G, T, stream);
-}
-
-// The render with the sections of `skip` stubbed (ablation; the mask's bits
-// are the k* constants above): none, one section, or all of them. Returns
-// cudaErrorInvalidValue for any other mask.
-extern "C" int obs_render2_ablate_launch(
-    const void* sb, const void* tok, const void* counts, const void* rc,
-    const void* gcnt, const void* gtok, const void* rank, void* out,
-    int E, int H, int W, int A, int NB, int K, int WH, int WW, int G, int T, int skip,
-    void* stream) {
-#define OBS2_CASE(m)                                                                  \
-  case m:                                                                             \
-    return launch<m>(sb, tok, counts, rc, gcnt, gtok, rank, out, E, H, W, A, NB, K, WH, \
-                     WW, G, T, stream);
-  switch (skip) {
-    OBS2_CASE(0)
-    OBS2_CASE(kRead)
-    OBS2_CASE(kFill)
-    OBS2_CASE(kPrefix)
-    OBS2_CASE(kGlobals)
-    OBS2_CASE(kScatter)
-    OBS2_CASE(kStore)
-    OBS2_CASE(kAll)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef OBS2_CASE
+  if ((long long)E * A > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int S = WH * WW;
+  int smem, per_sm, sms;
+  const int err = obs_render2_shape(S, T, &smem, &per_sm, &sms);
+  if (err != 0) return err;
+  if (per_sm < 1) return (int)cudaErrorInvalidValue;
+  const long long need = ((long long)E * A + kWarps - 1) / kWarps;
+  const long long most = (long long)sms * per_sm;
+  const int grid = (int)(need < most ? need : most);
+  if (grid == 0) return 0;
+  const dim3 shape(grid), block(kThreads);
+  void* params[] = {&sb, &tok, &counts, &rc, &gcnt, &gtok, &rank, &out, &E, &H, &W,
+                    &A, &NB, &K, &WH, &WW, &G, &T};
+  const void* kernel = S <= kPass ? (const void*)obs_render2_kernel<1>
+                                  : (const void*)obs_render2_kernel<2>;
+  return (int)cudaLaunchKernel(kernel, shape, block, params, smem, (cudaStream_t)stream);
 }

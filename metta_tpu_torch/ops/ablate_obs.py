@@ -2,10 +2,11 @@
 
 Counterpart of the TPU kernels' variants in ``scripts/ablate_obs3.py``
 (K1, ``make_kernel`` :40) and ``scripts/ablate_obs.py`` (K4, ``make_kernel``
-:36). The CUDA kernels ``csrc/obs_render3_ablate.cu`` (K1's first design, a
-block per env with a shared tile, kept for this ablation when K1 became a
-persistent kernel) and ``csrc/obs_render2.cu`` are templates on a mask of
-their sections; a set bit replaces the section by
+:36). The CUDA kernels ``csrc/obs_render3_ablate.cu`` and
+``csrc/obs_render2_ablate.cu`` (K1's and K4's first designs, a block per env
+with a shared tile, kept for these ablations when K1 and K4 became
+persistent kernels) are templates on a mask of their sections; a set bit
+replaces the section by
 a stub that reads no device memory (K4's stubs still read the [S] rank
 table, which every cell of every env shares). Mask 0 is the render itself.
 
@@ -379,12 +380,12 @@ def render_obs2_ablated(skips, sb, tok, counts, rc, g_count, g_tok, rank, num_to
     A = rc.shape[1]
     NB, K = tok.shape[1], tok.shape[2]
     G, T = g_tok.shape[2], num_tokens
-    k4.check_inputs(sb, tok, counts, rc, g_count, g_tok, rank, wh, ww)
+    k4.check_inputs(sb, tok, counts, rc, g_count, g_tok, rank, wh, ww, T)
     out = _checked_out(out, E, A, T, sb.device)
     if E == 0:
         return out
     with torch.cuda.device(sb.device):
-        err = _entry("obs_render2", "obs_render2_ablate_launch", 11)(
+        err = _entry("obs_render2_ablate", "obs_render2_ablate_launch", 11)(
             sb.data_ptr(), tok.data_ptr(), counts.data_ptr(), rc.data_ptr(),
             g_count.data_ptr(), g_tok.data_ptr(), rank.data_ptr(), out.data_ptr(),
             E, H, W, A, NB, K, wh, ww, G, T, mask,

@@ -13,11 +13,17 @@ rank matrix), and each cell's tokens are scattered to their slots.
 - :func:`render_obs2` is the kernel's wrapper. A CUDA tensor launches the
   kernel in ``csrc/obs_render2.cu`` (or raises); a CPU tensor takes
   :func:`render_obs2_plain`, the same formulation in torch ops.
+- :func:`render2_grid`, :func:`render2_schedule` and
+  :func:`render2_smem_bytes` mirror the kernel's persistent plan: its
+  blocks, which (env, agent) pairs each warp renders, and each block's
+  warp-private shared memory.
 
 It reads the outputs of ``ops/obs_render3.py:prep_env3``, as the TPU kernel
 reads those of ``prep_core``; with a task set the prep has read each env's
-own tables. None of the TPU kernel's limits (window cells <= 128, A <= 32,
-block ids <= 128, ``eps`` dividing E) carry over.
+own tables. None of the TPU kernel's limits (A <= 32, block ids <= 128,
+``eps`` dividing E) carry over; the kernel takes at most ``MAX_CELLS``
+window cells and ``MAX_TOKENS`` tokens a row (where the TPU kernel took 128
+window cells).
 """
 
 from __future__ import annotations
@@ -31,6 +37,13 @@ from metta_tpu_torch.ops.build import check_tensor
 
 # Launches of the CUDA kernel, counted by the wrapper where it launches.
 launches = 0
+
+# The kernel's plan constants (``csrc/obs_render2.cu``: kThreads / 32, kPass,
+# kMaxCells, kMaxTokens)
+WARPS = 8           # warps a block, one agent each at a time
+PASS = 128          # window cells of a pass: four a lane
+MAX_CELLS = 256     # window cells the kernel takes (two passes)
+MAX_TOKENS = 2048   # tokens a warp's staging row holds
 
 
 def rank_table(scan, ww: int):
@@ -94,8 +107,38 @@ def render_obs2_plain(sb, tok, counts, rc, g_count, g_tok, rank, num_tokens: int
     return out[:, :, :T]
 
 
-def check_inputs(sb, tok, counts, rc, g_count, g_tok, rank, wh: int, ww: int):
+def render2_grid(E: int, A: int, sms: int, per_sm: int) -> int:
+    """Blocks the CUDA kernel launches: one warp an agent, no more blocks
+    than the card holds at once (``sms`` x ``per_sm``)."""
+    return min(-(-E * A // WARPS), sms * per_sm)
+
+
+def render2_schedule(E: int, A: int, blocks: int):
+    """The (env, agent) pairs each warp of a grid of ``blocks`` renders, in
+    order (mirrors ``csrc/obs_render2.cu``): warp w of the grid takes the
+    flat agent indices w, w + nw, w + 2 nw, ... (nw = ``WARPS`` x blocks)."""
+    nw = WARPS * blocks
+    return [[divmod(p, A) for p in range(w, E * A, nw)] for w in range(nw)]
+
+
+def render2_smem_bytes(S: int, T: int) -> int:
+    """A block's dynamic shared memory: each rank slot's location byte (a
+    pass of ``PASS`` slots, two past ``PASS`` cells), then each warp's
+    counts and block ids by rank slot (an int each) and its staging row (3T
+    bytes after up to 3 bytes of word offset, in 16-byte units)."""
+    slots = PASS * (1 if S <= PASS else 2)
+    return slots + WARPS * (8 * slots + (3 * T + 3 + 15) // 16 * 16)
+
+
+def check_inputs(sb, tok, counts, rc, g_count, g_tok, rank, wh: int, ww: int,
+                 num_tokens: int):
     """Raise ValueError unless the render's inputs are what the kernel takes."""
+    if not 1 <= wh * ww <= MAX_CELLS:
+        raise ValueError(f"window cells: the kernel takes 1 to {MAX_CELLS}, got {wh}x{ww}")
+    if not 1 <= num_tokens <= MAX_TOKENS:
+        raise ValueError(f"num_tokens: the kernel takes 1 to {MAX_TOKENS}, got {num_tokens}")
+    if sb.shape[0] * rc.shape[1] >= 2**31:
+        raise ValueError(f"agents: E x A must stay under 2^31, got {sb.shape[0]} x {rc.shape[1]}")
     E, H, W = sb.shape
     A = rc.shape[1]
     NB, K = tok.shape[1], tok.shape[2]
@@ -124,8 +167,20 @@ def _library():
             + [ctypes.c_int] * 10                    # E H W A NB K WH WW G T
             + [ctypes.c_void_p]                      # stream
         )
+        lib.obs_render2_shape.restype = ctypes.c_int
+        lib.obs_render2_shape.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
         _lib = lib
     return _lib
+
+
+def launch_shape(S: int, T: int):
+    """The CUDA kernel's launch shape for S window cells and T tokens on the
+    current card: {smem bytes, blocks an SM holds, SMs} (needs the card)."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = _library().obs_render2_shape(S, T, *[ctypes.byref(v) for v in vals])
+    if err != 0:
+        raise RuntimeError(f"obs_render2_shape failed: CUDA error {err}")
+    return dict(zip(("smem", "per_sm", "sms"), (v.value for v in vals)))
 
 
 def render_obs2(sb, tok, counts, rc, g_count, g_tok, rank, num_tokens: int,
@@ -142,7 +197,7 @@ def render_obs2(sb, tok, counts, rc, g_count, g_tok, rank, num_tokens: int,
     NB, K = tok.shape[1], tok.shape[2]
     G = g_tok.shape[2]
     T = num_tokens
-    check_inputs(sb, tok, counts, rc, g_count, g_tok, rank, wh, ww)
+    check_inputs(sb, tok, counts, rc, g_count, g_tok, rank, wh, ww, T)
     out = torch.empty((E, A, T, 3), dtype=torch.uint8, device=sb.device)
     if E == 0:
         return out

@@ -1,12 +1,14 @@
-"""Ablate sections of K4, the v2 token render (``csrc/obs_render2.cu``), on the card.
+"""Ablate sections of K4, the v2 token render, on the card.
 
 Counterpart of ``scripts/ablate_obs.py``: builds the combat map's render
-inputs (map seed 1234, E=4096, 24 agents) and times each variant of the
-kernel with sections stubbed (``ops/ablate_obs.py``), each held to its plain
-version in the bytes it defines, ``none`` to the production K4 byte for
-byte. The TPU script runs ``none`` and all sections; this one runs ``none``,
-each section alone, and all. Prints one line per variant: ms a launch, what
-it saves against ``none``, the render's bound and the variant's share of it.
+inputs (map seed 1234, E=4096, 24 agents) and times each variant of K4's
+first design (``csrc/obs_render2_ablate.cu``, a block per env) with sections
+stubbed (``ops/ablate_obs.py``), each held to its plain version in the bytes
+it defines, ``none`` to the production K4 (``csrc/obs_render2.cu``, the
+persistent redesign) byte for byte. The TPU script runs ``none`` and all
+sections; this one runs ``none``, each section alone, and all. Prints one
+line per variant: ms a launch, what it saves against ``none``, the render's
+bound and the variant's share of it.
 
 K4's sections follow the CUDA kernel. The TPU script's sections map onto
 them so:

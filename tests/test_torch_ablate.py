@@ -211,7 +211,7 @@ def test_cpu_wrappers_take_plain_versions(combat):
 def test_masks_are_the_kernels_bits():
     """The wrappers' masks follow the k* constants of the CUDA sources."""
     src3 = (REPO / "metta_tpu_torch" / "csrc" / "obs_render3_ablate.cu").read_text()
-    src2 = (REPO / "metta_tpu_torch" / "csrc" / "obs_render2.cu").read_text()
+    src2 = (REPO / "metta_tpu_torch" / "csrc" / "obs_render2_ablate.cu").read_text()
     for sections, src in ((ab.SECTIONS3, src3), (ab.SECTIONS2, src2)):
         for i, name in enumerate(sections):
             assert f"constexpr int k{name.capitalize()} = {1 << i};" in src, name

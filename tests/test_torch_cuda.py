@@ -2,14 +2,17 @@
 
 Each kernel against its plain torch version, on the card, at small sizes:
 K1 (``csrc/obs_render3.cu``) on rolled combat states and on a window outside
-the TPU kernel's limits; K4 (``csrc/obs_render2.cu``) on the same and on
-``make_arena(30)`` (149 block ids), and against K1's plain version; the
+the TPU kernel's limits; K4 (``csrc/obs_render2.cu``) on the same, on
+``make_arena(30)`` (149 block ids), on the curriculum's stacked tables at
+E=170 and on synthetic inputs at the persistent schedule's edges, against
+K1's plain version and its first design (S4's ``none``); the
 multi-task env GPU against CPU and a tiny multi-task trainer update; K2
 (``csrc/sim_fused.cu``) on combat, cooperation, arena with gained/lost
 tracking, navigation at A=4 and the arena at A=32, at E=1, at an E that no
 128-env block divides and at E=4097, each ablation variant, and every block
 width it takes; K3 (``csrc/discounted_sum.cu``) forward and backward at odd shapes
-and the advantages through it against the CPU; K5 (``csrc/obs_render.cu``)
+(T at and around the chunk length, a ring walked twice, rows that are not
+16-byte multiples) and the advantages through it against the CPU; K5 (``csrc/obs_render.cu``)
 on the sequential env's inputs at E=1 and E=64, arena30, a cut at T and a
 wrapping location byte, and the sequential env with K5 on the GPU against
 the CPU; the wrappers' input checks; a few whole env steps on the GPU
@@ -356,10 +359,17 @@ def test_env_fused_gpu_matches_cpu():
     assert k2.launches == before + 12
 
 
-@pytest.mark.parametrize("T,B", [(1, 1), (17, 5), (33, 1000), (255, 60)])
+@pytest.mark.parametrize("T,B", [
+    (1, 1), (17, 5), (33, 1000), (255, 60),
+    (31, 60), (32, 4080), (33, 4081),            # T at the chunk's length and either side of it
+    (255, 4080), (256, 61), (300, 13),           # full rings; a ring walked twice; rows of 244
+                                                 # and 52 bytes (not multiples of 16)
+    (255, 1536), (33, 1057), (256, 2112),        # 16-column tiles (B in (8, 16] columns an SM)
+])
 def test_k3_matches_plain(T, B):
     """K3 forward and backward (gx and gdecay) bit-equal to autograd through
-    the plain version; T off the prefetch window, B off the block width."""
+    the plain version; T off and on the chunk length, B off the tile width
+    and off 16-byte rows (the kernel's 4-byte copies)."""
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(T * B)
     x = torch.randn((T, B), generator=gen, device=dev)
@@ -376,6 +386,27 @@ def test_k3_matches_plain(T, B):
     (out, gx, gd, n), (out_p, gx_p, gd_p, n_p) = res
     assert (n, n_p) == (2, 0)
     assert torch.equal(out, out_p) and torch.equal(gx, gx_p) and torch.equal(gd, gd_p)
+
+
+def test_k3_wrapper_never_takes_the_plain_version(monkeypatch):
+    """CUDA inputs launch the kernel, forward and backward, or raise; they
+    never reach the plain version."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((255, 60), generator=gen, device=dev)
+    decay = torch.rand((255, 60), generator=gen, device=dev)
+    want = k3.discounted_sum_plain(x, decay)
+
+    def plain(*_):
+        raise AssertionError("the plain version ran on CUDA inputs")
+    monkeypatch.setattr(k3, "discounted_sum_plain", plain)
+    before = k3.launches
+    xg = x.clone().requires_grad_()
+    out = k3.discounted_sum(xg, decay)
+    (gx,) = torch.autograd.grad(out.sum(), xg)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.isfinite(gx).all()
+    assert k3.launches == before + 2
 
 
 def test_k3_wrapper_checks_inputs():
@@ -623,13 +654,13 @@ def test_mosaic_case_matches_plain(case):
 
 # ---- the redesigned kernels: K1 (persistent, word stores) and S1's GEMMs (TMA + wgmma) ----
 
-def _synthetic_render(E, A, T, G=5, g_all=None, seed=0, device="cuda"):
+def _synthetic_render(E, A, T, G=5, g_all=None, seed=0, device="cuda", K=4):
     """Random render inputs from numpy: a 20x23 grid with 30 block ids of up
-    to 4 tokens (block 0 none), an 11x11 window in center-out order, agents
+    to K tokens (block 0 none), an 11x11 window in center-out order, agents
     anywhere (windows past the map's edges), G global tokens of which each
     agent has 0-G (or ``g_all``)."""
     rng = np.random.default_rng(seed)
-    H, W, NB, K, half = 20, 23, 30, 4, 5
+    H, W, NB, half = 20, 23, 30, 5
     offs = sorted(((dr, dc) for dr in range(-half, half + 1) for dc in range(-half, half + 1)),
                   key=lambda d: (abs(d[0]) + abs(d[1]), d))
     sb = rng.integers(0, NB, (E, H, W))
@@ -682,6 +713,102 @@ def test_k1_matches_plain_on_synthetic_inputs(E, A, T, G, g_all):
     assert k1.launches == before + 1
     assert torch.equal(got, k1.render_obs3_plain(*args, *extra))
     assert torch.equal(ab.render_obs3_ablated(set(), *args, *extra), got)
+
+
+def _rank_args(args, extra):
+    """K4's arguments for the synthetic inputs: the scan's rank table and the
+    window's height and width in place of the scan and its half widths."""
+    T, ohr, owr = extra
+    return args[:6], (k4.rank_table(args[6], 2 * owr + 1), T, 2 * ohr + 1, 2 * owr + 1)
+
+
+@pytest.mark.parametrize("E,A,T,G,g_all,K", [
+    (6, 40, 50, 5, None, 4),     # more agents than a warp per agent of a block
+    (1, 24, 200, 5, None, 4),    # one env: fewer agents than the grid has warps
+    (4097, 24, 30, 5, None, 4),  # not a multiple of the grid
+    (16, 24, 7, 5, None, 4),     # rows of 21 bytes, a cut inside a cell
+    (8, 24, 3, 5, 5, 4),         # more global tokens than T
+    (16, 24, 200, 5, None, 5),   # odd K: 16-bit token loads, cells past four tokens
+    (16, 24, 200, 5, None, 6),   # even K: 32-bit pairs, cells past four tokens
+], ids=["A40", "E1", "E4097", "T7", "globals_over_T", "K5", "K6"])
+def test_k4_matches_plain_on_synthetic_inputs(E, A, T, G, g_all, K):
+    """K4 byte-equal to its plain version and to K1's where the persistent
+    schedule, the preloaded tokens and the word stores meet their edges;
+    S4's ``none`` (K4's first design) byte-equal to it on the same inputs."""
+    from metta_tpu_torch.ops import ablate_obs as ab
+
+    args3, extra3 = _synthetic_render(E, A, T, G, g_all, device=_cuda(), K=K)
+    if T == 7:
+        assert _cut_inside_a_cell(args3, T)
+    args, extra = _rank_args(args3, extra3)
+    before = k4.launches
+    got = k4.render_obs2(*args, *extra)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1
+    assert torch.equal(got, k4.render_obs2_plain(*args, *extra))
+    assert torch.equal(got, k1.render_obs3_plain(*args3, *extra3))
+    assert torch.equal(ab.render_obs2_ablated(set(), *args, *extra), got)
+
+
+def test_k4_matches_plain_on_the_curriculum_tables():
+    """K4 at the curriculum learner's E=170 on the 16 tasks' stacked tables
+    (each env reads its own task's), byte-equal to its plain version and to
+    S4's ``none`` over a few steps."""
+    from metta_tpu_torch.builder.envs import make_arena_basic_easy_shaped, make_curriculum
+    from metta_tpu_torch.engine.tables import tables_at
+    from metta_tpu_torch.engine.taskset import MultiTaskEnv
+    from metta_tpu_torch.ops import ablate_obs as ab
+
+    base = make_arena_basic_easy_shaped(A)
+    base.game.map_builder.seed = 1234
+    cfgs = [t.get_env_cfg() for t in make_curriculum(base).active_tasks()]
+    env = MultiTaskEnv(cfgs, num_envs=170, seed=0, track_stats=True, device=_cuda())
+    env.reset()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    t = env.tables
+    extra = (k4.rank_table(t.obs_scan, t.obs_width), t.num_obs_tokens, t.obs_height,
+             t.obs_width)
+    for _ in range(3):
+        env.step(torch.randint(0, env.compiled.n_actions, (170, A), generator=gen, device="cuda"))
+        st = env.state
+        s = st.env
+        args = k1.prep_env3(s, tables_at(env.tsdata.tables, st.task_id), s.executed_action,
+                            s.reward)
+        got = k4.render_obs2(*args, *extra)
+        torch.cuda.synchronize()
+        assert torch.equal(got, k4.render_obs2_plain(*args, *extra))
+        assert torch.equal(ab.render_obs2_ablated(set(), *args, *extra), got)
+    assert len(set(env.state.task_id.tolist())) > 1
+
+
+def test_k4_wrapper_never_takes_the_plain_version(monkeypatch):
+    """A CUDA input launches the kernel or raises; it never reaches the plain
+    version (nor the first design, which lives in another library)."""
+    args, extra = _rank_args(*_synthetic_render(3, 24, 40, device=_cuda()))
+    want = k4.render_obs2_plain(*args, *extra)
+
+    def plain(*_):
+        raise AssertionError("the plain version ran on CUDA inputs")
+    monkeypatch.setattr(k4, "render_obs2_plain", plain)
+    before = k4.launches
+    assert torch.equal(k4.render_obs2(*args, *extra), want)
+    assert k4.launches == before + 1
+    shape = k4.launch_shape(extra[2] * extra[3], extra[1])
+    assert shape["per_sm"] >= 1 and shape["sms"] >= 1
+    assert shape["smem"] == k4.render2_smem_bytes(extra[2] * extra[3], extra[1])
+
+
+def test_k4_wrapper_refuses_sizes_beyond_its_maxima():
+    """A window over ``MAX_CELLS`` cells or a row over ``MAX_TOKENS`` tokens
+    is refused by name before any launch."""
+    args, (rank, T, wh, ww) = _rank_args(*_synthetic_render(2, 24, 40, device=_cuda()))
+    before = k4.launches
+    big = torch.arange(17 * 17, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="window cells"):
+        k4.render_obs2(*args, big, T, 17, 17)
+    with pytest.raises(ValueError, match="num_tokens"):
+        k4.render_obs2(*args, rank, k4.MAX_TOKENS + 1, wh, ww)
+    assert k4.launches == before
 
 
 def test_k1_wrapper_never_takes_the_plain_version(monkeypatch):

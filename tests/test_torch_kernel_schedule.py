@@ -1,17 +1,21 @@
 """Host-side plans of the port's persistent kernels, on the CPU.
 
-K1 (``csrc/obs_render3.cu``), K2 (``csrc/sim_fused.cu``) and S1's GEMMs
-(``csrc/ubench_gemm.cu``) walk their work from a persistent grid;
-``ops/obs_render3.py:render_schedule``, ``ops/sim_fused.py:span_schedule``
+K1 (``csrc/obs_render3.cu``), K4 (``csrc/obs_render2.cu``), K2
+(``csrc/sim_fused.cu``) and S1's GEMMs (``csrc/ubench_gemm.cu``) walk their
+work from a persistent grid; ``ops/obs_render3.py:render_schedule``,
+``ops/obs_render2.py:render2_schedule``, ``ops/sim_fused.py:span_schedule``
 and ``ops/ubench_mosaic.py:gemm_schedule`` are those schedules as pure
 functions, and ``gemm_boxes`` the TMA boxes that cover a GEMM's depth. Each
 schedule must give every agent, env or (g, tile) pair to exactly one warp
 or block, at the shapes of ``tests/test_torch_cuda.py`` and of
 ``chip_smoke.py``, including grids larger than the work; the boxes must
-tile the depth with zero fill only past it. K2's shared memory must fit the
-repo's table packs, and the sizes its wrapper enforces must be the
-kernel's. The kernels themselves are held to their plain versions on the
-card (``tests/test_torch_cuda.py``).
+tile the depth with zero fill only past it. K3 (``csrc/discounted_sum.cu``)
+walks column tiles through a ring of chunks (``ops/discounted_sum.py:
+scan_plan``): every (t, b) once, each column in the plain version's order.
+K2's and K4's shared memory must fit a block at the repo's shapes, K3's
+ring too, and the sizes the wrappers enforce must be the kernels'. The
+kernels themselves are held to their plain versions on the card
+(``tests/test_torch_cuda.py``).
 """
 
 import copy
@@ -19,16 +23,27 @@ import pathlib
 import re
 
 import pytest
+import torch
 
 from metta_tpu_torch.builder import envs
 from metta_tpu_torch.convert import tables_from_compiled
 from metta_tpu_torch.engine.compiler import compile_game
+from metta_tpu_torch.ops import discounted_sum as k3
+from metta_tpu_torch.ops import obs_render2 as k4
 from metta_tpu_torch.ops import obs_render3 as k1
 from metta_tpu_torch.ops import sim_fused as k2
 from metta_tpu_torch.ops import ubench_mosaic as s1
 
 SMS = 132                                          # an H100 SXM's SMs
 SM_SMEM = 233_472                                  # shared memory an H100 SM holds (228 KB)
+BLOCK_SMEM = 232_448                               # shared memory a block can use (227 KB)
+CSRC = pathlib.Path(k1.__file__).parent.parent / "csrc"
+
+
+def _constants(source):
+    """The ``constexpr int kName = value;`` constants of a CUDA source."""
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (k\w+) = (\d+);", (CSRC / source).read_text())}
 
 
 @pytest.mark.parametrize("Kd,want", [
@@ -168,3 +183,109 @@ def test_span_maxima_are_the_kernels():
     for el in (0, 3, 16, 128):
         with pytest.raises(ValueError):
             k2.check_envs_per_block(el)
+
+
+@pytest.mark.parametrize("E,A,per_sm", [
+    (170, 24, 8), (170, 24, 1),                      # the curriculum env (phases 4, 10)
+    (4096, 24, 8), (4096, 30, 8),                    # combat and arena30 (phase 4)
+    (4097, 24, 8), (1, 24, 8), (6, 40, 8),           # the cuda tests; E=1 under the grid
+    (4097, 40, 1), (1, 30, 1),                       # a grid smaller than the agents
+])
+def test_render2_schedule_covers_each_agent_once(E, A, per_sm):
+    """K4's persistent schedule: the curriculum's E=170, combat's and
+    arena30's E=4096, E=4097 and E=1 (fewer agents than the grid has warps);
+    A of combat, arena30 and the A=40 test; a full card and one block an SM."""
+    blocks = k4.render2_grid(E, A, SMS, per_sm)
+    assert blocks == min(-(-E * A // k4.WARPS), SMS * per_sm)
+    plan = k4.render2_schedule(E, A, blocks)
+    assert len(plan) == blocks * k4.WARPS
+    taken = sorted(pair for warp in plan for pair in warp)
+    assert taken == [(e, a) for e in range(E) for a in range(A)]
+    counts = [len(warp) for warp in plan]
+    assert max(counts) - min(counts) <= 1
+    if E * A >= len(plan):
+        assert min(counts) >= 1                      # no idle warp while agents remain
+    if E == 170 and per_sm == 8:
+        assert max(counts) == 1                      # one wave: an agent a warp
+
+
+@pytest.mark.parametrize("S,T", [(121, 200), (169, 200), (121, 24), (121, 3), (121, 2048)])
+def test_render2_shared_memory_fits(S, T):
+    """K4's location table, warp-private slots and staging rows fit a block
+    at the repo's windows (11x11, the 13x13 test window) and token budgets,
+    and its largest row; at 11x11 and T=200 eight blocks fit an SM."""
+    smem = k4.render2_smem_bytes(S, T)
+    slots = k4.PASS * (1 if S <= k4.PASS else 2)
+    assert slots >= S
+    assert smem == slots + k4.WARPS * (8 * slots + (3 * T + 3 + 15) // 16 * 16)
+    assert smem <= BLOCK_SMEM
+    if (S, T) == (121, 200):
+        assert 8 * smem <= SM_SMEM
+
+
+def test_render2_maxima_are_the_kernels():
+    """The sizes K4's wrapper enforces are the constants of its CUDA source,
+    and it refuses each one exceeded, by name, before it looks at a tensor."""
+    const = _constants("obs_render2.cu")
+    assert (const["kThreads"] // 32, const["kPass"], const["kMaxCells"],
+            const["kMaxTokens"]) == (k4.WARPS, k4.PASS, k4.MAX_CELLS, k4.MAX_TOKENS)
+    assert const["kMaxCells"] == 2 * const["kPass"] == 64 * const["kCells"]  # two passes
+    args = [torch.zeros(s, dtype=d) for s, d in (
+        ((1, 4, 4), torch.int32), ((1, 2, 3, 2), torch.uint8), ((1, 2), torch.int32),
+        ((1, 2, 2), torch.int32), ((1, 2), torch.int32), ((1, 2, 1, 3), torch.uint8))]
+    rank = torch.zeros(17 * 17, dtype=torch.int32)
+    with pytest.raises(ValueError, match="window cells"):
+        k4.check_inputs(*args, rank, 17, 17, 200)
+    with pytest.raises(ValueError, match="num_tokens"):
+        k4.check_inputs(*args, rank[:121], 11, 11, k4.MAX_TOKENS + 1)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        k4.check_inputs(*args, rank[:256], 16, 16, k4.MAX_TOKENS)
+
+
+@pytest.mark.parametrize("B", [1, 5, 60, 1000, 1057, 2112, 2113, 4080, 4081])
+def test_scan_plan_covers_each_column_once(B):
+    """K3's tiles: every column in exactly one block, tiles of 8, 16 or 32
+    columns (32 bytes or more a row), the grid covering the SMs where B
+    allows: 8 columns at the minibatch's B=60, 32 at the update's B=4080."""
+    plan = k3.scan_plan(255, B)
+    tiles = [range(c0, min(B, c0 + plan["cols"])) for c0 in range(0, plan["blocks"] * plan["cols"],
+                                                                  plan["cols"])]
+    assert all(len(t) > 0 for t in tiles) and plan["blocks"] == -(-B // plan["cols"])
+    assert [b for t in tiles for b in t] == list(range(B))
+    assert plan["cols"] in (8, 16, 32) and 4 * plan["cols"] >= 32
+    if B <= k3.MIN_COLS * SMS:
+        assert plan["cols"] == k3.MIN_COLS           # as many blocks as 32-byte rows allow
+    else:
+        assert plan["blocks"] <= 2 * SMS or plan["cols"] == k3.MAX_COLS
+    assert plan["cols"] == {60: 8, 4080: 32}.get(B, plan["cols"])
+
+
+@pytest.mark.parametrize("T", [1, 17, k3.CHUNK - 1, k3.CHUNK, k3.CHUNK + 1, 255, 256, 300])
+@pytest.mark.parametrize("forward_in_time", [False, True])
+def test_scan_plan_walks_the_plain_order(T, forward_in_time):
+    """The plan's chunks, taken from T down (the forward pass) or from 0 up
+    (its gradient) CHUNK steps at a time with the short one last, give every
+    step once in the plain version's order (the kernel's own walk is held
+    bit-equal on the card); its ring holds every chunk at T <= 256 and fits
+    a block's shared memory with gdecay's two extra arrays."""
+    want = list(range(T)) if forward_in_time else list(range(T - 1, -1, -1))
+    for B in (1, 60, 1536, 4080):
+        plan = k3.scan_plan(T, B)
+        walk = [want[i * k3.CHUNK:(i + 1) * k3.CHUNK] for i in range(plan["chunks"])]
+        assert all(walk) and [t for chunk in walk for t in chunk] == want
+        assert plan["chunks"] == -(-T // k3.CHUNK)
+        assert 1 <= plan["stages"] <= min(plan["chunks"], k3.MAX_STAGES)
+        if T <= k3.CHUNK * k3.MAX_STAGES:
+            assert plan["stages"] == plan["chunks"]  # every chunk in flight at once
+        for gdecay in (False, True):
+            assert k3.scan_smem_bytes(plan["cols"], plan["stages"], gdecay) <= BLOCK_SMEM
+
+
+def test_scan_plan_constants_are_the_kernels():
+    """The plan's constants are those of K3's CUDA source (the kernel cannot
+    run here to catch a drift)."""
+    const = _constants("discounted_sum.cu")
+    assert (const["kChunk"], const["kStride"], const["kMaxStages"], const["kMinCols"],
+            const["kMaxCols"], const["kLoaders"]) == (k3.CHUNK, k3.STRIDE, k3.MAX_STAGES,
+                                                      k3.MIN_COLS, k3.MAX_COLS, k3.LOADERS)
+    assert k3.STRIDE >= k3.CHUNK and k3.STRIDE % 4 == 0   # 16-byte column loads
