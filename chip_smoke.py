@@ -10,7 +10,7 @@ Phases (each one a hard failure):
    S5 and S4, K1's and K4's first designs, in their own sources; S1's GEMMs
    and its other cases in two sources, S2 and S3; one ``nvcc`` per source,
    all started together), keep ``ptxas -v``'s registers and shared memory
-   of the redesigned K1, K2, K3, K4 and S1 GEMM kernels, and print the
+   of the redesigned K1, K2, K3, K4, K5 and S1 GEMM kernels, and print the
    card's name and power limit;
 2. K1 (``csrc/obs_render3.cu``) against its plain torch version
    (``render_obs3_plain``) at the shapes of the ``track_stats=True`` path: the
@@ -106,16 +106,18 @@ Phases (each one a hard failure):
    GEMMs within 1e-3 of their largest magnitude); each variant's and case's
    time, bound and plain time; the launch counts of the scripts' run; each
    repeat loop found in the SASS (``cuobjdump -sass``) with the loads and
-   arithmetic it must hold, its instruction count printed, and the S1
+   arithmetic it must hold (M7's, the compaction in registers: ``FSETP``
+   and ``SHFL`` with no ``LDS``), its instruction count printed, and the S1
    GEMM kernel's main loops holding ``HGMMA`` (the consumers' ``wgmma``) and
    ``UTMALDG`` (the producer's TMA loads), K2's production kernel
    holding ``MATCH`` and ``REDUX`` (its per-key winners), K3's chain loops
    holding ``FMUL``, ``FADD`` and ``LDS`` with no ``FFMA`` or ``LDG`` (the
-   bit-exact chain from shared memory), and K4's per-agent loop holding
-   ``SHFL`` and no block barrier; K1's, K2's, K3's and K4's production
-   kernels at their registers with no stack or local memory; the launch
-   shape (registers and shared memory from ``ptxas -v``, blocks an SM) of
-   the redesigned K1, K2, K3, K4 and S1 GEMMs; ``torch.bmm`` on the S1
+   bit-exact chain from shared memory), and K4's and K5's per-agent loops
+   holding ``SHFL`` and no block barrier; K1's, K2's, K3's, K4's and K5's
+   production kernels at their registers, and they and M7 with no stack or
+   local memory; the launch shape (registers and shared memory from
+   ``ptxas -v``, blocks an SM) of the redesigned K1, K2, K3, K4, K5 and S1
+   GEMMs; ``torch.bmm`` on the S1
    GEMMs' operands as the library yardstick.
 
 Prints a JSON line of kernels, the card's name and power limit, then as the
@@ -1567,25 +1569,29 @@ def phase_sequential(res):
 
 
 # Registers of the production kernels, as `ptxas -v` gave them in this
-# script's build log: K1's persistent kernel, K4's persistent kernel at one
-# pass (S <= 128), K2's instantiation for combat (attack, swap and
-# assemblers, no transfer), and K3's instantiations at the learner's tiles
+# script's build log: K1's persistent kernel, K4's and K5's persistent
+# kernels at one pass (S <= 128), K2's instantiation for combat (attack, swap
+# and assemblers, no transfer), and K3's instantiations at the learner's tiles
 # (8 columns at B=60, 32 at B=4080): the forward pass, its gradient, the
-# gradient with gdecay.
+# gradient with gdecay; S1's M7 (its row in registers) at any count (None),
+# with no stack or local memory either.
 K2_COMBAT = "sim_fused_kernelILb1ELb0ELb1ELb1E"
 K4_MAIN = "obs_render2_kernelILi1E"
+K5_MAIN = "obs_render_kernelILi1E"
 K3_KERNELS = {(direction, cols): f"discounted_sum_kernelIL{flags}ELi{cols}E"
               for direction, flags in (("forward", "b0ELb0"), ("backward", "b1ELb0"),
                                        ("backward with gdecay", "b1ELb1"))
               for cols in (8, 32)}
 PRODUCTION_REGISTERS = [("obs_render3", "obs_render3_kernel", 48),
                         ("obs_render2", K4_MAIN, 47),
+                        ("obs_render", K5_MAIN, 40),
                         ("sim_fused", K2_COMBAT, 64),
                         *[("discounted_sum", K3_KERNELS[key], regs) for key, regs in (
                             (("forward", 8), 82), (("forward", 32), 81),
                             (("backward", 8), 84), (("backward", 32), 84),
                             (("backward with gdecay", 8), 79),
-                            (("backward with gdecay", 32), 114))]]
+                            (("backward with gdecay", 32), 114))],
+                        ("ubench_mosaic", "compact_kernel", None)]
 # PERF.md's kernel table, combat E=4096
 PRODUCTION_MS = {"K1": 0.0909, "K4": 0.0884, "K2": 0.0304}
 # Warp instructions K2's production kernel must hold (cuobjdump -sass
@@ -1593,7 +1599,9 @@ PRODUCTION_MS = {"K1": 0.0909, "K4": 0.0884, "K2": 0.0304}
 K2_SASS_OPS = ("MATCH", "REDUX")
 # Each micro-benchmark kernel's repeat loop, found in the SASS: (library,
 # fragment of the mangled name, opcodes the loop body must hold: the rep's
-# arithmetic and, where the TPU body reads its block every rep, the load).
+# arithmetic and, where the TPU body reads its block every rep, the load;
+# opcodes it must not hold). M7 keeps its row in registers: its loop holds
+# the compares and the shuffles, and no shared load.
 # S3 has no repeat loop: its shuffles, ballot and shared atomics are counted
 # in the function.
 SASS_LOOPS = [
@@ -1605,7 +1613,7 @@ SASS_LOOPS = [
     ("ubench_mosaic", "transpose_kernel", ("FADD", "LDG")),
     ("ubench_mosaic", "droll_kernel", ("FADD", "LDG")),
     ("ubench_mosaic", "rep_kernel", ("FADD", "LDG")),
-    ("ubench_mosaic", "compact_kernel", ("FSETP", "LDS")),
+    ("ubench_mosaic", "compact_kernel", ("FSETP", "SHFL"), ("LDS",)),
     # S1's GEMMs: the consumers' loop issues wgmma, the producer's TMA loads
     ("ubench_gemm", "gemm_tma_kernel", ("HGMMA",)),
     ("ubench_gemm", "gemm_tma_kernel", ("UTMALDG",)),
@@ -1658,24 +1666,28 @@ def sass_loop(instrs, ops, absent=()):
 
 def check_sass():
     """Every micro-benchmark's repeat loop is in the SASS (hard failure), with
-    its instruction count; S3's shuffles, ballot and shared atomics are there;
-    K2's match and reduce; K3's chain loops multiply and add from shared
-    memory without FFMA or LDG; K4's per-agent loop shuffles without a block
-    barrier."""
+    its instruction count and without the opcodes it must not hold; S3's
+    shuffles, ballot and shared atomics are there; K2's match and reduce;
+    K3's chain loops multiply and add from shared memory without FFMA or LDG;
+    K4's and K5's per-agent loops shuffle without a block barrier."""
     from metta_tpu_torch.ops import build
 
     dumps = {lib: sass_functions(build.cuobjdump(lib, "-sass"))
              for lib in ("ubench_pairmat", "ubench_mosaic", "ubench_gemm", "smoke_sim",
-                         "sim_fused", "discounted_sum", "obs_render2")}
+                         "sim_fused", "discounted_sum", "obs_render2", "obs_render")}
     found = {}
-    for lib, frag, ops in SASS_LOOPS:
+    for lib, frag, ops, *absent in SASS_LOOPS:
+        absent = absent[0] if absent else ()
         names = [n for n in dumps[lib] if frag in n]
         if not names:
             raise AssertionError(f"{lib}: no kernel {frag} in the SASS ({sorted(dumps[lib])})")
-        loop = sass_loop(dumps[lib][names[0]], ops)
+        loop = sass_loop(dumps[lib][names[0]], ops, absent)
         if loop is None:
             head = "\n".join(i for _, i in dumps[lib][names[0]][:80])
             raise AssertionError(f"{lib} {frag}: no loop holding {ops} in the SASS:\n{head}")
+        if any(loop[1][op] for op in absent):
+            raise AssertionError(f"{lib} {frag}: its loop holds {loop[1]}, none of {absent} "
+                                 f"allowed")
         found[f"{frag} {'+'.join(ops)}"] = dict(
             loop_instructions=loop[0], ops=loop[1],
             function_instructions=len(dumps[lib][names[0]]))
@@ -1706,26 +1718,29 @@ def check_sass():
             f"{len(instrs)} instructions in the kernel")
         found[frag] = dict(loop_instructions=loop[0], ops=loop[1],
                            function_instructions=len(instrs))
-    # K4: shuffles in the per-agent loop (the largest), and no block barrier
-    for name, instrs in dumps["obs_render2"].items():
-        if "obs_render2_kernel" not in name:
-            continue
-        agent_loop = max(sass_loops(instrs), key=len)
-        ops = {op: sum(opcode(i) == op for i in agent_loop) for op in ("SHFL", "BAR")}
-        if not ops["SHFL"] or ops["BAR"]:
-            raise AssertionError(f"obs_render2 {name}: the per-agent loop holds {ops}, not "
-                                 f"shuffles without a block barrier")
-        frag = re.search(r"obs_render2_kernelILi\d+E", name).group(0)
-        log(f"[sass] obs_render2 {frag}: per-agent loop of {len(agent_loop)} instructions, "
-            f"{ops}; {sum(opcode(i) == 'BAR' for _, i in instrs)} block barriers in the kernel")
-        found[frag] = dict(loop_instructions=len(agent_loop), function_instructions=len(instrs),
-                           **ops)
+    # K4 and K5: shuffles in the per-agent loop (the largest), and no block barrier
+    for lib in ("obs_render2", "obs_render"):
+        for name, instrs in dumps[lib].items():
+            if f"{lib}_kernel" not in name:
+                continue
+            agent_loop = max(sass_loops(instrs), key=len)
+            ops = {op: sum(opcode(i) == op for i in agent_loop) for op in ("SHFL", "BAR")}
+            if not ops["SHFL"] or ops["BAR"]:
+                raise AssertionError(f"{lib} {name}: the per-agent loop holds {ops}, not "
+                                     f"shuffles without a block barrier")
+            frag = re.search(rf"{lib}_kernelILi\d+E", name).group(0)
+            log(f"[sass] {lib} {frag}: per-agent loop of {len(agent_loop)} instructions, "
+                f"{ops}; {sum(opcode(i) == 'BAR' for _, i in instrs)} block barriers in the "
+                f"kernel")
+            found[frag] = dict(loop_instructions=len(agent_loop),
+                               function_instructions=len(instrs), **ops)
     return found
 
 
 def check_registers():
-    """K1's, K2's, K3's and K4's production kernels use the registers they
-    were built with, with no stack or local memory."""
+    """K1's, K2's, K3's, K4's and K5's production kernels use the registers
+    they were built with, and they and S1's M7 use no stack or local
+    memory."""
     from metta_tpu_torch.ops import build
 
     out, dumps = {}, {}
@@ -1743,9 +1758,9 @@ def check_registers():
         if not hits:
             raise AssertionError(f"{lib}: no {frag} in the resource usage ({sorted(usage)})")
         u = hits[0]
-        log(f"[registers] {lib} {frag}: {u.get('REG')} registers (want {want}), stack "
-            f"{u.get('STACK')}, local {u.get('LOCAL')}; {len(usage)} instantiations")
-        if u.get("REG") != want or u.get("STACK", 0) or u.get("LOCAL", 0):
+        log(f"[registers] {lib} {frag}: {u.get('REG')} registers (want {want or 'any'}), "
+            f"stack {u.get('STACK')}, local {u.get('LOCAL')}; {len(usage)} instantiations")
+        if want not in (None, u.get("REG")) or u.get("STACK", 0) or u.get("LOCAL", 0):
             raise AssertionError(f"{lib} {frag} compiled to {u}, not {want} registers unspilled")
         out[frag] = u
     return out
@@ -1767,12 +1782,14 @@ def ptxas_usage(build_log, lib, frag):
 
 def redesign_shapes(res):
     """The launch shape of the redesigned K1 (combat's 121 window cells), K4
-    (the same window), K3 (the learner's [255, 60] and [255, 4080], forward
-    and backward), S1 GEMMs (M6a's and M6b/c's shapes at eps 4) and K2
+    and K5 (the same window; K5 also the 17x17 window's 289 cells), K3 (the
+    learner's [255, 60] and [255, 4080], forward and backward), S1 GEMMs
+    (M6a's and M6b/c's shapes at eps 4) and K2
     (combat's and the arena's tables): registers and static shared memory
     from ``ptxas -v``, dynamic shared memory, blocks an SM, SMs."""
     from metta_tpu_torch.engine.env import MettaGridEnv
     from metta_tpu_torch.ops import discounted_sum as k3
+    from metta_tpu_torch.ops import obs_render as k5
     from metta_tpu_torch.ops import obs_render2 as k4
     from metta_tpu_torch.ops import obs_render3 as k1
     from metta_tpu_torch.ops import sim_fused as k2
@@ -1785,6 +1802,8 @@ def redesign_shapes(res):
     log_ = res.get("build_log", [])
     shapes = {"K1 (S=121, T=200)": dict(k1.launch_shape(121, 200)),
               "K4 (S=121, T=200)": dict(k4.launch_shape(121, 200)),
+              "K5 (S=121, T=200)": dict(k5.launch_shape(121, 200)),
+              "K5 (S=289, T=200)": dict(k5.launch_shape(289, 200)),
               "S1 GEMM M6a (nE=4, Kd=72)": dict(s1.gemm_launch_shape(4, 72)),
               "S1 GEMM M6b/c (nE=1, Kd=288)": dict(s1.gemm_launch_shape(1, 288)),
               "K2 combat": dict(k2.launch_shape(k2_tables("combat"))),
@@ -1797,6 +1816,8 @@ def redesign_shapes(res):
         uses[name] = ptxas_usage(log_, "discounted_sum", frag)
     uses.update({"K1": ptxas_usage(log_, "obs_render3", "obs_render3_kernel"),
             "K4": ptxas_usage(log_, "obs_render2", K4_MAIN),
+            "K5 (S=121": ptxas_usage(log_, "obs_render", K5_MAIN),
+            "K5 (S=289": ptxas_usage(log_, "obs_render", "obs_render_kernelILi0E"),
             "S1": ptxas_usage(log_, "ubench_gemm", "gemm_tma_kernel"),
             "K2 combat": ptxas_usage(log_, "sim_fused", K2_COMBAT),
             "K2 arena": ptxas_usage(log_, "sim_fused", "sim_fused_kernelILb0ELb0ELb1ELb1E")})

@@ -154,12 +154,47 @@ __global__ void __launch_bounds__(kThreads) rep_kernel(
 // M7: per row of x[g] [rows, 640]: v = x, d = x / 2; reps times, for b < 10:
 // the plane rolled left by 2^b where d rolled left is > 0.5 (d then less
 // 2^b). Columns < 128 of v -> out[g] [rows, 128], the rest's bits -> cks[g].
-// One warp a row, the row in shared memory, 20 columns a lane.
+// One warp a row, both planes in registers: lane l holds columns l + 32 k,
+// k < 20. A roll by 32 m (b >= 5) renames registers (column j + 32 m is the
+// lane's own register k + m, mod 20); a roll by s < 32 takes register k of
+// lane l + s, or register k + 1 where l + s wraps past 31: the source lane
+// picks which (lanes l < s feed a wrapped receiver) and one shuffle moves
+// it. Every register index is a constant of the unrolled rep; the reps stay
+// a loop.
+template <int B>
+__device__ __forceinline__ void compact_stage(float (&v)[kPerLane], float (&d)[kPerLane],
+                                              int lane) {
+  constexpr int sh = 1 << B;
+  float rv[kPerLane], rd[kPerLane];  // the planes rolled left by sh
+  if (B >= 5) {
+    constexpr int m = (sh / 32) % kPerLane;
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      rv[k] = v[(k + m) % kPerLane];
+      rd[k] = d[(k + m) % kPerLane];
+    }
+  } else {
+    const bool feeds_wrap = lane < sh;
+    const int src = (lane + sh) & 31;
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int k1 = (k + 1) % kPerLane;
+      rv[k] = __shfl_sync(0xffffffffu, feeds_wrap ? v[k1] : v[k], src);
+      rd[k] = __shfl_sync(0xffffffffu, feeds_wrap ? d[k1] : d[k], src);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) {
+    if (rd[k] > 0.5f) {  // predicated: no select for d
+      v[k] = rv[k];
+      d[k] = rd[k] - (float)sh;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) compact_kernel(
     const float* __restrict__ x, float* __restrict__ out, int32_t* __restrict__ cks,
     int rows, int reps) {
-  __shared__ float sv[kWarps][kCols];
-  __shared__ float sd[kWarps][kCols];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* xg = x + (size_t)blockIdx.x * rows * kCols;
   float* og = out + (size_t)blockIdx.x * rows * 128;
@@ -168,33 +203,25 @@ __global__ void __launch_bounds__(kThreads) compact_kernel(
     float v[kPerLane], d[kPerLane];
 #pragma unroll
     for (int k = 0; k < kPerLane; ++k) {
-      const int j = lane + 32 * k;
-      v[k] = xg[(size_t)row * kCols + j];
+      v[k] = xg[(size_t)row * kCols + lane + 32 * k];
       d[k] = v[k] * 0.5f;
-      sv[warp][j] = v[k];
-      sd[warp][j] = d[k];
     }
-    __syncwarp();
+#pragma unroll 1
     for (int r = 0; r < reps; ++r) {
+      compact_stage<0>(v, d, lane);
+      compact_stage<1>(v, d, lane);
+      compact_stage<2>(v, d, lane);
+      compact_stage<3>(v, d, lane);
+      compact_stage<4>(v, d, lane);
+      compact_stage<5>(v, d, lane);
+      compact_stage<6>(v, d, lane);
+      compact_stage<7>(v, d, lane);
+      compact_stage<8>(v, d, lane);
+      compact_stage<9>(v, d, lane);
 #pragma unroll
-      for (int b = 0; b < 10; ++b) {
-        const int sh = 1 << b;
-#pragma unroll
-        for (int k = 0; k < kPerLane; ++k) {
-          int src = lane + 32 * k + sh;
-          if (src >= kCols) src -= kCols;
-          const float nv = sv[warp][src], nd = sd[warp][src];
-          const bool m = nd > 0.5f;
-          v[k] = m ? nv : v[k];
-          d[k] = m ? nd - (float)sh : d[k];
-        }
-        __syncwarp();
-#pragma unroll
-        for (int k = 0; k < kPerLane; ++k) {
-          sv[warp][lane + 32 * k] = v[k];
-          sd[warp][lane + 32 * k] = d[k];
-        }
-        __syncwarp();
+      for (int k = 0; k < kPerLane; ++k) {
+        v[k] = opaque(v[k]);
+        d[k] = opaque(d[k]);
       }
     }
 #pragma unroll
@@ -206,7 +233,6 @@ __global__ void __launch_bounds__(kThreads) compact_kernel(
         bits += __float_as_uint(v[k]);
       }
     }
-    __syncwarp();
   }
   block_bitsum(bits, cks + blockIdx.x);
 }

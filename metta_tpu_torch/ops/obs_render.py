@@ -18,6 +18,9 @@ else the static block.
 - :func:`render_obs1` is the kernel's wrapper. A CUDA tensor launches the
   kernel in ``csrc/obs_render.cu`` (or raises); a CPU tensor takes
   :func:`render_obs1_plain`, the same function in torch ops.
+  :func:`render_schedule` is the kernel's persistent schedule, which agents
+  each warp of its grid renders, and :func:`render1_smem_bytes` its shared
+  memory.
 
 The TPU kernel's one-hot GEMMs, strict-lower-triangular cumsum GEMM and
 lane-roll anti-diagonals are its way to gather, sum and scatter on the MXU;
@@ -37,6 +40,10 @@ from metta_tpu_torch.ops.build import check_tensor
 
 # Launches of the CUDA kernel, counted by the wrapper where it launches.
 launches = 0
+
+WARPS = 8           # warps a block of the CUDA kernel, one agent each at a time
+PASS = 128          # window cells of a pass: four a lane
+SMEM_LIMIT = 232_448  # shared memory a block can use
 
 
 def prep_obs1(state, tables, executed_actions, rewards_at_obs):
@@ -98,6 +105,38 @@ def render_obs1_plain(agent_grid, sblock, tok, counts, rc, g_count, g_tok, scan,
     return out[:, :, :T]
 
 
+def render_grid(E: int, A: int, sms: int, per_sm: int) -> int:
+    """Blocks the CUDA kernel launches: one warp an agent, no more blocks
+    than the card holds at once (``sms`` x ``per_sm``)."""
+    return min(-(-E * A // WARPS), sms * per_sm)
+
+
+def render_schedule(E: int, A: int, blocks: int):
+    """The (env, agent) pairs each warp of a grid of ``blocks`` renders, in
+    order (mirrors ``csrc/obs_render.cu``): warp w of the grid takes the
+    flat agent indices w, w + nw, w + 2 nw, ... (nw = ``WARPS`` x blocks)."""
+    nw = WARPS * blocks
+    return [[divmod(p, A) for p in range(w, E * A, nw)] for w in range(nw)]
+
+
+def check_sizes(S: int, T: int):
+    """Raise ValueError unless a block's shared memory holds the kernel's
+    arrays for a window of S cells and a row of T tokens."""
+    if S < 1 or T < 1 or render1_smem_bytes(S, T) > SMEM_LIMIT:
+        raise ValueError(f"a window of {S} cells and num_tokens={T} need "
+                         f"{render1_smem_bytes(S, T)} bytes of shared memory a block, over "
+                         f"{SMEM_LIMIT} (or none)")
+
+
+def render1_smem_bytes(S: int, T: int) -> int:
+    """A block's shared memory (mirrors ``csrc/obs_render.cu:smem_bytes``):
+    the window offsets (8 bytes a cell), each warp's block ids and counts (8
+    bytes a cell) and staging row, the cells' location bytes; cells rounded
+    up to 4, each array to 16 bytes."""
+    sp = (S + 3) & ~3
+    return 8 * sp + WARPS * (8 * sp + (3 * T + 3 + 15) // 16 * 16) + (S + 15) // 16 * 16
+
+
 _lib = None
 
 
@@ -113,8 +152,20 @@ def _library():
             + [ctypes.c_int] * 11                    # E A H W NB K S G T ohr owr
             + [ctypes.c_void_p]                      # stream
         )
+        lib.obs_render_shape.restype = ctypes.c_int
+        lib.obs_render_shape.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
         _lib = lib
     return _lib
+
+
+def launch_shape(S: int, T: int):
+    """The CUDA kernel's launch shape for S window cells and T tokens on the
+    current card: {smem bytes, blocks an SM holds, SMs} (needs the card)."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = _library().obs_render_shape(S, T, *[ctypes.byref(v) for v in vals])
+    if err != 0:
+        raise RuntimeError(f"obs_render_shape failed: CUDA error {err}")
+    return dict(zip(("smem", "per_sm", "sms"), (v.value for v in vals)))
 
 
 def render_obs1(agent_grid, sblock, tok, counts, rc, g_count, g_tok, scan, num_tokens: int,
@@ -133,6 +184,7 @@ def render_obs1(agent_grid, sblock, tok, counts, rc, g_count, g_tok, scan, num_t
     G = g_tok.shape[2]
     T = num_tokens
     dev = agent_grid.device
+    check_sizes(S, T)
     for name, x, dtype, shape in (
         ("agent_grid", agent_grid, torch.int32, (E, H, W)),
         ("sblock", sblock, torch.int32, (E, H, W)), ("tok", tok, torch.uint8, (E, NB, K, 2)),

@@ -28,6 +28,7 @@ CASES = ("M5", "M1", "M1b", "M2", "M3", "M4", "M6a", "M6b", "M6c", "M7")
 GEMMS = ("M6a", "M6b", "M6c")
 F, HP, WP, FR = 3072, 72, 128, 384          # the GEMMs' rows, depth, width; M6c's rows
 NSHIFT, COPIES, COLS = 24, 11, 640
+PER_LANE = COLS // 32                        # M7's columns a lane holds: lane + 32 k
 
 # Launches of the CUDA kernels, counted by the wrapper where it launches:
 # ``launches`` those of csrc/ubench_mosaic.cu, ``launches_gemm`` the GEMMs'.
@@ -138,6 +139,25 @@ def gemm_schedule(pairs: int, blocks: int):
     tiles of one g (so it loads that g's B once). The kernel launches
     ``min(pairs, SMs)`` blocks (one an SM). Mirrors csrc/ubench_gemm.cu."""
     return [(pairs * i // blocks, pairs * (i + 1) // blocks) for i in range(blocks)]
+
+
+def compact_roll_sources(b: int):
+    """[32, PER_LANE] int64: for the register k of lane l that M7's stage b
+    (a roll left by 2^b) fills, the column of the row it takes, by the
+    kernel's index map (mirrors ``csrc/ubench_mosaic.cu:compact_stage``):
+    lane l holds columns l + 32 k; a roll by 32 m renames register k to k + m
+    (mod PER_LANE); a roll by s < 32 shuffles from lane (l + s) & 31, whose
+    register k + 1 (mod PER_LANE) where that lane is below s (its receiver
+    wraps past lane 31), else its register k."""
+    sh = 1 << b
+    lane = torch.arange(32)[:, None].expand(32, PER_LANE)
+    k = torch.arange(PER_LANE)[None, :].expand(32, PER_LANE)
+    if sh >= 32:
+        src_lane, src_k = lane, (k + sh // 32) % PER_LANE
+    else:
+        src_lane = (lane + sh) & 31
+        src_k = torch.where(src_lane < sh, (k + 1) % PER_LANE, k)
+    return src_lane + 32 * src_k
 
 
 def plain(case: str, inputs, reps: int):

@@ -13,9 +13,10 @@ tracking, navigation at A=4 and the arena at A=32, at E=1, at an E that no
 width it takes; K3 (``csrc/discounted_sum.cu``) forward and backward at odd shapes
 (T at and around the chunk length, a ring walked twice, rows that are not
 16-byte multiples) and the advantages through it against the CPU; K5 (``csrc/obs_render.cu``)
-on the sequential env's inputs at E=1 and E=64, arena30, a cut at T and a
-wrapping location byte, and the sequential env with K5 on the GPU against
-the CPU; the wrappers' input checks; a few whole env steps on the GPU
+on the sequential env's inputs at E=1, 64 and 4097, arena30, a cut at T, rows
+of 75 bytes and a wrapping location byte, on synthetic inputs at its edges,
+and the sequential env with K5 on the GPU against the CPU; S1's M7 bit-equal
+at phase 13's shape; the wrappers' input checks; a few whole env steps on the GPU
 against the CPU; and a tiny trainer update through all three kernels.
 This file imports no JAX, so it runs on a machine with a card and torch
 alone:
@@ -515,9 +516,62 @@ def _k5_inputs(env, steps=4):
 @pytest.mark.parametrize("n_envs,make,agents,obs", [
     (1, make_combat, A, {}), (64, make_combat, A, {}), (3, make_arena, 30, {}),
     (5, make_combat, A, dict(num_tokens=24)), (2, make_combat, A, dict(width=17, height=17)),
-], ids=["combat_E1", "combat_E64", "arena30", "budget24", "window17"])
+    (4097, make_combat, A, {}), (5, make_combat, A, dict(num_tokens=25)),
+], ids=["combat_E1", "combat_E64", "arena30", "budget24", "window17", "combat_E4097",
+        "budget25"])
 def test_k5_matches_plain(n_envs, make, agents, obs):
+    """K5 byte-equal to its plain version on the sequential env's inputs:
+    E=1 (fewer agents than a block has warps), E=4097 (not a multiple of the
+    grid), arena30 (149 block ids), rows of 72 and of 75 bytes (T=24, 25: a
+    row that is no multiple of 4 bytes, so rows start at every byte offset
+    of a word) and a 17x17 window (289 cells, three passes)."""
     args, extra = _k5_inputs(_seq_env(_cuda(), n_envs, make=make, agents=agents, **obs))
+    before = k5.launches
+    got = k5.render_obs1(*args, *extra)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    assert torch.equal(got, k5.render_obs1_plain(*args, *extra))
+
+
+def _synthetic_render1(E, A, T, G=5, K=4, g_all=None, seed=0, device="cuda"):
+    """K5's inputs made from numpy: two planes of a 20x23 map (agents at
+    about one cell in ten, 15 static block ids after the agents'), counts up
+    to K + 2 (past K
+    the cell's slots stay 255), block 0 (outside the map) with tokens of its
+    own, an 11x11 window past the map's edges, 0-G global tokens a agent or
+    ``g_all`` (more than G or T)."""
+    rng = np.random.default_rng(seed)
+    H, W, NB, half = 20, 23, A + 16, 5
+    offs = sorted(((dr, dc) for dr in range(-half, half + 1) for dc in range(-half, half + 1)),
+                  key=lambda d: (abs(d[0]) + abs(d[1]), d))
+    agent_grid = np.where(rng.random((E, H, W)) < 0.1, rng.integers(1, A + 1, (E, H, W)), 0)
+    sblock = np.where(rng.random((E, H, W)) < 0.4, rng.integers(A + 1, NB, (E, H, W)), 0)
+    rc = np.stack([rng.integers(0, H, (E, A)), rng.integers(0, W, (E, A))], -1)
+    g_count = (rng.integers(0, G + 1, (E, A)) if g_all is None else np.full((E, A), g_all))
+    arrays = (agent_grid, sblock, rng.integers(0, 256, (E, NB, K, 2)),
+              rng.integers(0, K + 3, (E, NB)), rc, g_count, rng.integers(0, 256, (E, A, G, 3)),
+              np.array(offs))
+    dtypes = (torch.int32, torch.int32, torch.uint8, torch.int32, torch.int32, torch.int32,
+              torch.uint8, torch.int32)
+    args = tuple(torch.as_tensor(x).to(dt).contiguous().to(device)
+                 for x, dt in zip(arrays, dtypes))
+    return args, (T, half, half)
+
+
+@pytest.mark.parametrize("E,A,T,G,g_all", [
+    (1, 24, 200, 5, None),       # one env: fewer agents than the grid has warps
+    (4097, 24, 30, 5, None),     # not a multiple of the grid; cuts inside cells
+    (16, 24, 7, 5, None),        # rows of 21 bytes, no multiple of 4
+    (8, 24, 3, 5, 5),            # more global tokens than T
+    (8, 24, 50, 5, 9),           # more global tokens than G: slots G..8 stay 255
+    (6, 40, 25, 40, None),       # 40 agents; global tokens past a warp's first 32 bytes
+], ids=["E1", "E4097", "T7", "globals_over_T", "globals_over_G", "A40"])
+def test_k5_matches_plain_on_synthetic_inputs(E, A, T, G, g_all):
+    """K5 byte-equal to its plain version where the persistent schedule, the
+    two planes' merge, counts past K, block 0's own tokens, the global
+    tokens past G or T and the word stores meet their edges."""
+    _cuda()
+    args, extra = _synthetic_render1(E, A, T, G, g_all=g_all)
     before = k5.launches
     got = k5.render_obs1(*args, *extra)
     torch.cuda.synchronize()
@@ -650,6 +704,24 @@ def test_mosaic_case_matches_plain(case):
     got = s1.run(case, inputs, 3)
     torch.cuda.synchronize()
     check(case, got, s1.plain(case, inputs, 3))
+
+
+@pytest.mark.parametrize("G,eps", [(2, 1), (1024, 4)], ids=["G2", "phase13"])
+def test_mosaic_compact_is_bit_equal(G, eps):
+    """M7, the compaction network in registers, bit-equal to its plain
+    version (slots and checksum) at G=2 and at phase 13's G=1024, eps 4,
+    reps 16."""
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    _cuda()
+    inputs = s1.make_inputs("M7", G, eps, seed=5, device="cuda")
+    before = s1.launches
+    slots, cks = s1.run("M7", inputs, 16)
+    torch.cuda.synchronize()
+    assert s1.launches == before + 1
+    want_slots, want_cks = s1.plain("M7", inputs, 16)
+    assert torch.equal(slots.view(torch.int32), want_slots.view(torch.int32))
+    assert torch.equal(cks, want_cks)
 
 
 # ---- the redesigned kernels: K1 (persistent, word stores) and S1's GEMMs (TMA + wgmma) ----

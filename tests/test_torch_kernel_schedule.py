@@ -1,9 +1,10 @@
 """Host-side plans of the port's persistent kernels, on the CPU.
 
-K1 (``csrc/obs_render3.cu``), K4 (``csrc/obs_render2.cu``), K2
-(``csrc/sim_fused.cu``) and S1's GEMMs (``csrc/ubench_gemm.cu``) walk their
-work from a persistent grid; ``ops/obs_render3.py:render_schedule``,
-``ops/obs_render2.py:render2_schedule``, ``ops/sim_fused.py:span_schedule``
+K1 (``csrc/obs_render3.cu``), K4 (``csrc/obs_render2.cu``), K5
+(``csrc/obs_render.cu``), K2 (``csrc/sim_fused.cu``) and S1's GEMMs
+(``csrc/ubench_gemm.cu``) walk their work from a persistent grid;
+``ops/obs_render3.py:render_schedule``, ``ops/obs_render2.py:render2_schedule``,
+``ops/obs_render.py:render_schedule``, ``ops/sim_fused.py:span_schedule``
 and ``ops/ubench_mosaic.py:gemm_schedule`` are those schedules as pure
 functions, and ``gemm_boxes`` the TMA boxes that cover a GEMM's depth. Each
 schedule must give every agent, env or (g, tile) pair to exactly one warp
@@ -12,8 +13,10 @@ or block, at the shapes of ``tests/test_torch_cuda.py`` and of
 tile the depth with zero fill only past it. K3 (``csrc/discounted_sum.cu``)
 walks column tiles through a ring of chunks (``ops/discounted_sum.py:
 scan_plan``): every (t, b) once, each column in the plain version's order.
-K2's and K4's shared memory must fit a block at the repo's shapes, K3's
-ring too, and the sizes the wrappers enforce must be the kernels'. The
+K2's, K4's and K5's shared memory must fit a block at the repo's shapes,
+K3's ring too, and the sizes the wrappers enforce must be the kernels'.
+S1's M7 keeps a row in registers: its index map
+(``ops/ubench_mosaic.py:compact_roll_sources``) must be each stage's roll. The
 kernels themselves are held to their plain versions on the card
 (``tests/test_torch_cuda.py``).
 """
@@ -29,6 +32,7 @@ from metta_tpu_torch.builder import envs
 from metta_tpu_torch.convert import tables_from_compiled
 from metta_tpu_torch.engine.compiler import compile_game
 from metta_tpu_torch.ops import discounted_sum as k3
+from metta_tpu_torch.ops import obs_render as k5
 from metta_tpu_torch.ops import obs_render2 as k4
 from metta_tpu_torch.ops import obs_render3 as k1
 from metta_tpu_torch.ops import sim_fused as k2
@@ -289,3 +293,96 @@ def test_scan_plan_constants_are_the_kernels():
             const["kMaxCols"], const["kLoaders"]) == (k3.CHUNK, k3.STRIDE, k3.MAX_STAGES,
                                                       k3.MIN_COLS, k3.MAX_COLS, k3.LOADERS)
     assert k3.STRIDE >= k3.CHUNK and k3.STRIDE % 4 == 0   # 16-byte column loads
+
+
+@pytest.mark.parametrize("E", [1, 10, 170, 4096, 4097])
+@pytest.mark.parametrize("A", [24, 30])
+def test_render1_schedule_covers_each_agent_once(E, A):
+    """K5's persistent schedule at the sequential step's E=1 and 10, the
+    learner's 170, combat's 4096 and 4097, for combat's 24 agents and
+    arena30's 30: the grid the kernel launches on a full card and on one
+    block an SM (smaller than the agents where E is large), and a grid with
+    more warps than agents."""
+    need = -(-E * A // k5.WARPS)
+    for blocks in (k5.render_grid(E, A, SMS, 8), k5.render_grid(E, A, SMS, 1), need + 3):
+        assert blocks <= need + 3
+        plan = k5.render_schedule(E, A, blocks)
+        assert len(plan) == blocks * k5.WARPS
+        taken = sorted(pair for warp in plan for pair in warp)
+        assert taken == [(e, a) for e in range(E) for a in range(A)]
+        counts = [len(warp) for warp in plan]
+        assert max(counts) - min(counts) <= 1
+        if E * A >= len(plan):
+            assert min(counts) >= 1                  # no idle warp while agents remain
+        else:
+            assert max(counts) == 1                  # more warps than agents: one each
+    assert k5.render_grid(E, A, SMS, 8) == min(need, SMS * 8)
+
+
+@pytest.mark.parametrize("S", [121, 289])
+@pytest.mark.parametrize("T", [24, 25, 200])
+def test_render1_shared_memory_fits(S, T):
+    """K5's window offsets, warp-private arrays and staging rows fit a block
+    at combat's 11x11 window and the 17x17 test window, at the 24- and
+    25-token budgets (rows of 72 and 75 bytes) and combat's 200 (600
+    bytes); at 11x11 and T=200 eight blocks fit an SM. The wrapper passes
+    them and refuses a row too long for a block's shared memory, by name."""
+    sp = (S + 3) // 4 * 4
+    smem = k5.render1_smem_bytes(S, T)
+    stage = (3 * T + 3 + 15) // 16 * 16
+    assert stage >= 3 * T + 3                        # a row after up to 3 bytes of offset
+    assert smem == 8 * sp + k5.WARPS * (8 * sp + stage) + (S + 15) // 16 * 16
+    assert smem <= BLOCK_SMEM
+    k5.check_sizes(S, T)
+    if (S, T) == (121, 200):
+        assert 8 * smem <= SM_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        k5.check_sizes(S, 16 * T * 100)
+
+
+def test_render1_constants_are_the_kernels():
+    """The sizes K5's wrapper mirrors are the constants of its CUDA source
+    (the kernel cannot run here to catch a drift)."""
+    const = _constants("obs_render.cu")
+    assert (const["kThreads"] // 32, const["kPass"], const["kMaxSmem"]) == (
+        k5.WARPS, k5.PASS, k5.SMEM_LIMIT)
+    assert const["kPass"] == 32 * const["kCells"]
+    assert k5.SMEM_LIMIT == BLOCK_SMEM
+    for S, T in ((0, 200), (121, 0)):
+        with pytest.raises(ValueError):
+            k5.check_sizes(S, T)
+
+
+@pytest.mark.parametrize("b", range(10))
+def test_compact_index_map_is_the_roll(b):
+    """M7's register renaming (b >= 5) and shuffle map (b < 5), emulated in
+    torch over a [640] row, equal ``torch.roll`` left by 2^b."""
+    x = torch.randn(s1.COLS, generator=torch.Generator().manual_seed(b))
+    regs = x.reshape(s1.PER_LANE, 32).T              # lane l, register k: column l + 32 k
+    src = s1.compact_roll_sources(b)
+    got = x[src]                                     # what each register takes
+    assert torch.equal(got, torch.roll(x, -(1 << b)).reshape(s1.PER_LANE, 32).T)
+    if b < 5:                                        # a shuffle moves one register a lane
+        lane = torch.arange(32)[:, None]
+        assert bool(((src % 32) == (lane + (1 << b)) % 32).all())
+    else:                                            # renaming: no data leaves its lane
+        assert bool(((src % 32) == torch.arange(32)[:, None]).all())
+    assert regs.shape == (32, s1.PER_LANE)
+
+
+def test_compact_through_the_index_map_matches_plain():
+    """The whole M7 compaction emulated through the kernel's index map, rep
+    for rep and stage for stage, is bit-equal to the plain version."""
+    inputs = s1.make_inputs("M7", 2, 1, seed=4, device="cpu")
+    x = inputs[0]
+    maps = [s1.compact_roll_sources(b).T.reshape(-1) for b in range(10)]  # column order
+    v, d = x.clone(), x * 0.5
+    for _ in range(3):
+        for b in range(10):
+            sv, sd = v[..., maps[b]], d[..., maps[b]]
+            m = sd > 0.5
+            v = torch.where(m, sv, v)
+            d = torch.where(m, sd - float(1 << b), d)
+    slots, cks = s1.plain("M7", inputs, 3)
+    assert torch.equal(v[..., :128], slots)
+    assert torch.equal(s1.bitsum(v[..., 128:]), cks)
