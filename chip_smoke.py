@@ -114,11 +114,32 @@ Phases (each one a hard failure):
    holding ``FMUL``, ``FADD`` and ``LDS`` with no ``FFMA`` or ``LDG`` (the
    bit-exact chain from shared memory), and K4's and K5's per-agent loops
    holding ``SHFL`` and no block barrier; K1's, K2's, K3's, K4's and K5's
-   production kernels at their registers, and they and M7 with no stack or
-   local memory; the launch shape (registers and shared memory from
-   ``ptxas -v``, blocks an SM) of the redesigned K1, K2, K3, K4, K5 and S1
+   production kernels at their registers, and they, K2's chest
+   instantiation and M7 with no stack or local memory; the launch shape
+   (registers and shared memory from ``ptxas -v``, blocks an SM) of the
+   redesigned K1, K2 (combat, arena, the chest config), K3, K4, K5 and S1
    GEMMs; ``torch.bmm`` on the S1
-   GEMMs' operands as the library yardstick.
+   GEMMs' operands as the library yardstick;
+14. K2's chest phase: the chest config (``scripts/common.py:chest_mission``,
+   the basic mission with the catalog's chest station twice; no catalog
+   mission reaches K2) at E=4096, agents beside the chests, 20 steps
+   through K2 byte-equal to its plain version every step, the count of
+   chest uses that moved an item printed and required; the path through
+   ``MettaGridEnv.step`` with K2 and one render a step; K2's time on it,
+   its plain time and its bound (the K2 entry's ``chest`` in the kernels
+   line);
+15. the clipped mission (``MISSIONS["clipped"]``) batched at E=4096 with
+   ``track_stats=False``: K2 with the regen and clipper tail and K1 or K4,
+   GPU against CPU over 10 steps with the same draws (clips and regen ticks
+   required), then env-steps/s and the launches of that run;
+16. Cogs vs Clips in the sequential step with K5 every step:
+   ``training_facility.harvest``, ``evals.diagnostic_chest_deposit_near``
+   and ``training_facility.repair`` (start-clipped stations, the clipper),
+   GPU against CPU at E=1 and E=1024 over 20 steps with auto-reset, the
+   same draws (orders, clipper, desync, reset and template unclip
+   protocols) and agents starting beside the stations they probe (chest
+   uses and unclips required); harvest's env-steps/s at E=1 and E=1024
+   with K5 exactly once a step.
 
 Prints a JSON line of kernels, the card's name and power limit, then as the
 last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
@@ -1066,8 +1087,8 @@ def learner_kernels_vs_plain(tr, vstate, traj, res):
     e1, e2 = [0], [0]
     span = checked_span(e2)
     render = env_mod.render_obs2
-    env._sim_step = lambda s, a, t, perm=None, generator=None: batched_step(
-        s, a.to(torch.int32), t, span, perm, generator)
+    env._sim_step = lambda s, a, t, perm=None, generator=None, clip_draws=None: batched_step(
+        s, a.to(torch.int32), t, span, perm, generator, clip_draws)
     env_mod.render_obs2 = checked_render2(e1)
     gen = torch.Generator(device="cuda").manual_seed(11)
     ended = 0
@@ -1571,11 +1592,15 @@ def phase_sequential(res):
 # Registers of the production kernels, as `ptxas -v` gave them in this
 # script's build log: K1's persistent kernel, K4's and K5's persistent
 # kernels at one pass (S <= 128), K2's instantiation for combat (attack, swap
-# and assemblers, no transfer), and K3's instantiations at the learner's tiles
+# and assemblers, no transfer) and for the chest config (swap, assemblers,
+# chests), and K3's instantiations at the learner's tiles
 # (8 columns at B=60, 32 at B=4080): the forward pass, its gradient, the
 # gradient with gdecay; S1's M7 (its row in registers) at any count (None),
 # with no stack or local memory either.
-K2_COMBAT = "sim_fused_kernelILb1ELb0ELb1ELb1E"
+K2_COMBAT = "sim_fused_kernelILb1ELb0ELb1ELb1ELb0E"
+# K2 with its chest phase, the instantiation of the chest config (swap,
+# assemblers and chests)
+K2_CHESTS = "sim_fused_kernelILb0ELb0ELb1ELb1ELb1E"
 K4_MAIN = "obs_render2_kernelILi1E"
 K5_MAIN = "obs_render_kernelILi1E"
 K3_KERNELS = {(direction, cols): f"discounted_sum_kernelIL{flags}ELi{cols}E"
@@ -1586,6 +1611,7 @@ PRODUCTION_REGISTERS = [("obs_render3", "obs_render3_kernel", 48),
                         ("obs_render2", K4_MAIN, 47),
                         ("obs_render", K5_MAIN, 40),
                         ("sim_fused", K2_COMBAT, 64),
+                        ("sim_fused", K2_CHESTS, 64),
                         *[("discounted_sum", K3_KERNELS[key], regs) for key, regs in (
                             (("forward", 8), 82), (("forward", 32), 81),
                             (("backward", 8), 84), (("backward", 32), 84),
@@ -1807,7 +1833,8 @@ def redesign_shapes(res):
               "S1 GEMM M6a (nE=4, Kd=72)": dict(s1.gemm_launch_shape(4, 72)),
               "S1 GEMM M6b/c (nE=1, Kd=288)": dict(s1.gemm_launch_shape(1, 288)),
               "K2 combat": dict(k2.launch_shape(k2_tables("combat"))),
-              "K2 arena": dict(k2.launch_shape(k2_tables("arena")))}
+              "K2 arena": dict(k2.launch_shape(k2_tables("arena"))),
+              "K2 chest config": dict(k2.launch_shape(chest_env(1)[0].tables))}
     uses = {}
     for (direction, cols), frag in K3_KERNELS.items():
         B = 60 if cols == 8 else E_TRAIN * AGENTS
@@ -1820,7 +1847,8 @@ def redesign_shapes(res):
             "K5 (S=289": ptxas_usage(log_, "obs_render", "obs_render_kernelILi0E"),
             "S1": ptxas_usage(log_, "ubench_gemm", "gemm_tma_kernel"),
             "K2 combat": ptxas_usage(log_, "sim_fused", K2_COMBAT),
-            "K2 arena": ptxas_usage(log_, "sim_fused", "sim_fused_kernelILb0ELb0ELb1ELb1E")})
+            "K2 arena": ptxas_usage(log_, "sim_fused", "sim_fused_kernelILb0ELb0ELb1ELb1ELb0E"),
+            "K2 chest config": ptxas_usage(log_, "sim_fused", K2_CHESTS)})
     for name, shape in shapes.items():
         use = next(u for k, u in uses.items() if name.startswith(k))
         missing = ("not in this run's build log",) * 2
@@ -1953,6 +1981,376 @@ def phase_analysis(res):
                            k2_ablation=k2_rows)
 
 
+# ---------------------------------------------------------------------------
+# Cogs vs Clips: K2's chest phase, the clipped mission batched, the missions
+# in the sequential step
+# ---------------------------------------------------------------------------
+
+
+def chest_env(n_envs, seed=5):
+    """The chest config (``scripts/common.py:chest_mission``: the basic
+    mission, its 32x32 map with the catalog's chest station twice) as a
+    ``track_stats=False`` batched env on the card, reset, with the agents
+    standing beside the chests, seeded inventories (agents 0-30 of each
+    resource, chests 0-40) and every agent showing one of the chest's
+    vibes -> (env, generator)."""
+    from metta_tpu_torch.engine.env import MettaGridEnv
+    from metta_tpu_torch.engine.state import KIND_CHEST, KIND_EMPTY
+    from metta_tpu_torch.engine.step_batched import agent_grid_from_positions
+    from metta_tpu_torch.scripts.common import chest_mission
+
+    env = MettaGridEnv(chest_mission(seed=SEED), num_envs=n_envs, seed=0, track_stats=False,
+                       step_mode="batched", device="cuda")
+    env.reset()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t, s = env.tables, env.state.env
+    kind = s.static_kind[0].cpu().numpy()
+    free = [(r + dr, c + dc) for r, c in np.argwhere(kind == KIND_CHEST)
+            for dr, dc in ((-1, 0), (1, 0), (0, -1), (0, 1))
+            if kind[r + dr, c + dc] == KIND_EMPTY]
+    cells = torch.tensor([free[a % len(free)] for a in range(t.num_agents)], dtype=torch.int32,
+                         device="cuda").expand(n_envs, -1, -1)
+    vibes = torch.nonzero(t.chest_vibe_has.any(0)).flatten()
+
+    def draw(hi, like):
+        return torch.randint(0, hi, like.shape, generator=gen, device="cuda", dtype=torch.int32)
+    r, c = cells[..., 0].contiguous(), cells[..., 1].contiguous()
+    env._state = env.state.replace(env=s.replace(
+        agent_r=r, agent_c=c, agent_prev_r=r, agent_prev_c=c,
+        agent_grid=agent_grid_from_positions(t, r, c),
+        agent_inv=draw(31, s.agent_inv), chest_inv=draw(41, s.chest_inv),
+        agent_vibe=vibes[draw(len(vibes), s.agent_vibe).long()].to(torch.int32)))
+    return env, gen
+
+
+def phase_k2_chests(res):
+    """K2's chest phase: the chest config at E=4096, 20 steps through K2
+    held byte-equal to its plain version every step (chest transfers must
+    happen: their count is printed); then the path through the user's entry
+    point, ``MettaGridEnv.step``, 20 steps with the counts set to 0 just
+    before (K2 once a step, K1 or K4 once a step); K2's time per launch on
+    the chest config, its plain time and its bound."""
+    from metta_tpu_torch.engine.step_batched import batched_step, rank_from_perm
+    from metta_tpu_torch.ops import obs_render2 as k4
+    from metta_tpu_torch.ops import obs_render3 as k1
+    from metta_tpu_torch.ops import sim_fused as k2
+    from metta_tpu_torch.scripts.common import span_actions
+
+    env, gen = chest_env(E_MAIN)
+    t = env.tables
+
+    def random_actions(n_envs, n_actions, gen):
+        return span_actions(n_envs, t.num_agents, n_actions, gen)
+    if not (t.has_chests and env._sim_step is k2.fused_step_full):
+        raise AssertionError("the chest config does not take K2")
+    err = [0]
+    checked = checked_span(err)
+    state, uses, clamped = env.state.env, 0, 0
+    for _ in range(20):
+        acts = random_actions(E_MAIN, t.n_actions, gen)
+        prev = state
+        state, _ = batched_step(state, acts, t, checked, generator=gen)
+        uses += int((state.chest_inv != prev.chest_inv).any(-1).sum())
+    log(f"[k2-chests] chest config E={E_MAIN} ({t.n_chest_slots} chests an env, "
+        f"R={t.num_resources}, V={t.num_vibes}): K2 byte-equal to its plain version on 20 "
+        f"steps; {uses} chest uses that moved resources, chests hold "
+        f"{int(state.chest_inv.sum())} items")
+    if uses == 0:
+        raise AssertionError("no chest use moved a resource")
+
+    env._state = env.state.replace(env=state)
+    acc = torch.zeros((), dtype=torch.int64, device="cuda")
+    k1.launches = k2.launches = k4.launches = 0          # the path's run starts
+    for _ in range(20):
+        obs, *_ = env.step(random_actions(E_MAIN, t.n_actions, gen))
+        acc.add_(obs.sum(dtype=torch.int64))
+    torch.cuda.synchronize()
+    launches = {"k2": k2.launches, "render": k1.launches + k4.launches}   # ... and ends
+    if launches != {"k2": 20, "render": 20}:
+        raise AssertionError(f"chest config: launches in 20 steps {launches}")
+
+    s = env.state.env
+    acts = random_actions(E_MAIN, t.n_actions, gen)
+    rank = rank_from_perm(None, E_MAIN, t.num_agents, gen, "cuda")
+    before = k2.launches
+    ms = cuda_time_ms(lambda: k2.launch_fused_span(s, acts, rank, t), 50)
+    plain = cuda_time_ms(lambda: k2.fused_span_plain(s, acts, rank, t), 5)
+    k2.launches = before                                 # timing launches do not count
+    nbytes, ops, parts = k2.span_work(s, acts, t)
+    bound, by, ops_ms = bound_of(nbytes, ops)
+    log(f"[k2-chests] {ms:.4f} ms per launch on the device, plain {plain:.4f} ms, bound "
+        f"{bound:.4f} ms: {nbytes / 1e6:.3f} MB at 3.35 TB/s "
+        f"{ {k: round(v / 1e6, 3) for k, v in parts.items()} } MB, {ops / 1e6:.1f} M int32 "
+        f"ops = {ops_ms:.4f} ms ({by}); {100 * bound / ms:.1f}% of the bound; launches in the "
+        f"path's 20 steps: K2 {launches['k2']}, render {launches['render']}")
+    chest = dict(shape=f"chest config E={E_MAIN}", launches=launches["k2"],
+                 max_abs_err=err[0], ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                 chest_uses=uses)
+    res["k2_chests"] = chest
+    for entry in res.get("kernels", []):
+        if entry["name"] == "sim_fused":
+            entry["chest"] = chest
+
+
+def cvc_draws(rng, t, E):
+    """(perm, clipper draws, reset unclip protocols) for one step of E envs
+    from numpy, so that the GPU and CPU runs draw alike."""
+    from metta_tpu_torch.engine.clipper import ClipDraws
+
+    A, NA = t.num_agents, t.n_assembler_slots
+    nup = max(t.n_unclip_protocols, 1)
+    perm = torch.as_tensor(np.stack([rng.permutation(A) for _ in range(E)]))
+    clip = ClipDraws(torch.as_tensor(rng.random(E) < 1 / max(t.clip_period, 1)),
+                     torch.as_tensor(rng.gumbel(size=(E, NA)).astype(np.float32)),
+                     torch.as_tensor(rng.integers(0, nup, E)))
+    return perm, clip, rng.integers(0, nup, (E, NA)).astype(np.int32)
+
+
+def cvc_actions(rng, t, E):
+    """[E, A] actions: seven in ten moves, the rest any action."""
+    moves = np.flatnonzero(t._cfg.action_kind == 1)
+    return np.where(rng.random((E, t.num_agents)) < 0.7, rng.choice(moves, (E, t.num_agents)),
+                    rng.integers(0, t.n_actions, (E, t.num_agents)))
+
+
+def place_beside(env, stations, inventory):
+    """Each agent of every env of ``env`` just below one of ``stations``
+    (map names, in turn) holding ``inventory`` ({resource: amount}), so that
+    its first episode's moves bump the station."""
+    from metta_tpu_torch.engine.step_batched import agent_grid_from_positions
+
+    s, t = env.state.env, env.tables
+    grid = env.game_map.grid
+    cells = [np.argwhere(grid == name)[0] + (1, 0) for name in stations]
+    rc = torch.tensor(np.array([cells[a % len(cells)] for a in range(t.num_agents)]),
+                      dtype=torch.int32, device=env.device).expand(env.num_envs, -1, -1)
+    r, c = rc[..., 0].contiguous(), rc[..., 1].contiguous()
+    inv = s.agent_inv.clone()
+    for name, amount in inventory.items():
+        inv[..., env.compiled.resource_names.index(name)] = amount
+    env._state = env.state.replace(env=s.replace(
+        agent_r=r, agent_c=c, agent_prev_r=r, agent_prev_c=c, agent_inv=inv,
+        agent_grid=agent_grid_from_positions(t, r, c)))
+
+
+def cvc_gpu_vs_cpu(label, make_env, E, steps, seed=0, prepare=None):
+    """Two envs from ``make_env(device)`` on the GPU and the CPU, stepped
+    with the same actions and draws (agent orders, clipper, desync, reset
+    and template unclip protocols), each prepared by ``prepare(env)`` after
+    the reset; obs, rewards, ends and the whole state byte-identical every
+    step. Returns the counts of what fired."""
+    from metta_tpu_torch.convert import state_to_numpy
+
+    rng = np.random.default_rng(seed)
+    envs = [make_env(d) for d in ("cuda", "cpu")]
+    t = envs[1].tables
+    desync = rng.integers(1, 12, E)
+    _, _, protos = cvc_draws(rng, t, E)
+    obs = [env.reset(desync_step=desync, unclip_proto=protos) for env in envs]
+    if not torch.equal(obs[0].cpu(), obs[1]):
+        raise AssertionError(f"{label}: reset observations differ between GPU and CPU")
+    for env in envs if prepare else ():
+        prepare(env)
+    seen = dict(ends=0, chest_uses=0, clips=0, unclips=0, regen=0)
+    for i in range(steps):
+        acts = cvc_actions(rng, t, E)
+        perm, clip, protos = cvc_draws(rng, t, E)
+        before = envs[1].state.env
+        outs = [env.step(acts, perm=perm, clip_draws=clip, unclip_proto=protos) for env in envs]
+        for field, g, c in zip(("obs", "reward", "done", "truncated"), *outs):
+            if not torch.equal(g.cpu(), c):
+                raise AssertionError(f"{label} step {i}: {field} differs between GPU and CPU")
+        sg, sc = state_to_numpy(envs[0].state), state_to_numpy(envs[1].state)
+        for field in sc["env"]:
+            if not np.array_equal(sg["env"][field], sc["env"][field]):
+                raise AssertionError(f"{label} step {i}: state field {field} differs")
+        after, ended = envs[1].state.env, outs[1][2] | outs[1][3]
+        live = ~ended
+        seen["ends"] += int(ended.sum())
+        seen["chest_uses"] += int(((after.chest_inv != before.chest_inv).flatten(1).any(1)
+                                   & live).sum())
+        seen["clips"] += int(((after.asm_clipped & ~before.asm_clipped).any(1) & live).sum())
+        seen["unclips"] += int(((before.asm_clipped & ~after.asm_clipped).any(1) & live).sum())
+        seen["regen"] += int((((after.agent_inv[..., 0] > before.agent_inv[..., 0])
+                               & ~after.action_success).any(1) & live).sum())
+    log(f"[gpu-vs-cpu] {label}: state and obs byte-identical over {steps} steps at E={E}; "
+        f"{seen}")
+    return seen
+
+
+def phase_cvc_sequential(res):
+    """Cogs vs Clips in the sequential step (its missions' coupled limit
+    groups take it), as ``cogames play`` (E=1) and eval (E=1024) run it,
+    with K5 rendering every step: ``training_facility.harvest``,
+    ``evals.diagnostic_chest_deposit_near`` and ``training_facility.repair``
+    (start-clipped stations, the clipper), each GPU against CPU over 20
+    steps at E=1 and E=1024 with episodes cut to 12 steps (auto-reset with
+    fresh unclip protocols); a chest use must happen. Then harvest's
+    env-steps/s at E=1 and E=1024 through ``MettaGridEnv.step`` (median of 3
+    windows), K5 exactly once a step and no other kernel."""
+    from metta_tpu_torch.cogames.catalog import get_mission
+    from metta_tpu_torch.engine.env import MettaGridEnv
+    from metta_tpu_torch.ops import obs_render as k5
+    from metta_tpu_torch.ops import obs_render2 as k4
+    from metta_tpu_torch.ops import obs_render3 as k1
+    from metta_tpu_torch.ops import sim_fused as k2
+
+    def mission_env(name, E, device, max_steps=None):
+        """The mission's sequential env, K5 rendering; the template's unclip
+        protocols given, so that the GPU and CPU templates are alike."""
+        from metta_tpu_torch.engine.compiler import compile_game
+
+        cfg = get_mission(name).make_env()
+        cfg.game.map_builder.seed = SEED
+        if max_steps:
+            cfg.game.max_steps = max_steps
+        NA = compile_game(cfg.game, cfg.game.map_builder.create().build())[0].n_assembler_slots
+        env = MettaGridEnv(cfg, num_envs=E, seed=0, device=device,
+                           template_unclip_proto=np.arange(NA, dtype=np.int32) % 4)
+        env.tables.obs_renderer = "pl"
+        return env
+
+    totals = {}
+    # each mission's first episode starts beside the stations it probes:
+    # the chest with items to deposit, the clipped extractors with the tools
+    # that unclip them
+    deposit = ({"chest"}, {"carbon": 5, "oxygen": 5, "germanium": 5, "silicon": 5, "heart": 1})
+    probes = {"training_facility.harvest": deposit,
+              "evals.diagnostic_chest_deposit_near": deposit,
+              "training_facility.repair": (("carbon_extractor", "oxygen_extractor"),
+                                           {"decoder": 1, "modulator": 1, "resonator": 1,
+                                            "scrambler": 1})}
+    for name, (stations, inventory) in probes.items():
+        for E in (1, 1024):
+            def make(device, name=name, E=E):
+                env = mission_env(name, E, device, max_steps=12)
+                if env.step_mode != "sequential":
+                    raise AssertionError(f"{name} does not take the sequential step")
+                return env
+            k5_before = k5.launches
+            seen = cvc_gpu_vs_cpu(f"sequential {name} E={E} (K5)", make, E, 20,
+                                  prepare=lambda env, s=tuple(stations), i=inventory:
+                                  place_beside(env, s, i))
+            if k5.launches - k5_before != 20:
+                raise AssertionError(f"{name} E={E}: K5 rendered {k5.launches - k5_before} "
+                                     f"of 20 steps")
+            for k, v in seen.items():
+                totals[k] = totals.get(k, 0) + v
+    if totals["chest_uses"] == 0 or totals["unclips"] == 0:
+        raise AssertionError(f"the sequential missions moved no chest item or unclipped "
+                             f"nothing: {totals}")
+    # the start-clipped mission with every draw from the env's own generator
+    cfg = get_mission("training_facility.repair").make_env()
+    cfg.game.max_steps = 6
+    env = MettaGridEnv(cfg, num_envs=1024, seed=0, device="cuda")
+    env.tables.obs_renderer = "pl"
+    env.reset()
+    for _ in range(15):
+        env.step(torch.as_tensor(cvc_actions(np.random.default_rng(1), env.tables, 1024)))
+    s = env.state.env
+    protos = s.asm_unclip_proto[s.asm_clipped]
+    if not (protos.numel() and bool(((protos >= 0)
+                                     & (protos < env.tables.n_unclip_protocols)).all())):
+        raise AssertionError("the repair mission's own draws left a clipped slot without a "
+                             "protocol in range")
+    log(f"[cvc] training_facility.repair E=1024 with its own draws: 15 steps, "
+        f"{int(s.asm_clipped.sum())} clipped slots, each with a protocol in range")
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    runs = {}
+    for E, steps in ((1, 20), (1024, 10)):
+        env = mission_env("training_facility.harvest", E, "cuda")
+        env.reset()
+        t = env.tables
+
+        def run(n, env=env, t=t):
+            for _ in range(n):
+                acts = torch.randint(0, t.n_actions, (env.num_envs, t.num_agents),
+                                     generator=gen, device="cuda")
+                obs, *_ = env.step(acts)
+                acc.add_(obs.sum(dtype=torch.int64))
+        acc = torch.zeros((), dtype=torch.int64, device="cuda")
+        run(2)
+        torch.cuda.synchronize()
+        k1.launches = k2.launches = k4.launches = k5.launches = 0   # the path's run starts
+        walls = timed_windows(run, 3, steps)
+        launches = {"k1": k1.launches, "k2": k2.launches, "k4": k4.launches,
+                    "k5": k5.launches}                              # ... and ends
+        if launches != {"k1": 0, "k2": 0, "k4": 0, "k5": 3 * steps}:
+            raise AssertionError(f"harvest E={E}: launches in {3 * steps} steps {launches}")
+        wall = statistics.median(walls)
+        runs[E] = dict(env_steps_per_s=E * steps / wall, step_ms=1e3 * wall / steps,
+                       launches=launches)
+        log(f"[cvc] sequential training_facility.harvest E={E} A={t.num_agents}: "
+            f"{E * steps / wall:.1f} env-steps/s; step {1e3 * wall / steps:.3f} ms (median of 3 "
+            f"windows of {steps}; windows s {[round(w, 4) for w in walls]}); launches "
+            f"{launches}; obs checksum {int(acc)}")
+        del env
+    res["cvc_sequential"] = dict(runs=runs, fired=totals)
+
+
+def phase_cvc_clipped(res):
+    """The clipped mission (``MISSIONS["clipped"]``: ``make_mission`` with the
+    clipper, clip period 100) batched at E=4096 with
+    ``track_stats=False``: K2 steps the env, then the regen and clipper
+    tail; K1 or K4 renders. GPU against CPU over 10 steps (the same draws),
+    byte-identical, with clips happening; then env-steps/s (median of 3
+    windows of 20 steps) with the launches of that run, K2 once a step and
+    one render a step."""
+    from metta_tpu_torch.cogames.missions import MISSIONS
+    from metta_tpu_torch.engine.env import MettaGridEnv
+    from metta_tpu_torch.ops import obs_render2 as k4
+    from metta_tpu_torch.ops import obs_render3 as k1
+    from metta_tpu_torch.ops import sim_fused as k2
+
+    def make(device):
+        cfg = MISSIONS["clipped"]()
+        cfg.game.map_builder.seed = SEED
+        cfg.game.max_steps = 12
+        env = MettaGridEnv(cfg, num_envs=E_MAIN, seed=0, track_stats=False,
+                           step_mode="batched", device=device)
+        t = env.tables
+        if not (env._sim_step is k2.fused_step_full and t.has_regen and t.clip_period > 0):
+            raise AssertionError("make_mission('clipped') does not take K2 with its tail")
+        return env
+
+    before = (k2.launches, k1.launches + k4.launches)
+    seen = cvc_gpu_vs_cpu(f"batched make_mission('clipped') E={E_MAIN} (K2)", make, E_MAIN, 10)
+    if (k2.launches - before[0], k1.launches + k4.launches - before[1]) != (10, 10):
+        raise AssertionError("the clipped mission did not step through K2 and one render")
+    if seen["clips"] == 0 or seen["regen"] == 0:
+        raise AssertionError(f"no clip or no regen tick in the clipped mission: {seen}")
+
+    cfg = MISSIONS["clipped"]()
+    cfg.game.map_builder.seed = SEED
+    env = MettaGridEnv(cfg, num_envs=E_MAIN, seed=0, track_stats=False, step_mode="batched",
+                       device="cuda")
+    env.reset()
+    t = env.tables
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    acc = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def run(n):
+        for _ in range(n):
+            obs, *_ = env.step(torch.randint(0, t.n_actions, (E_MAIN, t.num_agents),
+                                             generator=gen, device="cuda"))
+            acc.add_(obs.sum(dtype=torch.int64))
+    run(5)
+    torch.cuda.synchronize()
+    k1.launches = k2.launches = k4.launches = 0             # the path's run starts
+    walls = timed_windows(run, 3, 20)
+    launches = {"k2": k2.launches, "k1": k1.launches, "k4": k4.launches}   # ... and ends
+    if launches["k2"] != 60 or launches["k1"] + launches["k4"] != 60:
+        raise AssertionError(f"clipped mission: launches in 60 steps {launches}")
+    wall = statistics.median(walls)
+    res["cvc_clipped"] = dict(env_steps_per_s=E_MAIN * 20 / wall, launches=launches,
+                              fired=seen)
+    log(f"[cvc] batched make_mission('clipped') E={E_MAIN} A={t.num_agents}: "
+        f"{E_MAIN * 20 / wall:.1f} env-steps/s; step {1e3 * wall / 20:.3f} ms (median of 3 "
+        f"windows of 20; windows s {[round(w, 4) for w in walls]}); launches in 60 steps "
+        f"{launches}; obs checksum {int(acc)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1970,7 +2368,7 @@ def main() -> int:
     for phase in (phase_build, phase_k1_vs_plain, phase_k2_vs_plain, phase_k4_vs_plain,
                   phase_gpu_vs_cpu, phase_throughput, phase_k3_vs_plain, phase_policy,
                   phase_train, phase_curriculum, phase_k5_vs_plain, phase_sequential,
-                  phase_analysis):
+                  phase_analysis, phase_k2_chests, phase_cvc_clipped, phase_cvc_sequential):
         t0 = time.time()
         try:
             phase(res)

@@ -5,10 +5,9 @@
 // build_fused_kernel (the Pallas TPU kernel behind call_fused and
 // fused_step_full). Same function: decode, change_vibe, vibe-triggered attack
 // and transfer, swaps with frozen agents, the four rank-arbitrated move
-// rounds, the assembler phase and action consumption, byte-identical to the
-// plain torch version metta_tpu_torch/engine/step_batched.py:interaction_span.
-// The chest phase is not here: no ported config has chests, and the wrapper
-// refuses them.
+// rounds, the assembler phase, the chest phase and action consumption,
+// byte-identical to the plain torch version
+// metta_tpu_torch/engine/step_batched.py:interaction_span.
 //
 // What bounds it: instruction issue, per warp. At E=4096 on the combat map
 // the span moves 25 MB (7.4 us at 3.35 TB/s, ops/sim_fused.py:span_work), but
@@ -26,7 +25,10 @@
 // grid of blocks of up to kMaxWarps warps, as many blocks as the SMs hold,
 // warp w of the grid taking envs w, w + nw, ... (nw warps in the grid).
 //   - Sections are template parameters (has_attack, has_transfer, has_swap,
-//     has_asm): the launcher picks the instantiation the config needs.
+//     has_asm, has_chest): the launcher picks the instantiation the config
+//     needs. The chest section is instantiated only beside the assembler
+//     section (every config with chests in the repository has assemblers;
+//     ops/sim_fused.py:size_faults sends the others to the torch-ops step).
 //   - The table pack is loaded into shared memory once per block, with the
 //     agents' limits at an odd row stride; every table read is a shared load.
 //   - Loops over resources are unrolled to kMaxR with a runtime guard.
@@ -44,6 +46,12 @@
 //     slot arrays; a lane per protocol makes the pick (reduce and ballot), a
 //     lane per place its output test, and a lane per (resource, input or
 //     output) pass the resource checks and the shared consume.
+//   - The chest phase finds one winner per chest with the same per-key
+//     winner as the stations; each winner, on its own lane, moves its vibe's
+//     deposits and withdrawals between its own row and its chest's row in
+//     device memory (a chest has one winner, a winner one chest), so it
+//     needs no atomics. Every chest's inventory passes through, clipped to
+//     0..65535 as the plain version clips every chest.
 // Sums into other agents' rows stay integer atomics into shared memory: an
 // integer sum is the same in any order, so results stay byte-exact. Every
 // phase adds its deltas to a buffer, and each lane then clamps its own row
@@ -78,6 +86,7 @@ enum Tab {
   T_UPROTO_KEY, T_UPROTO_MIN_AGENTS, T_UPROTO_IN, T_UPROTO_OUT, T_UPROTO_COOLDOWN,
   T_UPROTO_NVIBES, T_UPROTO_VIBE_COUNTS,
   T_LIMS, T_LOOT, T_PROTO_RES,
+  T_CHEST_VIBE_DELTA, T_CHEST_VIBE_HAS, T_CHEST_LIMS,
   N_TAB
 };
 
@@ -87,6 +96,7 @@ struct Static {
   int has_attack, has_transfer, has_swap, has_asm, track_gained, any_consumed;
   int defense_any, attack_freeze;
   int act_noop, act_move, act_change_vibe, kind_asm;
+  int NC, NT, has_chest, kind_chest;
   int off[N_TAB];
 };
 
@@ -98,6 +108,8 @@ struct In {
   const uint8_t* asm_clipped;
   const int32_t* asm_uproto;
   const uint8_t* asm_valid;
+  const int32_t *chest_inv, *chest_type;  // null without chests
+  const uint8_t* chest_valid;
 };
 
 // Outputs, in the order of ops/sim_fused.py:_OUT.
@@ -108,10 +120,11 @@ struct Out {
   int32_t* asm_uproto;
   uint8_t* success;
   int32_t* executed;
+  int32_t* chest_inv;  // null without chests
 };
 
-constexpr int N_IN = 22;
-constexpr int N_OUT = 14;
+constexpr int N_IN = 25;
+constexpr int N_OUT = 15;
 
 // Shared memory, in ints, each region a multiple of 4: the table pack, the
 // limits [A][RS] (RS = R | 1, an odd stride: a warp's lanes reading their own
@@ -190,7 +203,7 @@ __device__ __forceinline__ void consume(bool valid, int agent, int delta, int r,
 
 // The span of env e, on one warp. `s_tab`/`s_lim` are the block's tables,
 // `w_base` the warp's own shared arrays.
-template <bool ATTACK, bool TRANSFER, bool SWAP, bool ASM>
+template <bool ATTACK, bool TRANSFER, bool SWAP, bool ASM, bool CHEST>
 __device__ __forceinline__ void env_span(int e, const In& in, const Out& out, const Static& s,
                                          const int* s_tab, const int* s_lim, int* w_base) {
   const int lane = threadIdx.x & 31;
@@ -242,6 +255,11 @@ __device__ __forceinline__ void env_span(int e, const In& in, const Out& out, co
     out.asm_uses[eNA + i] = __ldg(in.asm_uses + eNA + i);
     out.asm_clipped[eNA + i] = __ldg(in.asm_clipped + eNA + i);
     out.asm_uproto[eNA + i] = __ldg(in.asm_uproto + eNA + i);
+  }
+  if (CHEST) {  // every chest's row passes through; the winners overwrite theirs
+    const size_t eCR = (size_t)e * s.NC * R;
+    for (int i = lane; i < s.NC * R; i += 32)
+      out.chest_inv[eCR + i] = clampi(__ldg(in.chest_inv + eCR + i), 0, 65535);
   }
   __syncwarp();
 
@@ -736,6 +754,44 @@ __device__ __forceinline__ void env_span(int e, const In& in, const Out& out, co
     success = success || my_ok;
   }
 
+  // ---------- chest phase: each winner on its own lane ----------
+  if (CHEST) {
+    const int NC = s.NC;
+    const bool bump = movers && !interacted && skind == s.kind_chest;
+    const int ch = clampi(sidx, 0, NC - 1);
+    const bool is_winner = lowest_rank(bump, rank, A, __match_any_sync(FULL, ch));
+    bool moved = false;
+    if (is_winner) {
+      const size_t ec = (size_t)e * NC + ch;
+      const int t = __ldg(in.chest_type + ec);
+      if (__ldg(in.chest_valid + ec) != 0 && t >= 0 && t < s.NT &&
+          TAB(T_CHEST_VIBE_HAS)[t * V + vibe_c]) {
+        const int* D = TAB(T_CHEST_VIBE_DELTA) + (t * V + vibe_c) * R;
+        const int* CL = TAB(T_CHEST_LIMS) + t * R;
+#pragma unroll
+        for (int r = 0; r < kMaxR; ++r) {
+          if (r >= R) break;
+          const int d = D[r];
+          const int a_inv = s_inv[arow + r];
+          const int c_inv = __ldg(in.chest_inv + ec * R + r);
+          // deposits: the agent gives what it offers, the chest keeps what
+          // fits; withdrawals: the chest gives, the agent keeps what fits
+          const int give_dep = d > 0 ? min(a_inv, d) : 0;
+          const int got_dep = min(give_dep, max(CL[r] - c_inv, 0));
+          const int give_w = d < 0 ? min(c_inv, -d) : 0;
+          const int got_w = min(give_w, max(s_lim[arow + r] - a_inv, 0));
+          s_acc[arow + r] = got_w - give_dep;  // the winner's own row
+          out.chest_inv[ec * R + r] = clampi(c_inv + got_dep - give_w, 0, 65535);
+          moved = moved || got_dep > 0 || got_w > 0;
+        }
+      }
+    }
+    const bool any = __any_sync(FULL, is_winner);
+    __syncwarp();
+    apply(any, true);
+    success = success || moved;
+  }
+
   // ---------- action resource consumption ----------
   if (s.any_consumed) {
     if (live && success) {
@@ -775,7 +831,7 @@ __device__ __forceinline__ void env_span(int e, const In& in, const Out& out, co
 
 // At most 64 registers a thread: four blocks of kThreads an SM, 32 resident
 // warps, hold the 31 envs an SM takes at E=4096 in one wave.
-template <bool ATTACK, bool TRANSFER, bool SWAP, bool ASM>
+template <bool ATTACK, bool TRANSFER, bool SWAP, bool ASM, bool CHEST>
 __global__ void __launch_bounds__(kThreads, 4)
 sim_fused_kernel(In in, Out out, Static s, const int32_t* __restrict__ tab, int n_tab, int E) {
   extern __shared__ __align__(16) int smem[];
@@ -796,26 +852,31 @@ sim_fused_kernel(In in, Out out, Static s, const int32_t* __restrict__ tab, int 
   const int warp = threadIdx.x >> 5;
   int* w_base = s_lim + round4(A * RS) + warp * warp_ints(A, R, s.track_gained);
   for (int e = blockIdx.x * warps + warp; e < E; e += gridDim.x * warps)
-    env_span<ATTACK, TRANSFER, SWAP, ASM>(e, in, out, s, s_tab, s_lim, w_base);
+    env_span<ATTACK, TRANSFER, SWAP, ASM, CHEST>(e, in, out, s, s_tab, s_lim, w_base);
 }
 
 using Kernel = void (*)(In, Out, Static, const int32_t*, int, int);
 
 // The instantiation of each section set: index has_attack | has_transfer << 1
-// | has_swap << 2 | has_asm << 3.
-#define K(m) sim_fused_kernel<((m)&1) != 0, ((m)&2) != 0, ((m)&4) != 0, ((m)&8) != 0>
-const Kernel KERNELS[16] = {K(0), K(1), K(2),  K(3),  K(4),  K(5),  K(6),  K(7),
-                            K(8), K(9), K(10), K(11), K(12), K(13), K(14), K(15)};
+// | has_swap << 2 | has_asm << 3 without chests; with chests (and so with
+// assemblers) 16 + (has_attack | has_transfer << 1 | has_swap << 2).
+#define K(m) sim_fused_kernel<((m)&1) != 0, ((m)&2) != 0, ((m)&4) != 0, ((m)&8) != 0, false>
+#define KC(m) sim_fused_kernel<((m)&1) != 0, ((m)&2) != 0, ((m)&4) != 0, true, true>
+const Kernel KERNELS[24] = {K(0),  K(1),  K(2),  K(3),  K(4),  K(5),  K(6),  K(7),
+                            K(8),  K(9),  K(10), K(11), K(12), K(13), K(14), K(15),
+                            KC(0), KC(1), KC(2), KC(3), KC(4), KC(5), KC(6), KC(7)};
 #undef K
+#undef KC
 
 Kernel kernel_of(const Static* st) {
-  return KERNELS[(st->has_attack != 0) | (st->has_transfer != 0) << 1 | (st->has_swap != 0) << 2 |
-                 (st->has_asm != 0) << 3];
+  const int m = (st->has_attack != 0) | (st->has_transfer != 0) << 1 | (st->has_swap != 0) << 2;
+  return st->has_chest ? KERNELS[16 + m] : KERNELS[m | (st->has_asm != 0) << 3];
 }
 
 bool fits(const Static* st, int warps) {
   return st->A >= 1 && st->A <= kMaxA && st->R >= 1 && st->R <= kMaxR && st->NP <= kMaxNP &&
-         st->n_pres <= kMaxR && warps >= 1 && warps <= kMaxWarps;
+         st->n_pres <= kMaxR && warps >= 1 && warps <= kMaxWarps &&
+         (!st->has_chest || (st->has_asm && st->NC >= 1));
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
 """Per-agent action application: the body of the sequential step's loop.
 
 Counterpart of ``metta_tpu/engine/actions.py`` (``try_attack`` :33,
-``try_transfer`` :141, ``do_move`` :248, ``apply_agent_action`` :337). The
+``try_transfer`` :141, ``chest_use`` :187, ``do_move`` :248,
+``apply_agent_action`` :337). The
 reference processes agents one at a time in a shuffled order
 (``mettagrid_c.cpp:591-622``), so earlier agents' moves affect later ones.
 One call applies one agent's action in every env: ``a`` [E] is each env's
@@ -16,12 +17,11 @@ Two departures, neither changing a result:
   table entry is zero for every action or vibe: there the JAX update is
   masked off.
 - A branch that no env takes at this agent (an attack, a transfer, an
-  assembler use) is skipped after one host read of its mask: its masked
-  updates would change nothing.
+  assembler or chest use) is skipped after one host read of its mask: its
+  masked updates would change nothing.
 
-Still refused by ``step_batched.unsupported``, each naming its JAX source:
-chest use (``actions.py:187``) and the bump handlers
-(``activation_wiring.py:193``).
+Still refused by ``step_batched.unsupported``, naming its JAX source: the
+bump handlers (``activation_wiring.py:193``).
 """
 
 from __future__ import annotations
@@ -31,16 +31,22 @@ import torch
 
 from metta_tpu_torch.engine.assembler import assembler_use
 from metta_tpu_torch.engine.compiler import ACT_CHANGE_VIBE, ACT_MOVE, ACT_NOOP
-from metta_tpu_torch.engine.inventory_vec import agent_update_multi, row_limits
+from metta_tpu_torch.engine.inventory_vec import (
+    agent_update_multi,
+    chest_update_multi,
+    row_limits,
+)
 from metta_tpu_torch.engine.protocols import agent_at
 from metta_tpu_torch.engine.refs import (
+    add_at,
     add_item_at,
     agent_free_space_vec,
     agent_update,
+    chest_update,
     masked_set,
     rows_at as _at,
 )
-from metta_tpu_torch.engine.state import KIND_ASSEMBLER
+from metta_tpu_torch.engine.state import KIND_ASSEMBLER, KIND_CHEST
 
 
 def _taken(mask) -> bool:
@@ -197,6 +203,56 @@ def try_transfer(state, tables, a, tgt, mask):
     return ok, state
 
 
+def chest_use(state, tables, a, chest_idx, mask):
+    """Vibe-keyed deposit and withdraw "as much as possible" at chests
+    ``chest_idx`` [E] (chest.hpp:31-126): a deposit takes what the agent
+    offers (the untransferred rest is destroyed) and the chest keeps what
+    fits; a withdrawal the same the other way. Returns (success, state)."""
+    i = chest_idx.long().clamp(0, tables.n_chest_slots - 1)
+    t = _at(state.chest_type, i).long()
+    vibe = _at(state.agent_vibe, a).long().clamp(0, tables.num_vibes - 1)
+    deltas = tables.chest_vibe_delta[t, vibe]                       # [E, R]
+    ok = mask & tables.chest_vibe_has[t, vibe]
+    if not _taken(ok):
+        return ok, state
+    zero = torch.zeros_like(deltas)
+
+    def deposited(state, got):
+        if not tables.track_chest_stats:
+            return state
+        return state.replace(agent_chest_deposited=add_at(
+            state.agent_chest_deposited, a, got.clamp(min=0)))
+
+    if tables.inv_vector_ok:
+        give_dep = torch.where(deltas > 0, torch.minimum(_at(state.agent_inv, a), deltas), zero)
+        state, got_dep = chest_update_multi(state, tables, i, give_dep, ok)
+        state, _ = agent_update_multi(state, tables, a, -give_dep, ok)
+        state = deposited(state, got_dep)
+        give_w = torch.where(deltas < 0, torch.minimum(_at(state.chest_inv, i), -deltas), zero)
+        state, got_w = agent_update_multi(state, tables, a, give_w, ok)
+        state, _ = chest_update_multi(state, tables, i, -give_w, ok)
+        return ok & ((got_dep > 0) | (got_w > 0)).any(-1), state
+
+    any_tr = torch.zeros_like(ok)
+    for r in _live(tables._cfg.chest_vibe_delta != 0):
+        d = deltas[:, r]
+        dep = ok & (d > 0)
+        give = torch.minimum(_at(state.agent_inv, a)[:, r], d)
+        state, moved = chest_update(state, tables, i, r, give, dep)
+        state, _ = agent_update(state, tables, a, r, -give, dep)
+        if tables.track_chest_stats:
+            state = state.replace(agent_chest_deposited=add_item_at(
+                state.agent_chest_deposited, a, r,
+                torch.where(dep, moved.clamp(min=0), torch.zeros_like(moved))))
+        any_tr = any_tr | (dep & (moved > 0))
+        wd = ok & (d < 0)
+        give_w = torch.minimum(_at(state.chest_inv, i)[:, r], -d)
+        state, got = agent_update(state, tables, a, r, give_w, wd)
+        state, _ = chest_update(state, tables, i, r, -give_w, wd)
+        any_tr = any_tr | (wd & (got > 0))
+    return ok & any_tr, state
+
+
 def do_move(state, tables, a, dir_arg, mask):
     """Move with vibe overrides, swap and bump-to-use (move.hpp:76-148).
 
@@ -252,12 +308,17 @@ def do_move(state, tables, a, dir_arg, mask):
         handled = handled | swap_ok
         success = success | swap_ok
 
-    # 5) bump-to-use: assembler
+    # 5) bump-to-use: assembler, chest
     if tables.has_assemblers:
         use = mask & ~handled & (tgt_agent < 0) & (skind == KIND_ASSEMBLER)
         if _taken(use):
             use_ok, state = assembler_use(state, tables, a, sidx, use)
             success = success | use_ok
+        handled = handled | use
+    if tables.has_chests:
+        c_ok, state = chest_use(state, tables, a, sidx,
+                                mask & ~handled & (tgt_agent < 0) & (skind == KIND_CHEST))
+        success = success | c_ok
     return success, state
 
 

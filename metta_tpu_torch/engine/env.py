@@ -15,17 +15,24 @@ env:
   the config and E, else K4, ``csrc/obs_render2.cu``, as the JAX env picks
   its v3 or v2 TPU kernel (:func:`obs_renderer`). The step's interaction
   span is the fused kernel of ``csrc/sim_fused.cu`` wherever
-  ``supports_fused`` holds, as in the JAX env; elsewhere, as with
-  ``track_stats=True``, it is the torch-ops step. A config with coupled
-  inventory limits falls back to the sequential step
-  (``metta_tpu/engine/env.py:71-77``).
+  ``supports_fused`` holds, as in the JAX env, and the config fits the
+  kernel's own maxima (``span_fits``); elsewhere, as with
+  ``track_stats=True``, it is the torch-ops step, byte-identical. A config
+  with coupled inventory limits or the assembler chest search falls back to
+  the sequential step (``metta_tpu/engine/env.py:71-77``).
 
 Each kernel runs on a GPU; on the CPU its plain version does.
 
 Auto-reset: envs that terminate or truncate are reset in the same step call
-and return the new episode's initial observations. Episode desync
+and return the new episode's initial observations; start-clipped
+assemblers take a fresh unclip protocol in each reset env. Episode desync
 (reference ``envs/early_reset_handler.py:6-20``): the first episode of each
 env is truncated at an independent random step.
+
+Randomness comes from the env's ``torch.Generator``; the step and reset
+calls take each draw as an optional input instead (``perm``, the clipper's
+``clip_draws``, the reset's ``desync_step`` and ``unclip_proto``), which
+tests use to feed the JAX env's draws and a GPU run the CPU run's.
 """
 
 from __future__ import annotations
@@ -39,12 +46,20 @@ import torch
 from metta_tpu_torch.config.mettagrid_config import MettaGridConfig
 from metta_tpu_torch.engine.compiler import compile_game
 from metta_tpu_torch.engine.state import EPISODE_INVARIANT, EnvState, VecEnvState
-from metta_tpu_torch.engine.step import make_reset_batch, make_reset_template, step_env
+from metta_tpu_torch.engine.step import (
+    int32_on,
+    make_reset_batch,
+    make_reset_template,
+    starts_clipped,
+    step_env,
+    unclip_proto_draws,
+    with_unclip_protos,
+)
 from metta_tpu_torch.engine.step_batched import check_supported, step_env_batched
 from metta_tpu_torch.engine.tables import Tables, attach_static_block_grid
 from metta_tpu_torch.ops.obs_render2 import rank_table, render_obs2
 from metta_tpu_torch.ops.obs_render3 import prep_env3, render_obs3, supports_v3
-from metta_tpu_torch.ops.sim_fused import fused_step_full, supports_fused
+from metta_tpu_torch.ops.sim_fused import fused_step_full, span_fits, supports_fused
 
 
 def obs_renderer(tables, num_envs: int):
@@ -75,6 +90,9 @@ class MettaGridEnv:
       seed: seed of the env's ``torch.Generator`` (agent orders, desync).
       desync_episodes: truncate each env's first episode at a random step.
       track_stats: keep the gained/lost/chest stat accumulators.
+      template_unclip_proto: [NA] unclip protocols of the start-clipped
+        assemblers in the reset template (its obs show them), else drawn
+        from the generator; tests pass the JAX template's.
       step_mode: "sequential" (the reference-exact agent loop) or "batched"
         (rank arbitration; falls back to "sequential" for configs with
         coupled inventory limits or chest search, which the sequential
@@ -91,6 +109,7 @@ class MettaGridEnv:
         track_stats: bool = True,
         step_mode: str = "sequential",
         device="cuda",
+        template_unclip_proto=None,
     ):
         self.cfg = cfg
         self.num_envs = num_envs
@@ -104,17 +123,23 @@ class MettaGridEnv:
         check_supported(self.tables, step_mode)
         self.step_mode = step_mode
         self.desync = cfg.desync_episodes if desync_episodes is None else desync_episodes
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
         self.single_observation_space_shape = (self.compiled.num_obs_tokens, 3)
         self.num_agents = self.compiled.num_agents
         self.action_names = self.compiled.action_names
 
-        self._template = make_reset_template(self.tables, self._init)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self._start_clipped = starts_clipped(self.tables, self._init)
+        if self._start_clipped and template_unclip_proto is None:
+            template_unclip_proto = unclip_proto_draws(self.tables, 1, self.generator,
+                                                       self.device)[0]
+        self._template = make_reset_template(self.tables, self._init, template_unclip_proto)
         attach_static_block_grid(self.tables, self._template[0])
         if step_mode == "batched":
-            self._sim_step = (fused_step_full if supports_fused(self.tables)
-                              else step_env_batched)
+            # the kernel's own maxima decide too: past them the torch-ops
+            # step, byte-identical, takes the config before the first step
+            fused = supports_fused(self.tables) and span_fits(self.tables)
+            self._sim_step = fused_step_full if fused else step_env_batched
             self._render = obs_renderer(self.tables, num_envs)
         self._state: Optional[VecEnvState] = None
 
@@ -122,14 +147,24 @@ class MettaGridEnv:
     # functional API
     # ------------------------------------------------------------------
 
-    def reset_state(self, desync_step=None):
+    def _reset_protos(self, unclip_proto=None):
+        """[E, NA] unclip protocols for reset envs' start-clipped assemblers
+        (``unclip_proto`` if given, else drawn), None on maps without them."""
+        if not self._start_clipped:
+            return None
+        if unclip_proto is None:
+            return unclip_proto_draws(self.tables, self.num_envs, self.generator, self.device)
+        return int32_on(unclip_proto, self.device)
+
+    def reset_state(self, desync_step=None, unclip_proto=None):
         """-> (VecEnvState, obs [E, A, T, 3] uint8).
 
-        ``desync_step`` [E] overrides the desync draws (tests pass the JAX
-        env's draws); by default they come from the env's generator."""
+        ``desync_step`` [E] and ``unclip_proto`` [E, NA] override the desync
+        and start-clipped protocol draws (tests pass the JAX env's draws); by
+        default they come from the env's generator."""
         E = self.num_envs
         t = self.tables
-        env, obs = make_reset_batch(self._template, E)
+        env, obs = make_reset_batch(self._template, E, self._reset_protos(unclip_proto))
         if desync_step is not None:
             if not isinstance(desync_step, torch.Tensor):
                 desync_step = torch.as_tensor(np.array(desync_step))
@@ -149,19 +184,23 @@ class MettaGridEnv:
                                             device=self.device),
         ), obs
 
-    def _stepped(self, env: EnvState, actions, perm=None):
+    def _stepped(self, env: EnvState, actions, perm=None, clip_draws=None):
         """Sim step + obs render -> (env, obs): the sequential step with its
         own render, or the batched step and the batched render."""
         if self.step_mode == "sequential":
-            return step_env(env, actions, self.tables, perm=perm, generator=self.generator)
+            return step_env(env, actions, self.tables, perm=perm, generator=self.generator,
+                            clip_draws=clip_draws)
         env, rew_at_obs = self._sim_step(env, actions, self.tables, perm=perm,
-                                         generator=self.generator)
+                                         generator=self.generator, clip_draws=clip_draws)
         return env, self._render(env, self.tables, env.executed_action, rew_at_obs)
 
-    def step_state(self, vstate: VecEnvState, actions, perm=None):
+    def step_state(self, vstate: VecEnvState, actions, perm=None, clip_draws=None,
+                   unclip_proto=None):
         """(VecEnvState, actions [E, A]) -> (VecEnvState, obs, rew, done, trunc),
-        auto-resetting ended envs."""
-        env, obs = self._stepped(vstate.env, actions, perm)
+        auto-resetting ended envs. ``perm``, ``clip_draws`` and
+        ``unclip_proto`` (the reset envs' start-clipped protocols, [E, NA])
+        override the generator's draws."""
+        env, obs = self._stepped(vstate.env, actions, perm, clip_draws)
         force_trunc = (vstate.desync_step > 0) & (env.step >= vstate.desync_step)
         truncated = env.truncated | force_trunc
         done = env.done
@@ -177,13 +216,17 @@ class MettaGridEnv:
         # auto-reset ended envs from the template; fields invariant across
         # episodes of one map pass through
         template, template_obs = self._template
+        protos = self._reset_protos(unclip_proto)
 
         def reset_field(name):
             old = getattr(env, name)
             if name in EPISODE_INVARIANT:
                 return old
+            new = getattr(template, name)
+            if name == "asm_unclip_proto" and protos is not None:
+                new = with_unclip_protos(template, protos)
             mask = ended.reshape((-1,) + (1,) * (old.dim() - 1))
-            return torch.where(mask, getattr(template, name), old)
+            return torch.where(mask, new, old)
 
         env = EnvState(**{f.name: reset_field(f.name) for f in dataclasses.fields(EnvState)})
         obs = torch.where(ended[:, None, None, None], template_obs, obs)
@@ -197,10 +240,10 @@ class MettaGridEnv:
         )
         return vstate, obs, rewards, done, truncated
 
-    def step_no_reset_state(self, vstate: VecEnvState, actions, perm=None):
+    def step_no_reset_state(self, vstate: VecEnvState, actions, perm=None, clip_draws=None):
         """Evaluation stepping: no auto-reset; the terminal state (and its
         episode stats) stays readable after the episode ends."""
-        env, obs = self._stepped(vstate.env, actions, perm)
+        env, obs = self._stepped(vstate.env, actions, perm, clip_draws)
         return vstate.replace(env=env), obs, env.reward, env.done, env.truncated
 
     # ------------------------------------------------------------------
@@ -211,24 +254,24 @@ class MettaGridEnv:
         actions = torch.as_tensor(actions, device=self.device).to(torch.int32)
         return actions[None, :] if actions.dim() == 1 else actions
 
-    def reset(self, desync_step=None):
-        self._state, obs = self.reset_state(desync_step)
+    def reset(self, desync_step=None, unclip_proto=None):
+        self._state, obs = self.reset_state(desync_step, unclip_proto)
         return obs
 
     def _require_reset(self):
         if self._state is None:
             raise RuntimeError("call reset() first")
 
-    def step(self, actions, perm=None):
+    def step(self, actions, perm=None, clip_draws=None, unclip_proto=None):
         self._require_reset()
         self._state, obs, rew, done, trunc = self.step_state(
-            self._state, self._actions(actions), perm)
+            self._state, self._actions(actions), perm, clip_draws, unclip_proto)
         return obs, rew, done, trunc
 
-    def step_no_reset(self, actions, perm=None):
+    def step_no_reset(self, actions, perm=None, clip_draws=None):
         self._require_reset()
         self._state, obs, rew, done, trunc = self.step_no_reset_state(
-            self._state, self._actions(actions), perm)
+            self._state, self._actions(actions), perm, clip_draws)
         return obs, rew, done, trunc
 
     # --- inspection helpers (parity with MettaGrid debug accessors) ---

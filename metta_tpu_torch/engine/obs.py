@@ -133,6 +133,20 @@ def build_assembler_blocks(state, tables):
     return feats, vals, ok & state.asm_valid[..., None]
 
 
+def build_chest_blocks(state, tables):
+    """Per-chest token candidates [E, NC, n]: vibe, inventory, tags
+    (chest.hpp:128-150)."""
+    t = state.chest_type.long()
+    type_vibe = tables.take("type_vibe", t).to(torch.int64)
+    feats, vals, ok = _cat(
+        (torch.full_like(type_vibe, tables.feat_id["vibe"])[..., None], type_vibe[..., None],
+         (type_vibe != 0)[..., None]),
+        _inventory_tokens(tables, state.chest_inv),
+        _tag_tokens(tables, tables.take("type_tags", t)),
+    )
+    return feats, vals, ok & state.chest_valid[..., None]
+
+
 def block_table(state, tables):
     """Compacted token table of every block id, per env.
 
@@ -156,8 +170,8 @@ def block_table(state, tables):
         (wall_tok.expand(E, -1, -1, -1), wall_cnt.expand(E, -1)),
         compacted(*build_assembler_blocks(state, tables))
         if tables.has_assemblers else empty(tables.n_assembler_slots),
-        # chest blocks: configs with chests are refused (step_batched.unsupported)
-        empty(tables.n_chest_slots),
+        compacted(*build_chest_blocks(state, tables))
+        if tables.has_chests else empty(tables.n_chest_slots),
     ]
     tok = torch.cat([p[0] for p in parts], dim=1).contiguous()
     counts = torch.cat([p[1] for p in parts], dim=1).contiguous()

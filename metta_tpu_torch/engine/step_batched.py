@@ -36,6 +36,7 @@ import torch
 
 from metta_tpu_torch.engine.compiler import ACT_CHANGE_VIBE, ACT_MOVE, ACT_NOOP
 from metta_tpu_torch.engine.inventory import trunc_div
+from metta_tpu_torch.engine.inventory_vec import row_limits
 from metta_tpu_torch.engine.protocols import (
     NEIGHBOR_OFFS,
     neighbors,
@@ -43,9 +44,10 @@ from metta_tpu_torch.engine.protocols import (
     select_unclip_protocol,
     sorted_vibe_key,
 )
-from metta_tpu_torch.engine.rewards import compute_stat_rewards
+from metta_tpu_torch.engine.clipper import clipper_active, clipper_draws, clipper_step
+from metta_tpu_torch.engine.rewards import apply_regen, compute_stat_rewards
 from metta_tpu_torch.engine.scan import cumsum_last
-from metta_tpu_torch.engine.state import KIND_ASSEMBLER
+from metta_tpu_torch.engine.state import KIND_ASSEMBLER, KIND_CHEST
 
 _I32 = torch.int32
 
@@ -63,14 +65,8 @@ def unsupported(tables, step_mode: str = "batched"):
         (tables.has_bump_handlers,
          "bump handlers (metta_tpu/engine/activation_wiring.py:"
          + ("bump_handlers_seq)" if seq else "bump_handlers_batched)")),
-        (tables.has_chests,
-         "chests (metta_tpu/engine/" + ("actions.py:chest_use)" if seq
-                                        else "step_batched.py:_chest_phase)")),
-        (tables.has_regen, "inventory regen (metta_tpu/engine/rewards.py:apply_regen)"),
         (tables.has_damage, "damage (metta_tpu/engine/rewards.py:apply_damage)"),
         (tables.has_aoe, "AOE (metta_tpu/engine/activation_wiring.py:apply_aoe)"),
-        (tables.clipper_enabled,
-         "clipper (metta_tpu/engine/clipper.py:clipper_step)"),
     ]
     return [name for on, name in gates if on]
 
@@ -114,6 +110,20 @@ def agent_grid_from_positions(tables, agent_r, agent_c):
     return grid.reshape(E, H, W)
 
 
+def world_systems(state, tables, generator=None, clip_draws=None):
+    """Inventory regen, then the clipper with ``clip_draws`` (else drawn from
+    ``generator``): what both steps run after the agents' actions
+    (``metta_tpu/engine/step.py:184-193``, ``step_batched.py:448-457``)."""
+    if tables.has_regen:
+        state = apply_regen(state, tables)
+    if clipper_active(tables):
+        if clip_draws is None:
+            clip_draws = clipper_draws(tables, state.step.shape[0], generator,
+                                       state.step.device)
+        state = clipper_step(state, tables, clip_draws)
+    return state
+
+
 def rank_from_perm(perm, E: int, A: int, generator=None, device="cpu"):
     """[E, A] int32 rank of each agent in the step's order (rank[a] =
     position of a in ``perm``); ``perm`` None draws one from ``generator``."""
@@ -124,11 +134,13 @@ def rank_from_perm(perm, E: int, A: int, generator=None, device="cpu"):
     return torch.empty((E, A), dtype=_I32, device=device).scatter_(1, perm, ar)
 
 
-def batched_step(state, actions, tables, span, perm=None, generator=None):
+def batched_step(state, actions, tables, span, perm=None, generator=None, clip_draws=None):
     """One batched-arbitration step with the interaction span ``span``
     (:func:`interaction_span` or the fused kernel's wrapper): step + 1 and
     zero the reward, draw the rank, run the span, then the tail (motion
-    stats, stat rewards, episode end). Returns (new_state, rewards_at_obs)."""
+    stats, regen and the clipper, stat rewards, episode end). ``perm`` and
+    ``clip_draws`` override the order's and the clipper's draws from
+    ``generator``. Returns (new_state, rewards_at_obs)."""
     check_supported(tables)
     dev = actions.device
     E, A = actions.shape
@@ -153,6 +165,7 @@ def batched_step(state, actions, tables, span, perm=None, generator=None):
         action_success=success,
         executed_action=executed,
     )
+    state = world_systems(state, tables, generator, clip_draws)
 
     rewards_at_obs = state.reward
     state = compute_stat_rewards(state, tables)
@@ -167,16 +180,17 @@ def batched_step(state, actions, tables, span, perm=None, generator=None):
     return state, rewards_at_obs
 
 
-def step_env_batched(state, actions, tables, perm=None, generator=None):
+def step_env_batched(state, actions, tables, perm=None, generator=None, clip_draws=None):
     """One batched-arbitration step of every env.
 
-    ``actions`` [E, A] int; ``perm`` [E, A] overrides the random agent order.
+    ``actions`` [E, A] int; ``perm`` [E, A] overrides the random agent order
+    and ``clip_draws`` the clipper's draws (``clipper.ClipDraws``).
     Returns (new_state, rewards_at_obs [E, A]): the render is left to the
     caller (``render="defer"`` in the JAX step), and observations see the
     action-phase rewards, not the stat rewards (mettagrid_c.cpp:653 obs
     before :656 stat rewards).
     """
-    return batched_step(state, actions, tables, interaction_span, perm, generator)
+    return batched_step(state, actions, tables, interaction_span, perm, generator, clip_draws)
 
 
 def interaction_span(state, actions, rank, tables):
@@ -415,7 +429,7 @@ def interaction_span(state, actions, rank, tables):
     grid = agent_grid_from_positions(tables, state.agent_r, state.agent_c)
     state = state.replace(agent_grid=grid)
 
-    # ---------- station bumps: winner per station ----------
+    # ---------- station bumps: winner per station (assemblers, then chests) ----------
     if tables.has_assemblers:
         bump_asm = movers & ~interacted & (skind == KIND_ASSEMBLER)
         is_winner = lowest_rank_per(
@@ -424,6 +438,12 @@ def interaction_span(state, actions, rank, tables):
         )
         state, asm_success = _assembler_phase(state, tables, is_winner, sidx, lims)
         success = success | asm_success
+    if tables.has_chests:
+        bump_chest = movers & ~interacted & (skind == KIND_CHEST)
+        is_winner = lowest_rank_per(
+            bump_chest, sidx.long().clamp(0, tables.n_chest_slots - 1), tables.n_chest_slots)
+        state, chest_success = _chest_phase(state, tables, is_winner, sidx, lims)
+        success = success | chest_success
 
     # ---------- action resource consumption ----------
     if tables.any_action_consumed:
@@ -648,3 +668,71 @@ def _assembler_phase(state, tables, is_winner, sidx, lims):
         asm_unclip_proto=torch.where(unclip_now, -1, state.asm_unclip_proto),
     )
     return state, ok
+
+
+def _chest_phase(state, tables, is_winner, sidx, lims):
+    """Every claimed chest processes its winner's vibe transfer at once
+    (``metta_tpu/engine/step_batched.py:857``): deposits capped by the
+    agent's inventory and the chest's free space, withdrawals by the
+    chest's contents and the agent's free space; the agent loses what it
+    offers (the untransferred rest is destroyed). A chest is claimed by at
+    most one winner. Returns (state, success [E, A])."""
+    E, A, R = state.agent_inv.shape
+    dev = sidx.device
+    NC, V = tables.n_chest_slots, tables.num_vibes
+    NTC = tables.chest_type_inv_class.shape[0]
+    in_range = (sidx >= 0) & (sidx < NC)
+    ch = sidx.long().clamp(0, NC - 1)
+    # the claimant of each chest (-1: unclaimed); a spare column NC is dropped
+    dest = torch.where(is_winner & in_range, ch, NC)
+    claim = torch.full((E, NC + 1), -1, dtype=torch.long, device=dev).scatter_(
+        1, dest, torch.arange(A, device=dev).expand(E, A))[:, :NC]
+    claimed = claim >= 0
+    ca = claim.clamp(min=0)
+
+    def of_claimant(x):
+        """Rows of x [E, A, R] (or [A, R]) at each chest's claimant, 0 unclaimed."""
+        g = x.expand(E, A, R).gather(1, ca[..., None].expand(E, NC, R))
+        return torch.where(claimed[..., None], g, torch.zeros_like(g))
+
+    a_vibe = torch.where(claimed, state.agent_vibe.gather(1, ca), 0)
+    a_inv, a_lim = of_claimant(state.agent_inv), of_claimant(lims)
+    t = state.chest_type.long()
+    t_ok = (t >= 0) & (t < NTC)
+    tc, vc = t.clamp(0, NTC - 1), a_vibe.long().clamp(0, V - 1)
+    has = t_ok & tables.chest_vibe_has[tc, vc]                              # [E, NC]
+    deltas = torch.where(t_ok[..., None], tables.chest_vibe_delta[tc, vc], 0)  # [E, NC, R]
+    c_lim = row_limits(tables, torch.where(t_ok, tables.chest_type_inv_class[tc], 0))
+
+    ok = claimed & state.chest_valid & has
+    c_inv = state.chest_inv
+    zero = torch.zeros_like(c_inv)
+    give_dep = torch.where((deltas > 0) & ok[..., None], torch.minimum(a_inv, deltas), zero)
+    got_dep = torch.minimum(give_dep, (c_lim - c_inv).clamp(min=0))
+    give_w = torch.where((deltas < 0) & ok[..., None], torch.minimum(c_inv, -deltas), zero)
+    got_w = torch.minimum(give_w, (a_lim - a_inv).clamp(min=0))
+    ok_v = ok & ((got_dep > 0) | (got_w > 0)).any(-1)
+
+    def to_agents(v):
+        """Per-chest rows [E, NC, R] summed into their claimants [E, A, R]."""
+        v = torch.where(claimed[..., None], v, torch.zeros_like(v))
+        return torch.zeros_like(state.agent_inv).scatter_add_(
+            1, ca[..., None].expand(E, NC, R), v.to(torch.int32))
+
+    old_inv = state.agent_inv
+    state = state.replace(
+        agent_inv=_clip(old_inv + to_agents(got_w - give_dep), lims),
+        chest_inv=(c_inv + got_dep - give_w).clamp(0, 65535).to(torch.int32),
+    )
+    state = _track_agent_inv(state, tables, old_inv)
+    if tables.track_chest_stats:
+        # chest.hpp:59-66: withdrawn counts the full offer (the chest loses
+        # it), deposited only what the chest took
+        state = state.replace(
+            agent_chest_deposited=state.agent_chest_deposited + to_agents(got_dep.clamp(min=0)),
+            game_chest_deposited=state.game_chest_deposited
+            + got_dep.clamp(min=0).sum(1).to(torch.int32),
+            game_chest_withdrawn=state.game_chest_withdrawn
+            + give_w.clamp(min=0).sum(1).to(torch.int32),
+        )
+    return state, is_winner & in_range & ok_v.gather(1, ch)

@@ -8,8 +8,10 @@ the torch ops of ``engine/step_batched.py:interaction_span``.
 
 - :func:`supports_fused` is the JAX package's config gate, without the
   TPU's 128-env block rule: the CUDA kernel takes any E.
-  :func:`check_sizes` adds the kernel's own maxima (agents, resources,
-  protocols, shared memory), refused by name.
+  :func:`span_fits` is the kernel's own limits (agents, resources,
+  protocols, shared memory, the instantiated sections), a pure predicate:
+  the env takes the kernel only where both hold. :func:`check_sizes`
+  raises, by name, exactly where :func:`span_fits` is false.
 - :func:`fused_span` is the kernel's wrapper. A CUDA tensor launches the
   kernel in ``csrc/sim_fused.cu`` (or raises); a CPU tensor takes
   :func:`fused_span_plain`. :func:`span_schedule` and :func:`span_grid`
@@ -25,8 +27,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from metta_tpu_torch.engine.compiler import ACT_CHANGE_VIBE, ACT_MOVE, ACT_NOOP
-from metta_tpu_torch.engine.state import KIND_ASSEMBLER
+from metta_tpu_torch.engine.compiler import ACT_CHANGE_VIBE, ACT_MOVE, ACT_NOOP, INT16_MAX
+from metta_tpu_torch.engine.state import KIND_ASSEMBLER, KIND_CHEST
 from metta_tpu_torch.engine.step_batched import (
     agent_grid_from_positions,
     batched_step,
@@ -53,7 +55,10 @@ TABLES = (
     "uproto_key", "uproto_min_agents", "uproto_in", "uproto_out", "uproto_cooldown",
     "uproto_nvibes", "uproto_vibe_counts",
     "agent_lims", "loot_ids", "proto_res",
+    "chest_vibe_delta", "chest_vibe_has", "chest_lims",
 )
+# The chest phase's tables, in the pack only where the config has chests.
+CHEST_TABLES = ("chest_vibe_delta", "chest_vibe_has", "chest_lims")
 
 # Kernel inputs (csrc/sim_fused.cu:In): (state field or argument, dtype, shape key).
 _IN = (
@@ -69,6 +74,8 @@ _IN = (
     ("asm_cooldown_end", torch.int32, "EN"), ("asm_cooldown_duration", torch.int32, "EN"),
     ("asm_clipped", torch.bool, "EN"), ("asm_unclip_proto", torch.int32, "EN"),
     ("asm_valid", torch.bool, "EN"),
+    ("chest_inv", torch.int32, "ECR"), ("chest_type", torch.int32, "EC"),
+    ("chest_valid", torch.bool, "EC"),
 )
 
 # Kernel outputs (csrc/sim_fused.cu:Out), allocated by the wrapper.
@@ -81,7 +88,10 @@ _OUT = (
     ("asm_uses", torch.int32, "EN"), ("asm_clipped", torch.bool, "EN"),
     ("asm_unclip_proto", torch.int32, "EN"),
     ("success", torch.bool, "EA"), ("executed", torch.int32, "EA"),
+    ("chest_inv", torch.int32, "ECR"),
 )
+# Inputs and outputs of the chest phase: null pointers without chests.
+_CHEST_IO = ("chest_inv", "chest_type", "chest_valid")
 
 
 class _Static(ctypes.Structure):
@@ -92,6 +102,7 @@ class _Static(ctypes.Structure):
         "has_attack", "has_transfer", "has_swap", "has_asm", "track_gained", "any_consumed",
         "defense_any", "attack_freeze",
         "act_noop", "act_move", "act_change_vibe", "kind_asm",
+        "NC", "NT", "has_chest", "kind_chest",
     )] + [("off", ctypes.c_int * len(TABLES))]
 
 
@@ -124,17 +135,25 @@ def span_work(state, acts, t):
     bumped = torch.zeros((E, NA + 1), dtype=torch.bool, device=acts.device)
     bumped.scatter_(1, torch.where(movers & (kind == KIND_ASSEMBLER), sidx, NA), True)
     gl = 8 * E * A * R if t.track_gained else 0
-    pack, _ = table_pack(t, acts.device)
     parts = {
         "agents in": 24 * E * A + 4 * E * A * R + gl + 4 * E,
         "target cells": 12 * int(movers.sum()),
         "stations in": 17 * E * NA + 13 * int(bumped[:, :NA].sum()),
-        "tables": 4 * pack.numel(),
+        "tables": 4 * pack_ints(t),
         "agents out": 21 * E * A + 4 * E * A * R + gl,
         "stations out": 17 * E * NA,
     }
-    pair_terms = 3 + 4 * 2 + 1
-    ops = E * A * A * pair_terms + E * A * R * 5
+    if t.has_chests:
+        # every chest's inventory passes through; each bumped chest's type
+        # and validity are read
+        NC = t.n_chest_slots
+        chests = torch.zeros((E, NC + 1), dtype=torch.bool, device=acts.device)
+        chests.scatter_(1, torch.where(movers & (kind == KIND_CHEST),
+                                       sidx.clamp(0, NC - 1), NC), True)
+        parts["chests in"] = 4 * E * NC * R + 5 * int(chests[:, :NC].sum())
+        parts["chests out"] = 4 * E * NC * R
+    pair_terms = 3 + 4 * 2 + 1 + t.has_chests
+    ops = E * A * A * pair_terms + E * A * R * (5 + t.has_chests)
     return sum(parts.values()), ops, parts
 
 
@@ -151,15 +170,40 @@ def supports_fused(tables) -> bool:
     )
 
 
+def _host(v):
+    return (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)).astype(np.int32)
+
+
+def chest_lims(tables):
+    """[NT, R] per-chest-type limit rows (singleton groups), clipped to
+    0..65535 (``metta_tpu/ops/sim_fused.py:92-96``)."""
+    cls = _host(tables.chest_type_inv_class)
+    base, group = _host(tables.inv_group_base)[cls], _host(tables.inv_res_group)[cls]
+    return np.clip(np.take_along_axis(base, group, axis=1), 0, INT16_MAX).astype(np.int32)
+
+
+def _pack_arrays(tables):
+    """Every table of :data:`TABLES` as flat host int32, the chest tables
+    empty where the config has no chests."""
+    out = []
+    for name in TABLES:
+        if name in CHEST_TABLES and not tables.has_chests:
+            x = np.zeros(0, np.int32)
+        else:
+            x = chest_lims(tables) if name == "chest_lims" else _host(getattr(tables, name))
+        out.append(x.reshape(-1))
+    return out
+
+
+def pack_ints(tables) -> int:
+    """Ints of the table pack (:func:`table_pack`), without building it."""
+    return sum(x.size for x in _pack_arrays(tables)) + 1
+
+
 def table_pack(tables, device):
     """(int32 tensor of every table in :data:`TABLES` order, offsets)."""
-    parts, offs, n = [], [], 0
-    for name in TABLES:
-        v = getattr(tables, name)
-        x = (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)).astype(np.int32)
-        parts.append(x.reshape(-1))
-        offs.append(n)
-        n += x.size
+    parts = _pack_arrays(tables)
+    offs = np.concatenate([[0], np.cumsum([x.size for x in parts])[:-1]]).tolist()
     pack = torch.as_tensor(np.concatenate(parts + [np.zeros(1, np.int32)]), device=device)
     return pack, offs
 
@@ -173,6 +217,8 @@ def _statics(tables, offs):
         tables.has_attack, tables.has_transfer, tables.has_swap, tables.has_assemblers,
         tables.track_gained, tables.any_action_consumed, tables.attack_defense_any,
         tables.attack_freeze, ACT_NOOP, ACT_MOVE, ACT_CHANGE_VIBE, KIND_ASSEMBLER,
+        tables.n_chest_slots, int(tables.chest_vibe_delta.shape[0]), tables.has_chests,
+        KIND_CHEST,
     )
     st.off[:] = offs
     return st
@@ -210,19 +256,39 @@ def span_smem_bytes(n_tab: int, A: int, R: int, track: bool, warps: int) -> int:
     return 4 * (round4(n_tab) + round4(A * rs) + warps * warp)
 
 
-def check_sizes(tables, n_tab: int, warps: int = WARPS):
-    """Raise ValueError, naming the size, where the config is beyond what
-    the kernel takes."""
-    for name, value, most in (("num_agents", tables.num_agents, MAX_AGENTS),
-                              ("num_resources", tables.num_resources, MAX_RESOURCES),
-                              ("n_protocols", tables.n_protocols, MAX_PROTOCOLS)):
-        if value > most:
-            raise ValueError(f"{name} = {value} is beyond the fused kernel's {most}")
+def size_faults(tables, n_tab=None, warps: int = WARPS):
+    """What of the config is beyond the kernel, each named: its maxima of
+    agents, resources and protocols, the shared memory that the table pack
+    of ``n_tab`` ints (default :func:`pack_ints`) and ``warps`` envs' rows
+    need, and a section set it has no instantiation of (the chest section
+    is built only beside the assembler section). Empty where it fits."""
+    n_tab = pack_ints(tables) if n_tab is None else n_tab
+    faults = [f"{name} = {value} is beyond the fused kernel's {most}"
+              for name, value, most in (("num_agents", tables.num_agents, MAX_AGENTS),
+                                        ("num_resources", tables.num_resources, MAX_RESOURCES),
+                                        ("n_protocols", tables.n_protocols, MAX_PROTOCOLS))
+              if value > most]
     smem = span_smem_bytes(n_tab, tables.num_agents, tables.num_resources,
                            tables.track_gained, warps)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"the table pack ({4 * n_tab} B) and {warps} warps' rows need "
-                         f"{smem} B of shared memory, beyond a block's {SMEM_LIMIT}")
+        faults.append(f"the table pack ({4 * n_tab} B) and {warps} warps' rows need "
+                      f"{smem} B of shared memory, beyond a block's {SMEM_LIMIT}")
+    if tables.has_chests and not tables.has_assemblers:
+        faults.append("chests without assemblers: the kernel's chest section is "
+                      "instantiated only beside its assembler section")
+    return faults
+
+
+def span_fits(tables, n_tab=None, warps: int = WARPS) -> bool:
+    """Whether the kernel takes the config (:func:`size_faults` is empty)."""
+    return not size_faults(tables, n_tab, warps)
+
+
+def check_sizes(tables, n_tab=None, warps: int = WARPS):
+    """Raise ValueError, naming each size, where :func:`span_fits` is false."""
+    faults = size_faults(tables, n_tab, warps)
+    if faults:
+        raise ValueError("; ".join(faults))
 
 
 def span_grid(E: int, warps: int, sms: int, per_sm: int) -> int:
@@ -262,18 +328,12 @@ def _library():
     return _lib
 
 
-def _refuse_chests(tables):
-    if tables.has_chests:
-        raise NotImplementedError(
-            "K2's chest phase is not ported (metta_tpu/ops/sim_fused.py:820-903)")
-
-
 def _pack_of(tables, dev):
     """The table pack and statics on ``dev``, cached on ``tables``. The flags
     that set the statics are in the key: a copy of the tables with other
     flags (``scripts/ablate_fused.py``) gets its own."""
     key = (str(dev), tables.track_gained, tables.has_attack, tables.has_transfer,
-           tables.has_swap, tables.has_assemblers)
+           tables.has_swap, tables.has_assemblers, tables.has_chests)
     cache = tables.__dict__.setdefault("_sim_fused_pack", {})
     if key not in cache:
         pack, offs = table_pack(tables, dev)
@@ -302,13 +362,12 @@ def launch_fused_span(state, actions, rank, tables, envs_per_block=None) -> dict
 
     ``actions`` and ``rank`` are int32 [E, A] and every state field the
     kernel reads has its engine dtype and shape, a contiguous layout and the
-    actions' CUDA device; anything else raises, as do chests (K2's chest
-    phase is not ported), configs outside :func:`supports_fused` or beyond
-    the kernel's sizes (:func:`check_sizes`), and a block width the kernel
-    does not take. ``envs_per_block`` (None: :data:`WARPS`) sets the envs a
-    block holds at once."""
+    actions' CUDA device; anything else raises, as do configs outside
+    :func:`supports_fused` or beyond the kernel (:func:`check_sizes`), and a
+    block width the kernel does not take. ``envs_per_block`` (None:
+    :data:`WARPS`) sets the envs a block holds at once. The chest phase's
+    inputs and output are passed only where the config has chests."""
     global launches
-    _refuse_chests(tables)
     warps = check_envs_per_block(envs_per_block) or WARPS
     if not supports_fused(tables):
         raise ValueError("config outside supports_fused: the fused span cannot run it")
@@ -320,18 +379,26 @@ def launch_fused_span(state, actions, rank, tables, envs_per_block=None) -> dict
     pack, st = _pack_of(tables, dev)
     check_sizes(tables, pack.numel(), warps)
     E, A = actions.shape
-    shapes = {"E": (E,), "EA": (E, A), "EAR": (E, A, tables.num_resources),
-              "EHW": (E, tables.height, tables.width), "EN": (E, tables.n_assembler_slots)}
+    R, NC = tables.num_resources, tables.n_chest_slots
+    shapes = {"E": (E,), "EA": (E, A), "EAR": (E, A, R),
+              "EHW": (E, tables.height, tables.width), "EN": (E, tables.n_assembler_slots),
+              "EC": (E, NC), "ECR": (E, NC, R)}
     args = {"actions": actions, "rank": rank}
     ins = []
     for name, dtype, shape in _IN:
+        if name in _CHEST_IO and not tables.has_chests:
+            ins.append(None)
+            continue
         x = args[name] if name in args else getattr(state, name)
         check_tensor(name, x, dtype, shapes[shape], dev)
         ins.append(x)
-    outs = [torch.empty(shapes[shape], dtype=dtype, device=dev) for _, dtype, shape in _OUT]
+    outs = [None if name in _CHEST_IO and not tables.has_chests
+            else torch.empty(shapes[shape], dtype=dtype, device=dev)
+            for name, dtype, shape in _OUT]
     if E > 0:
-        ptrs_in = (ctypes.c_void_p * len(ins))(*[x.data_ptr() for x in ins])
-        ptrs_out = (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs])
+        def ptrs(xs):
+            return (ctypes.c_void_p * len(xs))(*[0 if x is None else x.data_ptr() for x in xs])
+        ptrs_in, ptrs_out = ptrs(ins), ptrs(outs)
         with torch.cuda.device(dev):
             err = _library().sim_fused_launch(
                 ptrs_in, ptrs_out, ctypes.byref(st), pack.data_ptr(), pack.numel(), E, warps,
@@ -340,15 +407,14 @@ def launch_fused_span(state, actions, rank, tables, envs_per_block=None) -> dict
         if err != 0:
             raise RuntimeError(f"sim_fused kernel launch failed: CUDA error {err}")
         launches += 1
-    return dict(zip((n for n, _, _ in _OUT), outs))
+    return {n: x for (n, _, _), x in zip(_OUT, outs) if x is not None}
 
 
 def fused_span(state, actions, rank, tables, envs_per_block=None):
     """The interaction span (see :func:`fused_span_plain` for the contract):
     the CUDA kernel for CUDA tensors (:func:`launch_fused_span`, then the
     agent grid rebuilt from the new positions), the plain version for CPU
-    tensors. Chests raise on either device."""
-    _refuse_chests(tables)
+    tensors."""
     if actions.device.type == "cpu":
         return fused_span_plain(state, actions, rank, tables)
     new = launch_fused_span(state, actions, rank, tables, envs_per_block)
@@ -372,10 +438,12 @@ def span_mismatches(a, b):
             if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y)]
 
 
-def fused_step_full(state, actions, tables, perm=None, generator=None):
+def fused_step_full(state, actions, tables, perm=None, generator=None, clip_draws=None):
     """The batched step through the fused span (``metta_tpu/ops/sim_fused.py:
     fused_step_full``): step + 1, the rank from ``perm`` or ``generator``,
-    :func:`fused_span`, then motion stats, stat rewards and episode end.
-    Equal byte for byte to ``step_env_batched`` with the same order.
+    :func:`fused_span`, then motion stats, regen and the clipper (its draws
+    ``clip_draws`` or from ``generator``), stat rewards and episode end.
+    Equal byte for byte to ``step_env_batched`` with the same draws.
     Returns (new_state, rewards_at_obs)."""
-    return batched_step(state, actions.to(torch.int32), tables, fused_span, perm, generator)
+    return batched_step(state, actions.to(torch.int32), tables, fused_span, perm, generator,
+                        clip_draws)

@@ -1,6 +1,7 @@
-"""What the analysis scripts share: the device flag, the combat inputs of
-the render ablations, the seeded state of K2's ablation, and the render
-ablation loop itself."""
+"""What the analysis scripts and ``chip_smoke.py`` share: the device flag,
+the combat inputs of the render ablations, the seeded state of K2's
+ablation, the chest config of K2's chest phase, and the render ablation
+loop itself."""
 
 from __future__ import annotations
 
@@ -52,6 +53,25 @@ def combat_prep(num_envs: int, agents: int, seed: int, device):
     env.reset()
     s, t = env.state.env, env.tables
     return t, prep_env3(s, t, s.executed_action, s.reward)
+
+
+def chest_mission(size: int = 32, chests: int = 2, seed=None):
+    """The config that runs K2's chest phase: ``make_mission("basic")`` of
+    ``cogames/missions.py`` (4 cogs, a ``size`` x ``size`` map) with the
+    catalog's chest station (``CvCChestConfig``, its vibe transfers as
+    ``TrainingVariant`` sets them) placed ``chests`` times by the mission's
+    Random scene. No catalog mission reaches the fused span: their coupled
+    limit groups take the sequential step."""
+    from metta_tpu_torch.cogames.missions import make_mission
+    from metta_tpu_torch.cogames.stations import CvCChestConfig
+    from metta_tpu_torch.cogames.variants import TrainingVariant
+
+    cfg = make_mission("basic", width=size, height=size)
+    cfg.game.objects["chest"] = CvCChestConfig().station_cfg()
+    TrainingVariant().modify_env(None, cfg)
+    cfg.game.map_builder.instance.objects["chest"] = chests
+    cfg.game.map_builder.seed = seed
+    return cfg
 
 
 def seeded_span_env(name: str, num_envs: int, agents: int, map_seed: int, seed: int, device,

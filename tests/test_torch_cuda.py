@@ -10,7 +10,9 @@ multi-task env GPU against CPU and a tiny multi-task trainer update; K2
 (``csrc/sim_fused.cu``) on combat, cooperation, arena with gained/lost
 tracking, navigation at A=4 and the arena at A=32, at E=1, at an E that no
 128-env block divides and at E=4097, each ablation variant, and every block
-width it takes; K3 (``csrc/discounted_sum.cu``) forward and backward at odd shapes
+width it takes; K2 with its chest phase on the chest config at E=1, 16 and
+4097 and with a table pack near the shared-memory limit, and an env beyond
+K2's maxima stepping on the card through the torch-ops step; K3 (``csrc/discounted_sum.cu``) forward and backward at odd shapes
 (T at and around the chunk length, a ring walked twice, rows that are not
 16-byte multiples) and the advantages through it against the CPU; K5 (``csrc/obs_render.cu``)
 on the sequential env's inputs at E=1, 64 and 4097, arena30, a cut at T, rows
@@ -330,13 +332,174 @@ def test_k2_wrapper_checks_inputs():
     with pytest.raises(ValueError):
         k2.fused_span(s.replace(agent_inv=s.agent_inv.transpose(1, 2).contiguous()
                                 .transpose(1, 2)), acts, rank, t)
-    chests = copy.copy(t)
-    chests.has_chests = True
-    with pytest.raises(NotImplementedError):
-        k2.fused_span(s, acts, rank, chests)
+    cenv, cgen, _ = _k2_chest_env(E)
+    cs, ct = cenv.state.env, cenv.tables
+    cacts = torch.randint(0, ct.n_actions, (E, ct.num_agents), generator=cgen, device="cuda",
+                          dtype=torch.int32)
+    crank = rank_from_perm(None, E, ct.num_agents, cgen, "cuda")
+    with pytest.raises(ValueError, match="chest_inv"):           # the chest phase's inputs too
+        k2.fused_span(cs.replace(chest_inv=cs.chest_inv.long()), cacts, crank, ct)
     before = k2.launches
     k2.fused_span(s, acts, rank, t)
     assert k2.launches == before + 1
+
+
+def _k2_chest_env(n_envs, cfg=None, gained=False):
+    """The chest config (``scripts/common.py:chest_mission``, on a small map
+    dense with stations) as a track_stats=False env on the card, each agent
+    just beside a chest, with seeded inventories (agents 0-30 of each
+    resource, chests 0-40) and every agent showing one of the chest's vibes
+    -> (env, generator, the actions that move every agent into its chest).
+    ``gained`` turns on the gained/lost bookkeeping after the chest phase."""
+    from metta_tpu_torch.engine.state import KIND_CHEST, KIND_EMPTY
+    from metta_tpu_torch.engine.step_batched import agent_grid_from_positions
+    from metta_tpu_torch.scripts.common import chest_mission
+
+    env = MettaGridEnv(cfg or chest_mission(size=10, chests=6, seed=3), num_envs=n_envs,
+                       seed=0, track_stats=False, step_mode="batched", device=_cuda())
+    assert env._sim_step is k2.fused_step_full
+    if gained:
+        env.tables.track_gained = True
+    env.reset()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t, s = env.tables, env.state.env
+    kind = s.static_kind[0].cpu().numpy()
+    names = env.compiled.action_names
+    beside = {}                                     # a free cell beside a chest: its move
+    for r, c in np.argwhere(kind == KIND_CHEST):
+        for move, dr, dc in (("move_north", -1, 0), ("move_south", 1, 0),
+                             ("move_west", 0, -1), ("move_east", 0, 1)):
+            if kind[r - dr, c - dc] == KIND_EMPTY:
+                beside.setdefault((r - dr, c - dc), names.index(move))
+    beside = [(r, c, move) for (r, c), move in beside.items()]
+    picked = torch.tensor([beside[a * len(beside) // t.num_agents] for a in range(t.num_agents)],
+                          dtype=torch.int32, device="cuda").expand(n_envs, -1, -1)
+    r, c = picked[..., 0].contiguous(), picked[..., 1].contiguous()
+    vibes = torch.nonzero(t.chest_vibe_has.any(0)).flatten()
+
+    def draw(hi, like):
+        return torch.randint(0, hi, like.shape, generator=gen, device="cuda", dtype=torch.int32)
+    env._state = env.state.replace(env=s.replace(
+        agent_r=r, agent_c=c, agent_prev_r=r, agent_prev_c=c,
+        agent_grid=agent_grid_from_positions(t, r, c),
+        agent_inv=draw(31, s.agent_inv), chest_inv=draw(41, s.chest_inv),
+        agent_vibe=vibes[draw(len(vibes), s.agent_vibe).long()].to(torch.int32)))
+    return env, gen, picked[..., 2].contiguous()
+
+
+def _big_chest_cfg(extra_types=4):
+    """The chest config with 16 resources, every vibe of the catalog (152)
+    and ``extra_types`` more object types: with 4, a table pack of 194 KB and
+    205,552 B of shared memory a block (88% of it); with 8, 247,168 B, past
+    it."""
+    from metta_tpu_torch.config.mettagrid_config import WallConfig
+    from metta_tpu_torch.config.vibes import VIBES
+    from metta_tpu_torch.scripts.common import chest_mission
+
+    cfg = chest_mission(size=10, chests=6, seed=3)
+    cfg.game.resource_names += [f"extra_{i}" for i in range(k2.MAX_RESOURCES
+                                                            - len(cfg.game.resource_names))]
+    cfg.game.actions.change_vibe.vibes = list(VIBES)
+    for i in range(extra_types):
+        cfg.game.objects[f"block_{i}"] = WallConfig(name=f"block_{i}")
+    return cfg
+
+
+@pytest.mark.parametrize("n_envs,big,gained", [(E, False, False), (1, False, False),
+                                               (4097, False, False), (E, True, False),
+                                               (E, False, True)],
+                         ids=["e16", "e1", "e4097", "pack_near_smem_limit", "e16_gained"])
+def test_k2_chests_match_plain(n_envs, big, gained):
+    """K2 with its chest phase byte-equal to its plain version over eight
+    steps of the chest config (chest transfers must happen), at E=1, 16,
+    4097, with a table pack near the shared-memory limit, and with the
+    gained/lost bookkeeping that follows the chest phase."""
+    env, gen, into = _k2_chest_env(n_envs, _big_chest_cfg() if big else None, gained)
+    t = env.tables
+    assert t.track_gained == gained
+    n_tab = k2.pack_ints(t)
+    smem = k2.span_smem_bytes(n_tab, t.num_agents, t.num_resources, t.track_gained, k2.WARPS)
+    if big:
+        assert t.num_resources == k2.MAX_RESOURCES and 0.85 * k2.SMEM_LIMIT < smem <= k2.SMEM_LIMIT
+        assert k2.launch_shape(t)["smem"] == smem
+    before = env.state.env.chest_inv
+    state, _ = batched_step(env.state.env, into, t, _k2_checked, generator=gen)  # every agent bumps
+    assert (state.chest_inv != before).any()
+    env._state = env.state.replace(env=state)
+    _k2_steps(env, gen, t)
+
+
+def test_k2_chests_never_take_the_plain_version(monkeypatch):
+    """With chests too, a CUDA input launches the kernel or raises."""
+    env, gen, acts = _k2_chest_env(E)
+    t, s = env.tables, env.state.env
+    rank = rank_from_perm(None, E, t.num_agents, gen, "cuda")
+    want = k2.fused_span_plain(s, acts, rank, t)
+
+    def plain(*_):
+        raise AssertionError("the plain version ran on CUDA inputs")
+    monkeypatch.setattr(k2, "fused_span_plain", plain)
+    before = k2.launches
+    assert k2.span_mismatches(k2.fused_span(s, acts, rank, t), want) == []
+    assert k2.launches == before + 1
+
+
+def test_start_clipped_mission_draws_on_the_card():
+    """``training_facility.repair`` (hub stations start clipped, the clipper
+    on) with every draw from the env's own CUDA generator: the template's
+    and each reset's unclip protocols, the clipper's draws; auto-reset after
+    6 steps. Every start-clipped slot holds a protocol in range."""
+    from metta_tpu_torch.cogames.catalog import get_mission
+
+    cfg = get_mission("training_facility.repair").make_env()
+    cfg.game.max_steps = 6
+    env = MettaGridEnv(cfg, num_envs=E, device=_cuda())
+    env.tables.obs_renderer = "pl"
+    env.reset()
+    t = env.tables
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for _ in range(15):
+        env.step(torch.randint(0, t.n_actions, (E, t.num_agents), generator=gen, device="cuda"))
+    s = env.state.env
+    protos = s.asm_unclip_proto[s.asm_clipped]
+    assert protos.numel() and ((protos >= 0) & (protos < t.n_unclip_protocols)).all()
+
+
+def _resources17_cfg():
+    cfg = make_navigation(4, width=20, height=20)
+    cfg.game.map_builder.seed = 1234
+    cfg.game.resource_names += [f"extra_{i}" for i in range(k2.MAX_RESOURCES + 1
+                                                            - len(cfg.game.resource_names))]
+    return cfg
+
+
+@pytest.mark.parametrize("which", ["resources17", "chest_pack"])
+def test_env_beyond_k2_maxima_gpu_matches_cpu(which):
+    """An env whose config K2 cannot take (17 resources; a chest pack past a
+    block's shared memory) passes ``supports_fused`` but not ``span_fits``:
+    on the card it steps through ``step_env_batched``, never reaching the
+    kernel, byte for byte with its CPU run."""
+    from metta_tpu_torch.engine.step_batched import step_env_batched
+
+    cfg = _resources17_cfg() if which == "resources17" else _big_chest_cfg(8)
+    envs = [MettaGridEnv(cfg, num_envs=E, seed=0, track_stats=False, step_mode="batched",
+                         device=d) for d in (_cuda(), "cpu")]
+    t = envs[0].tables
+    assert k2.supports_fused(t) and not k2.span_fits(t)
+    assert all(env._sim_step is step_env_batched for env in envs)
+    A = t.num_agents
+    rng = np.random.default_rng(3)
+    desync = rng.integers(1, 12, E)
+    obs = [env.reset(desync_step=desync) for env in envs]
+    assert torch.equal(obs[0].cpu(), obs[1])
+    before = k2.launches
+    for _ in range(10):
+        acts = rng.integers(0, t.n_actions, (E, A))
+        perm = torch.as_tensor(np.stack([rng.permutation(A) for _ in range(E)]))
+        outs = [env.step(acts, perm=perm) for env in envs]
+        for g, c in zip(*outs):
+            assert torch.equal(g.cpu(), c)
+    assert k2.launches == before
 
 
 def test_env_fused_gpu_matches_cpu():

@@ -189,6 +189,51 @@ def test_span_maxima_are_the_kernels():
             k2.check_envs_per_block(el)
 
 
+def test_span_fits_is_check_sizes():
+    """``span_fits``, the predicate the env's dispatch reads, is false exactly
+    where ``check_sizes`` raises: at num_resources 17, n_protocols 33, a chest
+    pack too large for a block's shared memory and chests without
+    assemblers; true (and no raise) on combat, the arena and the chest
+    config. The env takes the fused step only where it holds."""
+    from metta_tpu_torch.engine.env import MettaGridEnv
+    from metta_tpu_torch.scripts.common import chest_mission
+
+    chests = MettaGridEnv(chest_mission(size=10, chests=6, seed=3), num_envs=1, track_stats=False,
+                          step_mode="batched", device="cpu").tables
+    # the chest config with 16 resources, all 152 vibes and 8 more object
+    # types: a chest pack of 235,620 B
+    from metta_tpu_torch.config.mettagrid_config import WallConfig
+    from metta_tpu_torch.config.vibes import VIBES
+
+    cfg = chest_mission(size=10, chests=6, seed=3)
+    cfg.game.resource_names += [f"extra_{i}" for i in range(k2.MAX_RESOURCES
+                                                            - len(cfg.game.resource_names))]
+    cfg.game.actions.change_vibe.vibes = list(VIBES)
+    for i in range(8):
+        cfg.game.objects[f"block_{i}"] = WallConfig(name=f"block_{i}")
+    big_env = MettaGridEnv(cfg, num_envs=1, track_stats=False, step_mode="batched", device="cpu")
+    big_pack = big_env.tables
+    fits = [_tables("combat"), _tables("arena"), chests]
+    t = chests
+    big_res, big_np, no_asm = (copy.copy(t) for _ in range(3))
+    big_res.num_resources = k2.MAX_RESOURCES + 1
+    big_np.n_protocols = k2.MAX_PROTOCOLS + 1
+    no_asm.has_assemblers = False
+    for tables in fits:
+        assert k2.span_fits(tables) and k2.size_faults(tables) == []
+        k2.check_sizes(tables)
+    for tables, what in ((big_res, "num_resources"), (big_np, "n_protocols"),
+                         (big_pack, "shared memory"), (no_asm, "assemblers")):
+        assert not k2.span_fits(tables)
+        with pytest.raises(ValueError, match=what):
+            k2.check_sizes(tables)
+    assert k2.pack_ints(big_pack) == k2.table_pack(big_pack, "cpu")[0].numel()
+    assert 4 * k2.pack_ints(big_pack) > 4 * k2.pack_ints(chests) + 200_000
+    for tables in (big_res, big_np, big_pack):       # the env takes the torch-ops step there
+        assert k2.supports_fused(tables) and not k2.span_fits(tables)
+    assert big_env._sim_step.__name__ == "step_env_batched"
+
+
 @pytest.mark.parametrize("E,A,per_sm", [
     (170, 24, 8), (170, 24, 1),                      # the curriculum env (phases 4, 10)
     (4096, 24, 8), (4096, 30, 8),                    # combat and arena30 (phase 4)

@@ -9,6 +9,7 @@ the rewards the observations see. This is the reference that
 held to the plain span on the card (``tests/test_torch_cuda.py``).
 """
 
+import copy
 import dataclasses
 
 import jax
@@ -140,19 +141,32 @@ def test_kernel_layout_matches_wrapper():
     assert fields == [f for f, _ in sim_fused._Static._fields_]
 
 
-def test_span_refuses_chests():
-    """K2's chest phase is not ported: the span wrapper refuses chests on
-    every device, before it reads any input."""
-    import copy
+def test_span_takes_chests():
+    """K2's span takes chests: on the CPU the wrapper runs the plain span with
+    its chest phase (no refusal), the pack carries the chest tables (and
+    only where the config has chests), and ``MettaGridEnv`` steps such a
+    config through the fused step. The chest config is ``make_mission
+    ("basic")`` with the catalog's chest station
+    (``scripts/common.py:chest_mission``, on a small map)."""
+    from metta_tpu_torch.engine.env import MettaGridEnv
+    from metta_tpu_torch.scripts.common import chest_mission
+    from metta_tpu_torch.engine.step_batched import interaction_span, rank_from_perm
+    from metta_tpu_torch.ops import sim_fused
 
-    from metta_tpu_torch.builder.envs import make_navigation
-    from metta_tpu_torch.engine.compiler import compile_game as pcompile
-    from metta_tpu_torch.ops.sim_fused import fused_span
-
-    cfg = make_navigation(4)
-    cfg.game.map_builder.seed = 11
-    compiled, init = pcompile(cfg.game, cfg.game.map_builder.create().build())
-    tables = copy.copy(tables_from_compiled(compiled, track_stats=False))
-    tables.has_chests = True
-    with pytest.raises(NotImplementedError):
-        fused_span(None, torch.zeros((1, 4), dtype=torch.int32), None, tables)
+    env = MettaGridEnv(chest_mission(size=10, chests=6, seed=3), num_envs=3, track_stats=False,
+                       step_mode="batched", device="cpu")
+    t = env.tables
+    assert t.has_chests and supports_fused(t) and sim_fused.span_fits(t)
+    assert env._sim_step is fused_step_full
+    env.reset()
+    state, gen = env.state.env, torch.Generator().manual_seed(1)
+    acts = torch.randint(0, t.n_actions, (3, t.num_agents), generator=gen, dtype=torch.int32)
+    rank = rank_from_perm(None, 3, t.num_agents, gen)
+    got = sim_fused.fused_span(state, acts, rank, t)
+    assert sim_fused.span_mismatches(got, interaction_span(state, acts, rank, t)) == []
+    nt, v, r = t.chest_vibe_delta.shape
+    chests = sum(a.size for a in sim_fused._pack_arrays(t))
+    without = copy.copy(t)
+    without.has_chests = False
+    assert chests - sum(a.size for a in sim_fused._pack_arrays(without)) == nt * v * r + nt * v + nt * r
+    assert sim_fused.pack_ints(t) == sim_fused.table_pack(t, "cpu")[0].numel() == chests + 1

@@ -142,9 +142,10 @@ def test_step_env_from_generator():
 
 
 def test_unsupported_names_what_the_sequential_step_lacks():
-    """``unsupported()`` still names chests, bump handlers, regen, damage,
-    AOE and the clipper for the sequential step, each with its JAX source,
-    and no longer names the step mode or shared limit groups."""
+    """``unsupported()`` still names the assembler chest search, bump
+    handlers, damage and AOE for the sequential step, each with its JAX
+    source, and no longer names chests, regen, the clipper, the step mode or
+    shared limit groups, which the port now runs."""
     from types import SimpleNamespace
 
     from metta_tpu_torch.engine.step_batched import check_supported, unsupported
@@ -153,14 +154,18 @@ def test_unsupported_names_what_the_sequential_step_lacks():
                          has_chests=True, has_regen=True, has_damage=True, has_aoe=True,
                          clipper_enabled=True)
     seq = unsupported(on, "sequential")
-    for want in ("chest search", "bump_handlers_seq", "actions.py:chest_use", "apply_regen",
-                 "apply_damage", "apply_aoe", "clipper_step"):
+    for want in ("chest search", "bump_handlers_seq", "apply_damage", "apply_aoe"):
         assert any(want in name for name in seq), want
-    assert not any("limit groups" in name or "step_mode" in name for name in seq)
-    assert any("limit groups" in name for name in unsupported(on, "batched"))
+    for gone in ("chest_use", "_chest_phase", "apply_regen", "clipper_step", "limit groups",
+                 "step_mode"):
+        assert not any(gone in name for name in seq), gone
+    batched = unsupported(on, "batched")
+    assert any("limit groups" in name for name in batched)
+    assert not any("_chest_phase" in name or "apply_regen" in name or "clipper" in name
+                   for name in batched)
     off = SimpleNamespace(inv_vector_ok=False, chest_search_distance=0, has_bump_handlers=False,
-                          has_chests=False, has_regen=False, has_damage=False, has_aoe=False,
-                          clipper_enabled=False)
+                          has_chests=True, has_regen=True, has_damage=False, has_aoe=False,
+                          clipper_enabled=True)
     assert unsupported(off, "sequential") == []
     check_supported(off, "sequential")
     with pytest.raises(NotImplementedError, match="limit groups"):
