@@ -7,11 +7,11 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (each one a hard failure):
 
 1. build every CUDA kernel of the port from ``metta_tpu_torch/csrc`` (K1-K5;
-   S5 and S4, K1's and K4's first designs, in their own sources; S1's GEMMs
-   and its other cases in two sources, S2 and S3; one ``nvcc`` per source,
-   all started together), keep ``ptxas -v``'s registers and shared memory
-   of the redesigned K1, K2, K3, K4, K5 and S1 GEMM kernels, and print the
-   card's name and power limit;
+   S5 in K1's source, a template on its section mask; S4, K4's first design,
+   in its own source; S1's GEMMs and its other cases in two sources, S2 and
+   S3; one ``nvcc`` per source, all started together), keep ``ptxas -v``'s
+   registers and shared memory of the redesigned K1, K2, K3, K4, K5, S1 fold
+   and S1 GEMM kernels, and print the card's name and power limit;
 2. K1 (``csrc/obs_render3.cu``) against its plain torch version
    (``render_obs3_plain``) at the shapes of the ``track_stats=True`` path: the
    combat map, 24 agents, 4096 envs, 20 random steps, byte-equal;
@@ -40,9 +40,8 @@ Phases (each one a hard failure):
    warm-up steps, obs consumed every step, median of 5 windows; K2's and K1's
    launch counts in that run; each kernel's time per launch, its plain
    version's time and its bound (K2's from ``ops/sim_fused.py:span_work``,
-   the bytes and operations the span needs whatever the design), and K1
-   beside its first design on the same
-   windows with no tokens (the launch shape's floor); a short profile of
+   the bytes and operations the span needs whatever the design), and K1 on
+   the same windows with no tokens (every row 255); a short profile of
    where the step's device time goes; ``hardware_sanity`` (ore and a converted resource present in the
    inventories, as ``bench.py`` checks). Then the ``track_stats=True`` path's
    throughput, 3 windows;
@@ -92,10 +91,12 @@ Phases (each one a hard failure):
    for ``step_mode="batched"`` and taken into the sequential step;
 13. the analysis path, the six kernel-analysis scripts of
    ``metta_tpu_torch/scripts`` through their ``main`` at the JAX scripts'
-   default sizes: S5, K1's section ablation, and S4, K4's (combat, E=4096:
-   ``none``, each section stubbed alone, all stubbed), every variant equal to
-   its plain version in the bytes it defines and ``none`` byte-equal to the
-   production kernel; K2's section ablation (``ablate_fused``: combat,
+   default sizes: S5, the section ablation of the production K1 (each mask
+   an instantiation of ``csrc/obs_render3.cu``), and S4, that of K4's first
+   design (combat, E=4096: ``none``, each section stubbed alone, all
+   stubbed), every variant equal to its plain version in the bytes it
+   defines and ``none`` byte-equal to the production kernel, K1's ``none``
+   beside phase 6's K1; K2's section ablation (``ablate_fused``: combat,
    E=4096, the seeded state of phase 3; ``full``, ``noasm``, ``noattack``,
    ``noswap``, ``bare``, each the kernel instantiation of its flags, byte-equal
    to its plain version), its launches counted and each section's cost
@@ -104,22 +105,26 @@ Phases (each one a hard failure):
    the nine pair-mat cases at E=4096, byte-equal; S1, the ten primitive
    cases at G=1024, reps 16, eps 4 (float32 within rtol 1e-6, the bf16
    GEMMs within 1e-3 of their largest magnitude); each variant's and case's
-   time, bound and plain time; the launch counts of the scripts' run; each
+   time, bound and plain time; the launch counts of the scripts' run; one
+   PyTorch call for each S1 case that one computes (M5's ``torch.add``, the
+   folds', M2's and M4's ``torch.sum`` over an expanded view), held to the
+   plain version and timed as the library yardstick; each
    repeat loop found in the SASS (``cuobjdump -sass``) with the loads and
    arithmetic it must hold (M7's, the compaction in registers: ``FSETP``
-   and ``SHFL`` with no ``LDS``), its instruction count printed, and the S1
+   and ``SHFL`` with no ``LDS``; the fold's, from its shared-memory ring:
+   ``FADD`` and ``LDS`` with no ``LDG``), its instruction count printed, and the S1
    GEMM kernel's main loops holding ``HGMMA`` (the consumers' ``wgmma``) and
    ``UTMALDG`` (the producer's TMA loads), K2's production kernel
    holding ``MATCH`` and ``REDUX`` (its per-key winners), K3's chain loops
    holding ``FMUL``, ``FADD`` and ``LDS`` with no ``FFMA`` or ``LDG`` (the
    bit-exact chain from shared memory), and K4's and K5's per-agent loops
    holding ``SHFL`` and no block barrier; K1's, K2's, K3's, K4's and K5's
-   production kernels at their registers, and they, K2's chest
-   instantiation and M7 with no stack or local memory; the launch shape
-   (registers and shared memory from ``ptxas -v``, blocks an SM) of the
-   redesigned K1, K2 (combat, arena, the chest config), K3, K4, K5 and S1
-   GEMMs; ``torch.bmm`` on the S1
-   GEMMs' operands as the library yardstick;
+   production kernels at their registers (K1's the mask-0 instantiation),
+   and they, K2's chest instantiation, M7 and the fold with no stack or
+   local memory; the launch shape (registers and shared memory from ``ptxas
+   -v``, blocks an SM, the fold's ring stages) of the redesigned K1, K2
+   (combat, arena, the chest config), K3, K4, K5, S1 fold and S1 GEMMs;
+   ``torch.bmm`` on the S1 GEMMs' operands as the library yardstick;
 14. K2's chest phase: the chest config (``scripts/common.py:chest_mission``,
    the basic mission with the catalog's chest station twice; no catalog
    mission reaches K2) at E=4096, agents beside the chests, 20 steps
@@ -717,18 +722,13 @@ def phase_throughput(res):
     host1 = cuda_time_ms(lambda: k1.render_obs3(*args, *render_args(t)), 50,
                          queue_ahead=False)
     plain1 = cuda_time_ms(lambda: k1.render_obs3_plain(*args, *render_args(t)), 5)
-    # the launch shape's floor: the same windows with no tokens (every count and
-    # global count 0, so every row is all 255), K1 against its first design (S5's none)
-    from metta_tpu_torch.ops import ablate_obs as ab
-
+    # the same windows with no tokens (every count and global count 0, so every
+    # row is all 255)
     empty = (args[0], args[1], torch.zeros_like(args[2]), args[3], torch.zeros_like(args[4]),
              args[5])
-    before5 = ab.launches_obs3
     floor1 = cuda_time_ms(lambda: k1.render_obs3(*empty, *render_args(t)), 50)
-    floor5 = cuda_time_ms(lambda: ab.render_obs3_ablated(set(), *empty, *render_args(t),
-                                                         out=out), 50)
-    k1.launches, ab.launches_obs3 = before, before5    # timing launches do not count
-    log(f"[k1] with no tokens (every row 255): {floor1:.4f} ms, its first design {floor5:.4f} ms")
+    k1.launches = before                               # timing launches do not count
+    log(f"[k1] with no tokens (every row 255): {floor1:.4f} ms")
     nbytes, ops, parts = render_work(args, t.obs_scan, t.num_obs_tokens)
     bound1, by1, ops_ms1 = bound_of(nbytes, ops)
     whole = sum(x.numel() * x.element_size() for x in (*args, t.obs_scan, out))
@@ -1595,8 +1595,9 @@ def phase_sequential(res):
 # and assemblers, no transfer) and for the chest config (swap, assemblers,
 # chests), and K3's instantiations at the learner's tiles
 # (8 columns at B=60, 32 at B=4080): the forward pass, its gradient, the
-# gradient with gdecay; S1's M7 (its row in registers) at any count (None),
-# with no stack or local memory either.
+# gradient with gdecay; S1's M7 (its row in registers) and fold (its
+# shared-memory ring) at any count (None), with no stack or local memory
+# either. K1 is the mask-0 instantiation of its section template.
 K2_COMBAT = "sim_fused_kernelILb1ELb0ELb1ELb1ELb0E"
 # K2 with its chest phase, the instantiation of the chest config (swap,
 # assemblers and chests)
@@ -1607,7 +1608,8 @@ K3_KERNELS = {(direction, cols): f"discounted_sum_kernelIL{flags}ELi{cols}E"
               for direction, flags in (("forward", "b0ELb0"), ("backward", "b1ELb0"),
                                        ("backward with gdecay", "b1ELb1"))
               for cols in (8, 32)}
-PRODUCTION_REGISTERS = [("obs_render3", "obs_render3_kernel", 48),
+K1_MAIN = "obs_render3_kernelILi0E"
+PRODUCTION_REGISTERS = [("obs_render3", K1_MAIN, 48),
                         ("obs_render2", K4_MAIN, 47),
                         ("obs_render", K5_MAIN, 40),
                         ("sim_fused", K2_COMBAT, 64),
@@ -1617,7 +1619,8 @@ PRODUCTION_REGISTERS = [("obs_render3", "obs_render3_kernel", 48),
                             (("backward", 8), 84), (("backward", 32), 84),
                             (("backward with gdecay", 8), 79),
                             (("backward with gdecay", 32), 114))],
-                        ("ubench_mosaic", "compact_kernel", None)]
+                        ("ubench_mosaic", "compact_kernel", None),
+                        ("ubench_mosaic", "fold_kernel", None)]
 # PERF.md's kernel table, combat E=4096
 PRODUCTION_MS = {"K1": 0.0909, "K4": 0.0884, "K2": 0.0304}
 # Warp instructions K2's production kernel must hold (cuobjdump -sass
@@ -1627,7 +1630,9 @@ K2_SASS_OPS = ("MATCH", "REDUX")
 # fragment of the mangled name, opcodes the loop body must hold: the rep's
 # arithmetic and, where the TPU body reads its block every rep, the load;
 # opcodes it must not hold). M7 keeps its row in registers: its loop holds
-# the compares and the shuffles, and no shared load.
+# the compares and the shuffles, and no shared load. The fold reads each
+# rep from its shared-memory ring: its loop holds shared loads, no global
+# one.
 # S3 has no repeat loop: its shuffles, ballot and shared atomics are counted
 # in the function.
 SASS_LOOPS = [
@@ -1635,7 +1640,7 @@ SASS_LOOPS = [
         ("ISETP",), ("IADD3",), ("SHFL",), ("IADD3",), ("SHFL", "ISETP"), ("SHFL",),
         ("IADD3",), ("ISETP",), ("I2F",)))],
     ("ubench_mosaic", "tiny_kernel", ("FADD",)),
-    ("ubench_mosaic", "fold_kernel", ("FADD", "LDG")),
+    ("ubench_mosaic", "fold_kernel", ("FADD", "LDS"), ("LDG",)),
     ("ubench_mosaic", "transpose_kernel", ("FADD", "LDG")),
     ("ubench_mosaic", "droll_kernel", ("FADD", "LDG")),
     ("ubench_mosaic", "rep_kernel", ("FADD", "LDG")),
@@ -1765,8 +1770,8 @@ def check_sass():
 
 def check_registers():
     """K1's, K2's, K3's, K4's and K5's production kernels use the registers
-    they were built with, and they and S1's M7 use no stack or local
-    memory."""
+    they were built with, and they and S1's M7 and fold use no stack or
+    local memory."""
     from metta_tpu_torch.ops import build
 
     out, dumps = {}, {}
@@ -1809,8 +1814,9 @@ def ptxas_usage(build_log, lib, frag):
 def redesign_shapes(res):
     """The launch shape of the redesigned K1 (combat's 121 window cells), K4
     and K5 (the same window; K5 also the 17x17 window's 289 cells), K3 (the
-    learner's [255, 60] and [255, 4080], forward and backward), S1 GEMMs
-    (M6a's and M6b/c's shapes at eps 4) and K2
+    learner's [255, 60] and [255, 4080], forward and backward), S1's fold
+    (M1 and M1b: its ring stages), S1 GEMMs (M6a's and M6b/c's shapes at
+    eps 4) and K2
     (combat's and the arena's tables): registers and static shared memory
     from ``ptxas -v``, dynamic shared memory, blocks an SM, SMs."""
     from metta_tpu_torch.engine.env import MettaGridEnv
@@ -1830,6 +1836,7 @@ def redesign_shapes(res):
               "K4 (S=121, T=200)": dict(k4.launch_shape(121, 200)),
               "K5 (S=121, T=200)": dict(k5.launch_shape(121, 200)),
               "K5 (S=289, T=200)": dict(k5.launch_shape(289, 200)),
+              "S1 fold (M1, M1b)": dict(s1.fold_launch_shape()),
               "S1 GEMM M6a (nE=4, Kd=72)": dict(s1.gemm_launch_shape(4, 72)),
               "S1 GEMM M6b/c (nE=1, Kd=288)": dict(s1.gemm_launch_shape(1, 288)),
               "K2 combat": dict(k2.launch_shape(k2_tables("combat"))),
@@ -1841,11 +1848,12 @@ def redesign_shapes(res):
         name = f"K3 {direction} [255, {B}]"
         shapes[name] = k3.launch_shape(255, B, direction != "forward", "gdecay" in direction)
         uses[name] = ptxas_usage(log_, "discounted_sum", frag)
-    uses.update({"K1": ptxas_usage(log_, "obs_render3", "obs_render3_kernel"),
+    uses.update({"K1": ptxas_usage(log_, "obs_render3", K1_MAIN),
             "K4": ptxas_usage(log_, "obs_render2", K4_MAIN),
             "K5 (S=121": ptxas_usage(log_, "obs_render", K5_MAIN),
             "K5 (S=289": ptxas_usage(log_, "obs_render", "obs_render_kernelILi0E"),
-            "S1": ptxas_usage(log_, "ubench_gemm", "gemm_tma_kernel"),
+            "S1 fold": ptxas_usage(log_, "ubench_mosaic", "fold_kernel"),
+            "S1 GEMM": ptxas_usage(log_, "ubench_gemm", "gemm_tma_kernel"),
             "K2 combat": ptxas_usage(log_, "sim_fused", K2_COMBAT),
             "K2 arena": ptxas_usage(log_, "sim_fused", "sim_fused_kernelILb0ELb0ELb1ELb1ELb0E"),
             "K2 chest config": ptxas_usage(log_, "sim_fused", K2_CHESTS)})
@@ -1858,8 +1866,45 @@ def redesign_shapes(res):
 
 
 def sum_entry(rows, key):
-    vals = [r[key] for r in rows if r.get(key) is not None]
-    return sum(vals) if vals else None
+    """The sum of ``key`` over the rows, or None unless every row has one."""
+    vals = [r.get(key) for r in rows]
+    return None if not vals or None in vals else sum(vals)
+
+
+def s1_library_call(case, x, reps):
+    """One PyTorch call that computes S1 case ``case``'s whole accumulator on
+    input ``x`` (the yardstick; the port never calls it), or None where no
+    single call computes it (M3 sums rolls by different shifts, M7 runs a
+    compaction; the GEMMs have ``torch.bmm``)."""
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    G = x.shape[0]
+    if case == "M5":
+        return torch.add(x, float(reps))
+    if case in ("M1", "M1b"):
+        v = x.view(G, 1, -1, 2048 if case == "M1" else 128 * s1.COPIES)
+        return torch.sum(v.expand(G, reps, *v.shape[2:]), dim=1)
+    if case == "M2":
+        v = x.transpose(1, 2).unsqueeze(1)
+        return torch.sum(v.expand(G, reps, *v.shape[2:]), dim=1)
+    if case == "M4":
+        return torch.sum(x.view(G, 1, 1, *x.shape[1:]).expand(G, reps, s1.COPIES, *x.shape[1:]),
+                         dim=1)
+    return None
+
+
+def s1_library_parts(case, acc, x):
+    """The library call's accumulator as (slots, checksum), the form of
+    ``ops/ubench_mosaic.py:plain``: the columns or rows the TPU output keeps,
+    and the bits of the rest."""
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    if case in ("M1", "M1b"):
+        return acc[..., :128], s1.bitsum(acc[..., 128:])
+    if case == "M4":
+        acc = acc.reshape(x.shape[0], -1, 128)
+        return acc[:, :x.shape[1]], s1.bitsum(acc[:, x.shape[1]:])
+    return acc, None
 
 
 def phase_analysis(res):
@@ -1911,7 +1956,11 @@ def phase_analysis(res):
         log(f"[analysis] {name} at combat E={E_MAIN}: production "
             + (f"{prod:.4f} ms ({100 * (prod / PRODUCTION_MS[name] - 1):+.1f}% from PERF.md's "
                f"{PRODUCTION_MS[name]} ms)" if prod is not None else "not timed in this run")
-            + f", the ablation's {none['variant']} {none['ms']:.4f} ms")
+            + f", the ablation's {none['variant']} {none['ms']:.4f} ms"
+            + (f" ({100 * (none['ms'] / prod - 1):+.1f}% from it)" if prod else "")
+            + (f"; on the ablation's inputs production {none['production_ms']:.4f} ms, "
+               f"{none['variant']} {100 * (none['ms'] / none['production_ms'] - 1):+.1f}% from it"
+               if none.get("production_ms") else ""))
 
     s3_shapes = []
     for n in (256, 257):
@@ -1930,13 +1979,25 @@ def phase_analysis(res):
 
     for row in s1_rows:
         row["library_ms"] = None
+        inputs = s1.make_inputs(row["case"], 1024, 4, 0, "cuda")   # the script's inputs
         if row["case"] in s1.GEMMS:
-            a, b = s1.make_inputs(row["case"], 1024, 4, 0, "cuda")
+            a, b = inputs
             a3, b3 = a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:])
             row["library_ms"] = cuda_time_ms(lambda: torch.bmm(a3, b3), 10)
             log(f"[analysis] S1 {row['case']}: kernel {row['ms']:.4f} ms, torch.bmm on the same "
                 f"bf16 operands {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
             del a, b, a3, b3
+        elif (acc := s1_library_call(row["case"], inputs[0], 16)) is not None:
+            # the sums are exact on these inputs, so the call must equal the plain version
+            ubench_mosaic.check(row["case"], s1_library_parts(row["case"], acc, inputs[0]),
+                                s1.plain(row["case"], inputs, 16))
+            del acc
+            row["library_ms"] = cuda_time_ms(lambda: s1_library_call(row["case"], inputs[0], 16),
+                                             10)
+            log(f"[analysis] S1 {row['case']}: kernel {row['ms']:.4f} ms, one PyTorch call "
+                f"{row['library_ms']:.4f} ms ({row['library_ms'] / row['ms']:.2f}x the kernel's "
+                f"time), bound {row['bound_ms']:.4f} ms")
+        del inputs
 
     def entry(name, source, replaces, key, rows, label, shape, main=None):
         top = main if main is not None else dict(
@@ -1959,7 +2020,7 @@ def phase_analysis(res):
     none5 = next(r for r in s5_rows if r["variant"] == "none")
     none4 = next(r for r in s4_rows if r["variant"] == "none")
     res.setdefault("kernels", []).extend([
-        entry("obs_render3_ablate", "obs_render3_ablate.cu", "scripts/ablate_obs3.py:211", "S5",
+        entry("obs_render3_ablate", "obs_render3.cu", "scripts/ablate_obs3.py:211", "S5",
               s5_rows, "variant", f"combat E={E_MAIN}, the none variant", main=none5),
         entry("obs_render2_ablate", "obs_render2_ablate.cu", "scripts/ablate_obs.py:226", "S4",
               s4_rows, "variant", f"combat E={E_MAIN}, the none variant", main=none4),
@@ -1969,7 +2030,8 @@ def phase_analysis(res):
               s2_rows, "case", f"the sum of the 9 cases at E={E_MAIN}"),
         entry("ubench_mosaic", "ubench_mosaic.cu", "scripts/ubench_mosaic.py:42", "S1",
               [r for r in s1_rows if r["case"] not in s1.GEMMS], "case",
-              "the sum of the 7 cases other than the GEMMs at G=1024, reps 16, eps 4"),
+              "the sum of the 7 cases other than the GEMMs at G=1024, reps 16, eps 4 "
+              "(each case's one PyTorch call, where there is one, as its library_ms)"),
         entry("ubench_gemm", "ubench_gemm.cu", "scripts/ubench_mosaic.py:170", "S1 GEMMs",
               gemm_rows, "case", "the sum of the 3 GEMM cases at G=1024, eps 4 (torch.bmm "
               "on the same bf16 operands as library_ms)"),

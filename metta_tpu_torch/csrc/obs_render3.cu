@@ -5,9 +5,7 @@
 // global tokens first, then the tokens of the window cells in center-out
 // order (the rows of `scan`), each (loc=(wr<<4)|wc, feat, val), truncated at
 // T tokens; the remaining slots are 255. Its plain torch version is
-// metta_tpu_torch/ops/obs_render3.py:render_obs3_plain. The first design of
-// this kernel (a block per env, a shared tile, a block barrier) is kept as
-// the subject of the section ablation, csrc/obs_render3_ablate.cu.
+// metta_tpu_torch/ops/obs_render3.py:render_obs3_plain.
 //
 // What bounds it: memory. At E=4096 on the combat map it writes 59 MB of
 // observations and reads the window cells of the block grid, the token
@@ -45,6 +43,16 @@
 //      bytes.
 // The next agent's position is loaded under this agent's work; nothing
 // waits on a block barrier between agents.
+//
+// Section ablation (S5, the counterpart of scripts/ablate_obs3.py:40
+// make_kernel, run by metta_tpu_torch/scripts/ablate_obs3.py): the kernel is
+// a template on a mask of its sections, the k* constants below. A set bit
+// replaces the section by a stub that reads no device memory;
+// obs_render3_launch runs mask 0, the render, and obs_render3_ablate_launch
+// any of the nine masks the ablation takes, on mask 0's grid, so that a
+// variant's saving is its section's and not a launch shape's. The plain
+// version of every mask is metta_tpu_torch/ops/ablate_obs.py:
+// render_obs3_ablated_plain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,6 +63,22 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCells = 4;              // window cells a lane takes per pass
 constexpr int kPass = 32 * kCells;
+
+// Sections, as bits of the ablation mask kSkip, and what each stub does instead.
+constexpr int kGlobals = 1;   // the global-token loads and their staging writes;
+                              // stub: byte i of agent a's global tokens is i + a
+constexpr int kWinread = 2;   // step 1's grid loads; stub: about one cell in twelve
+                              // holds block 1 + h % (NB - 1), h = e + a + s, none outside
+constexpr int kCount = 4;     // step 1's count loads; stub: min(K, 1 + (b + s) % 3) for b > 0
+constexpr int kScan = 8;      // step 2's warp scan and carry; stub: one slot for each
+                              // lane that holds a token (a ballot and a popcount)
+constexpr int kCopy = 16;     // step 3: the lane search, the shuffles, the token loads and
+                              // the staging writes; stub: each cell's first slot only,
+                              // (loc, block id, count), from the lane's own registers
+constexpr int kFill = 32;     // the 255 stores; stub: the fill's first three bytes only
+constexpr int kStore = 64;    // step 4's token words; stub: word k of row p holds
+                              // (k + p) & 255 in each byte, no staging read
+constexpr int kAll = 127;
 
 // A warp's staging row: 3T bytes after up to 3 bytes of word offset.
 __host__ __device__ size_t stage_bytes(int T) { return ((size_t)3 * T + 3 + 15) / 16 * 16; }
@@ -68,7 +92,13 @@ size_t smem_bytes(int S, int T) {
          (S + 15) / 16 * 16;
 }
 
-__global__ void __launch_bounds__(kThreads) obs_render3_kernel(
+// The stubbed instantiations are built for the render's occupancy, 5 blocks
+// an SM (at most 51 registers): without the hint ptxas built the fill's stub
+// at 40 registers with a spill. The render itself (mask 0) takes no hint (0),
+// so that it keeps its own build: a hint of 5 built it at 47 registers, and
+// one of 1 at 62, each with other instructions.
+template <int kSkip>
+__global__ void __launch_bounds__(kThreads, kSkip ? 5 : 0) obs_render3_kernel(
     const int32_t* __restrict__ sb,      // [E, H, W] combined block grid
     const uint8_t* __restrict__ tok,     // [E, NB, K, 2] (feat, val) per block
     const int32_t* __restrict__ counts,  // [E, NB] tokens per block
@@ -123,7 +153,8 @@ __global__ void __launch_bounds__(kThreads) obs_render3_kernel(
     }
     const int gc = min(g_raw, T);
     const uint8_t* gt = gtok + (size_t)p * G * 3;
-    const uint32_t gbyte = lane < 3 * gc ? __ldg(gt + lane) : 0u;  // global token bytes 0-31
+    uint32_t gbyte = 0u;  // global token bytes 0-31
+    if constexpr (!(kSkip & kGlobals)) gbyte = lane < 3 * gc ? __ldg(gt + lane) : 0u;
     const int32_t* sb_e = sb + (size_t)e * H * W;
     const int32_t* cnt_e = counts + (size_t)e * NB;
 
@@ -135,16 +166,26 @@ __global__ void __launch_bounds__(kThreads) obs_render3_kernel(
         const int s = base + 32 * k + lane;
         b[k] = -1;
         if (s < S) {
-          const int2 d = off[s];
-          const int r = ar + d.x, c = ac + d.y;
-          if ((unsigned)r < (unsigned)H && (unsigned)c < (unsigned)W)
-            b[k] = __ldg(sb_e + r * W + c);
+          if constexpr ((kSkip & kWinread) != 0) {
+            const int h = e + a + s;
+            b[k] = (h % 12 == 0 && NB > 1) ? 1 + h % (NB - 1) : 0;
+          } else {
+            const int2 d = off[s];
+            const int r = ar + d.x, c = ac + d.y;
+            if ((unsigned)r < (unsigned)H && (unsigned)c < (unsigned)W)
+              b[k] = __ldg(sb_e + r * W + c);
+          }
         }
       }
 #pragma unroll
       for (int k = 0; k < kCells; ++k) {  // then the count loads (outside the map: none)
         const int s = base + 32 * k + lane;
-        const int n = b[k] >= 0 ? __ldg(cnt_e + b[k]) : 0;
+        int n;
+        if constexpr ((kSkip & kCount) != 0) {
+          n = b[k] > 0 ? min(K, 1 + (b[k] + s) % 3) : 0;
+        } else {
+          n = b[k] >= 0 ? __ldg(cnt_e + b[k]) : 0;
+        }
         if (s < S) {
           blk[s] = b[k] < 0 ? 0 : b[k];
           cnt[s] = n;
@@ -157,8 +198,12 @@ __global__ void __launch_bounds__(kThreads) obs_render3_kernel(
     uint8_t* orow = out + (size_t)p * row;
     const int mis = (int)(reinterpret_cast<uintptr_t>(orow) & 3);
     uint8_t* srow = stage + mis;
-    if (lane < 3 * gc) srow[lane] = (uint8_t)gbyte;
-    for (int i = 32 + lane; i < 3 * gc; i += 32) srow[i] = __ldg(gt + i);
+    if constexpr ((kSkip & kGlobals) != 0) {
+      for (int i = lane; i < 3 * gc; i += 32) srow[i] = (uint8_t)(i + a);
+    } else {
+      if (lane < 3 * gc) srow[lane] = (uint8_t)gbyte;
+      for (int i = 32 + lane; i < 3 * gc; i += 32) srow[i] = __ldg(gt + i);
+    }
 
     // 2-3. each pass in scan order: the cells' first slots, then its object tokens
     const uint8_t* tok_e = tok + (size_t)e * NB * K * 2;
@@ -172,39 +217,61 @@ __global__ void __launch_bounds__(kThreads) obs_render3_kernel(
         b = *reinterpret_cast<const int4*>(blk + s0);
       }
       const int local = n.x + n.y + n.z + n.w;
-      int incl = local;
+      int first, total;  // this lane's first object slot; the pass's object tokens
+      if constexpr ((kSkip & kScan) != 0) {
+        const unsigned held = __ballot_sync(0xffffffffu, local > 0);
+        first = carry + __popc(held & ((1u << lane) - 1u));
+        total = __popc(held);
+      } else {
+        int incl = local;
 #pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, incl, d);
-        if (lane >= d) incl += v;
-      }
-      const int first = carry + incl - local;  // this lane's first object slot
-      const int total = __shfl_sync(0xffffffffu, incl, 31);
-      const int stop = min(carry + total, room);
-      for (int jb = carry; jb < stop; jb += 32) {  // uniform: every lane shuffles
-        const int j = jb + lane;
-        int L = 0;  // the last lane whose first slot is <= j: it holds j's cell
-#pragma unroll
-        for (int step = 16; step > 0; step >>= 1) {
-          const int v = __shfl_sync(0xffffffffu, first, L + step);
-          if (v <= j) L += step;
+        for (int d = 1; d < 32; d <<= 1) {
+          const int v = __shfl_up_sync(0xffffffffu, incl, d);
+          if (lane >= d) incl += v;
         }
-        const int c0 = __shfl_sync(0xffffffffu, first, L);
-        const int n0 = __shfl_sync(0xffffffffu, n.x, L), n1 = __shfl_sync(0xffffffffu, n.y, L);
-        const int n2 = __shfl_sync(0xffffffffu, n.z, L);
-        const int bx = __shfl_sync(0xffffffffu, b.x, L), by = __shfl_sync(0xffffffffu, b.y, L);
-        const int bz = __shfl_sync(0xffffffffu, b.z, L), bw = __shfl_sync(0xffffffffu, b.w, L);
-        if (j < stop) {
-          const int c1 = c0 + n0, c2 = c1 + n1, c3 = c2 + n2;
-          const int k = (j >= c1) + (j >= c2) + (j >= c3);  // j's cell among L's four
-          const int bk = k == 0 ? bx : (k == 1 ? by : (k == 2 ? bz : bw));
-          const int ck = k == 0 ? c0 : (k == 1 ? c1 : (k == 2 ? c2 : c3));
-          const uint16_t fv = __ldg(reinterpret_cast<const uint16_t*>(
-              tok_e + ((size_t)bk * K + (j - ck)) * 2));  // (feat, val)
-          uint8_t* d = srow + 3 * (gc + j);
-          d[0] = loc[base + L * kCells + k];
-          d[1] = (uint8_t)fv;
-          d[2] = (uint8_t)(fv >> 8);
+        first = carry + incl - local;
+        total = __shfl_sync(0xffffffffu, incl, 31);
+      }
+      const int stop = min(carry + total, room);
+      if constexpr ((kSkip & kCopy) != 0) {
+        const int nk[kCells] = {n.x, n.y, n.z, n.w}, bk[kCells] = {b.x, b.y, b.z, b.w};
+        int ck = first;
+#pragma unroll
+        for (int k = 0; k < kCells; ++k) {
+          if (nk[k] > 0 && ck < stop) {
+            uint8_t* d = srow + 3 * (gc + ck);
+            d[0] = loc[s0 + k];
+            d[1] = (uint8_t)bk[k];
+            d[2] = (uint8_t)nk[k];
+          }
+          ck += nk[k];
+        }
+      } else {
+        for (int jb = carry; jb < stop; jb += 32) {  // uniform: every lane shuffles
+          const int j = jb + lane;
+          int L = 0;  // the last lane whose first slot is <= j: it holds j's cell
+#pragma unroll
+          for (int step = 16; step > 0; step >>= 1) {
+            const int v = __shfl_sync(0xffffffffu, first, L + step);
+            if (v <= j) L += step;
+          }
+          const int c0 = __shfl_sync(0xffffffffu, first, L);
+          const int n0 = __shfl_sync(0xffffffffu, n.x, L), n1 = __shfl_sync(0xffffffffu, n.y, L);
+          const int n2 = __shfl_sync(0xffffffffu, n.z, L);
+          const int bx = __shfl_sync(0xffffffffu, b.x, L), by = __shfl_sync(0xffffffffu, b.y, L);
+          const int bz = __shfl_sync(0xffffffffu, b.z, L), bw = __shfl_sync(0xffffffffu, b.w, L);
+          if (j < stop) {
+            const int c1 = c0 + n0, c2 = c1 + n1, c3 = c2 + n2;
+            const int k = (j >= c1) + (j >= c2) + (j >= c3);  // j's cell among L's four
+            const int bk = k == 0 ? bx : (k == 1 ? by : (k == 2 ? bz : bw));
+            const int ck = k == 0 ? c0 : (k == 1 ? c1 : (k == 2 ? c2 : c3));
+            const uint16_t fv = __ldg(reinterpret_cast<const uint16_t*>(
+                tok_e + ((size_t)bk * K + (j - ck)) * 2));  // (feat, val)
+            uint8_t* d = srow + 3 * (gc + j);
+            d[0] = loc[base + L * kCells + k];
+            d[1] = (uint8_t)fv;
+            d[2] = (uint8_t)(fv >> 8);
+          }
         }
       }
       carry += total;
@@ -218,9 +285,14 @@ __global__ void __launch_bounds__(kThreads) obs_render3_kernel(
     const int n_words = (3 * filled + mis + 3) >> 2;
     for (int k = lane; k < n_words; k += 32) {
       const int i0 = 4 * k - mis;  // row byte of the word's byte 0 (>= -3)
-      uint32_t word = swords[k];
-      const int valid = 3 * filled - i0;  // its bytes that hold tokens (>= 1)
-      if (valid < 4) word |= 0xFFFFFFFFu << (8 * valid);
+      uint32_t word;
+      if constexpr ((kSkip & kStore) != 0) {
+        word = 0x01010101u * (uint32_t)((k + p) & 255);
+      } else {
+        word = swords[k];
+        const int valid = 3 * filled - i0;  // its bytes that hold tokens (>= 1)
+        if (valid < 4) word |= 0xFFFFFFFFu << (8 * valid);
+      }
       if (i0 >= 0 && i0 + 4 <= row) {
         wrow[k] = word;
       } else {
@@ -234,15 +306,19 @@ __global__ void __launch_bounds__(kThreads) obs_render3_kernel(
     uint8_t* b16 = reinterpret_cast<uint8_t*>(reinterpret_cast<uintptr_t>(orow) & ~(uintptr_t)15);
     const int o16 = (int)(orow - b16);
     const int fa = o16 + max(4 * n_words - mis, 0), fb = o16 + row;  // fa is a word boundary
-    for (int c = (fa >> 4) + lane; c < ((fb + 15) >> 4); c += 32) {
-      const int lo = c << 4, hi = lo + 16;
-      if (lo >= fa && hi <= fb) {
-        *reinterpret_cast<uint4*>(b16 + lo) = make_uint4(~0u, ~0u, ~0u, ~0u);
-      } else {
-        int x = max(lo, fa);
-        const int end = min(hi, fb);
-        for (; x + 4 <= end; x += 4) *reinterpret_cast<uint32_t*>(b16 + x) = ~0u;
-        for (; x < end; ++x) b16[x] = 255;
+    if constexpr ((kSkip & kFill) != 0) {
+      if (lane < 3 && fa + lane < fb) b16[fa + lane] = (uint8_t)(filled + lane);
+    } else {
+      for (int c = (fa >> 4) + lane; c < ((fb + 15) >> 4); c += 32) {
+        const int lo = c << 4, hi = lo + 16;
+        if (lo >= fa && hi <= fb) {
+          *reinterpret_cast<uint4*>(b16 + lo) = make_uint4(~0u, ~0u, ~0u, ~0u);
+        } else {
+          int x = max(lo, fa);
+          const int end = min(hi, fb);
+          for (; x + 4 <= end; x += 4) *reinterpret_cast<uint32_t*>(b16 + x) = ~0u;
+          for (; x < end; ++x) b16[x] = 255;
+        }
       }
     }
     __syncwarp();  // the warp's starts and staging row are rewritten by its next agent
@@ -258,20 +334,54 @@ __global__ void __launch_bounds__(kThreads) obs_render3_kernel(
   }
 }
 
+// The launch shape of instantiation kSkip for S window cells and T tokens.
+template <int kSkip>
+int shape_of(int S, int T, int* smem, int* per_sm, int* sms) {
+  *smem = (int)smem_bytes(S, T);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*smem > 48 * 1024)
+    cudaFuncSetAttribute(obs_render3_kernel<kSkip>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         *smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, obs_render3_kernel<kSkip>, kThreads, *smem);
+  return (int)cudaGetLastError();
+}
+
+// Launches instantiation kSkip on mask 0's grid: min(ceil(E A / 8), SMs x
+// blocks an SM holds of mask 0) blocks.
+template <int kSkip>
+int launch(const void* sb, const void* tok, const void* counts, const void* rc,
+           const void* gcnt, const void* gtok, const void* scan, void* out,
+           int E, int H, int W, int A, int NB, int K, int S, int G, int T, int ohr,
+           int owr, void* stream) {
+  if ((long long)E * A > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  int smem, per_sm, sms;
+  int err = shape_of<0>(S, T, &smem, &per_sm, &sms);
+  if (err == 0 && kSkip != 0) {
+    int per_sm_v;
+    err = shape_of<kSkip>(S, T, &smem, &per_sm_v, &sms);
+  }
+  if (err != 0) return err;
+  if (per_sm < 1) return (int)cudaErrorInvalidValue;
+  const long long need = ((long long)E * A + kWarps - 1) / kWarps;
+  const long long most = (long long)sms * per_sm;
+  const int grid = (int)(need < most ? need : most);
+  if (grid == 0) return 0;
+  obs_render3_kernel<kSkip><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)sb, (const uint8_t*)tok, (const int32_t*)counts,
+      (const int32_t*)rc, (const int32_t*)gcnt, (const uint8_t*)gtok,
+      (const int32_t*)scan, (uint8_t*)out, E, H, W, A, NB, K, S, G, T, ohr, owr);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The launch shape for S window cells and T tokens: dynamic shared memory
 // bytes, blocks an SM holds and the SMs of the current device; returns 0 or a
 // CUDA error.
 extern "C" int obs_render3_shape(int S, int T, int* smem, int* per_sm, int* sms) {
-  *smem = (int)smem_bytes(S, T);
-  int dev = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (*smem > 48 * 1024)
-    cudaFuncSetAttribute(obs_render3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, obs_render3_kernel, kThreads, *smem);
-  return (int)cudaGetLastError();
+  return shape_of<0>(S, T, smem, per_sm, sms);
 }
 
 // Launches the render on `stream`: min(ceil(E A / 8), SMs x blocks an SM
@@ -281,18 +391,34 @@ extern "C" int obs_render3_launch(
     const void* gcnt, const void* gtok, const void* scan, void* out,
     int E, int H, int W, int A, int NB, int K, int S, int G, int T, int ohr,
     int owr, void* stream) {
-  if ((long long)E * A > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  int smem, per_sm, sms;
-  const int err = obs_render3_shape(S, T, &smem, &per_sm, &sms);
-  if (err != 0) return err;
-  if (per_sm < 1) return (int)cudaErrorInvalidValue;
-  const long long need = ((long long)E * A + kWarps - 1) / kWarps;
-  const long long most = (long long)sms * per_sm;
-  const int grid = (int)(need < most ? need : most);
-  if (grid == 0) return 0;
-  obs_render3_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)sb, (const uint8_t*)tok, (const int32_t*)counts,
-      (const int32_t*)rc, (const int32_t*)gcnt, (const uint8_t*)gtok,
-      (const int32_t*)scan, (uint8_t*)out, E, H, W, A, NB, K, S, G, T, ohr, owr);
-  return (int)cudaGetLastError();
+  return launch<0>(sb, tok, counts, rc, gcnt, gtok, scan, out, E, H, W, A, NB, K, S, G, T,
+                   ohr, owr, stream);
+}
+
+// The render with the sections of `skip` stubbed (S5; the mask's bits are the
+// k* constants above): none, one section, or all of them. Returns
+// cudaErrorInvalidValue for any other mask.
+extern "C" int obs_render3_ablate_launch(
+    const void* sb, const void* tok, const void* counts, const void* rc,
+    const void* gcnt, const void* gtok, const void* scan, void* out,
+    int E, int H, int W, int A, int NB, int K, int S, int G, int T, int ohr,
+    int owr, int skip, void* stream) {
+#define OBS3_CASE(m)                                                                       \
+  case m:                                                                                  \
+    return launch<m>(sb, tok, counts, rc, gcnt, gtok, scan, out, E, H, W, A, NB, K, S, G, \
+                     T, ohr, owr, stream);
+  switch (skip) {
+    OBS3_CASE(0)
+    OBS3_CASE(kGlobals)
+    OBS3_CASE(kWinread)
+    OBS3_CASE(kCount)
+    OBS3_CASE(kScan)
+    OBS3_CASE(kCopy)
+    OBS3_CASE(kFill)
+    OBS3_CASE(kStore)
+    OBS3_CASE(kAll)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef OBS3_CASE
 }

@@ -22,20 +22,41 @@
 // float bit patterns (exact in any order) or, for the GEMMs, a float32 sum.
 //
 // Keeping the work real: the relayouts (M1, M1b, M2, M3, M4) are address
-// arithmetic on Hopper, so every rep reloads each element it reads, from L1
-// after the first: its address is offset by r * rep_stride, a kernel
-// argument the launchers set to 0, so that no compiler stage can prove two
-// reps' loads alike and merge them (an empty asm barrier on the pointer
-// does not stop ptxas from merging them). Every repeat loop carries its sum
-// through `opaque`, an empty asm that stops the compiler from folding the
-// reps into one operation (as jax.lax.optimization_barrier does). The loops
-// stay loops: chip_smoke.py counts their instructions in the SASS and
-// checks that each holds its loads and its arithmetic.
+// arithmetic on Hopper, so every rep reloads each element it reads (from
+// shared memory in the fold, from L1 after the first rep elsewhere): its
+// address is offset by r * rep_stride, a kernel argument the launchers set
+// to 0, so that no compiler stage can prove two reps' loads alike and merge
+// them (an empty asm barrier on the pointer does not stop ptxas from merging
+// them). Every repeat loop carries its sum through `opaque`, an empty asm
+// that stops the compiler from folding the reps into one operation (as
+// jax.lax.optimization_barrier does). The loops stay loops: chip_smoke.py
+// counts their instructions in the SASS and checks that each holds its
+// loads and its arithmetic.
 //
 // What bounds them: M1, M1b, M4 and M5 read their 0.1-2.2 GB inputs once
 // and add reps times; the adds bound them at 67 T f32 ops/s, the bytes at
 // 3.35 TB/s. The GEMMs (M6a-c) are in their own source, csrc/ubench_gemm.cu
 // (TMA and wgmma), so that this file's kernels keep their code.
+//
+// The fold (M1, M1b) is a streaming sum over G x n float32 elements (the
+// reshape is the identity on the flat index), byte-bound at 0.70 and 0.18
+// ms. Its first design, a block per g reading one element a thread at a
+// time, kept about 8 KB of DRAM reads in flight an SM, under half of what
+// 3.35 TB/s at about 700 ns needs, and ran at a fifth of the bound. This one
+// is a persistent grid (two blocks an SM): block i takes the flat chunks
+// [i C / nb, (i + 1) C / nb) of the C chunks of kFoldChunk floats (the last
+// of each g may be short; none crosses a g), and its producer thread brings
+// each chunk in one cp.async.bulk copy into a ring of kFoldStages
+// shared-memory stages (a full and an empty mbarrier a stage), so that up to
+// 192 KB an SM are in flight whatever the consumers do. Eight consumer warps
+// read each chunk once every rep, in 16-byte shared loads, into 16
+// independent accumulators a thread (each element's sum one chain of reps
+// adds in rep order, as the plain version takes it), release the stage, and
+// store the columns below 128 in 16-byte stores; the other columns' bits go
+// into cks[g] by one wrapping atomicAdd a warp and g. The reps' shared
+// reads (reps x 4 bytes an element at 128 bytes a clock an SM) set a floor
+// above the byte bound: about 1.1-1.2 ms for M1 and 0.27-0.30 for M1b at
+// reps 16.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +67,14 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCols = 640;                 // M7's plane width
 constexpr int kPerLane = kCols / 32;
+constexpr int kFoldChunk = 4096;           // the fold's chunk: floats a stage holds (16 KB)
+constexpr int kFoldStages = 6;             // stages of a block's ring: two blocks an SM
+constexpr int kFoldConsumers = 256;        // consumer threads, then one producer warp
+constexpr int kFoldThreads = kFoldConsumers + 32;
+constexpr int kFoldPerThread = kFoldChunk / 4 / kFoldConsumers;  // float4s a thread a chunk
+// The fold's dynamic shared memory: the ring, then a full and an empty
+// mbarrier a stage.
+constexpr int kFoldSmem = kFoldStages * kFoldChunk * 4 + 16 * kFoldStages;
 
 __device__ __forceinline__ float opaque(float v) {
   asm volatile("" : "+f"(v));
@@ -78,24 +107,158 @@ __global__ void __launch_bounds__(kThreads) tiny_kernel(
 
 // M1, M1b: acc [n / width, width] += reshape(x[g]) (row-major: the same
 // flat index), reps times; columns < 128 -> out[g] [n / width, 128], the
-// rest's bits -> cks[g].
-__global__ void __launch_bounds__(kThreads) fold_kernel(
+// rest's bits -> cks[g] (zeroed by the caller). The fold's ring and chunks
+// are described at the top of this file; ops/ubench_mosaic.py:fold_schedule
+// mirrors the chunk schedule.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Waits for the phase of `bar` with this parity to complete.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One 1-D bulk copy (TMA without a tensor map) of `bytes` (a multiple of 16)
+// from global `src` to shared `dst`, both 16-byte aligned, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The chunk's g, first element and length: chunk c of the G x per_g chunks.
+__device__ __forceinline__ void fold_chunk(long long c, int per_g, int n, long long& g,
+                                           int& start, int& len) {
+  g = c / per_g;
+  start = (int)(c - g * per_g) * kFoldChunk;
+  len = min(kFoldChunk, n - start);
+}
+
+__device__ __forceinline__ uint32_t bits4(const float4& v) {
+  return __float_as_uint(v.x) + __float_as_uint(v.y) + __float_as_uint(v.z) +
+         __float_as_uint(v.w);
+}
+
+// Adds this warp's lanes' `bits` into cks[g] (a wrapping int32 sum).
+__device__ __forceinline__ void fold_flush(uint32_t bits, int32_t* cks, long long g, int lane) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) bits += __shfl_xor_sync(0xffffffffu, bits, d);
+  if (lane == 0) atomicAdd(reinterpret_cast<unsigned int*>(cks + g), bits);
+}
+
+__global__ void __launch_bounds__(kFoldThreads, 2) fold_kernel(
     const float* __restrict__ x, float* __restrict__ out, int32_t* __restrict__ cks,
-    int n, int width, int reps, int rep_stride) {
-  const float* xg = x + (size_t)blockIdx.x * n;
-  float* og = out + (size_t)blockIdx.x * (n / width) * 128;
+    int n, int width, int reps, int rep_stride, long long chunks) {
+  extern __shared__ __align__(128) uint8_t fold_smem[];
+  float* ring = reinterpret_cast<float*>(fold_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kFoldStages * kFoldChunk);
+  uint64_t* empty = full + kFoldStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFoldStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kFoldConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int per_g = (n + kFoldChunk - 1) / kFoldChunk;
+  const long long begin = chunks * blockIdx.x / gridDim.x;
+  const long long end = chunks * (blockIdx.x + 1) / gridDim.x;
+  long long g;
+  int start, len, stage = 0;
+  uint32_t phase = 0;
+
+  if (warp == kFoldConsumers / 32) {
+    // ---- producer: lane 0 keeps the ring full ----
+    if (lane != 0) return;
+    for (long long c = begin; c < end; ++c) {
+      fold_chunk(c, per_g, n, g, start, len);
+      mbar_wait(empty + stage, phase ^ 1);
+      mbar_expect(full + stage, 4 * len);
+      bulk_load(ring + stage * kFoldChunk, x + g * n + start, 4 * len, full + stage);
+      if (++stage == kFoldStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: thread t takes float4 t + kFoldConsumers q of each chunk ----
+  long long cur_g = -1;
   uint32_t bits = 0;
-  for (int f = threadIdx.x; f < n; f += kThreads) {
-    float acc = 0.0f;
-    for (int r = 0; r < reps; ++r) acc = opaque(acc + xg[f + r * rep_stride]);
-    const int c = f % width;
-    if (c < 128) {
-      og[(f / width) * 128 + c] = acc;
-    } else {
-      bits += __float_as_uint(acc);
+  const int rows = n / width;
+  for (long long c = begin; c < end; ++c) {
+    fold_chunk(c, per_g, n, g, start, len);
+    if (g != cur_g) {  // uniform: every consumer thread takes the same chunks
+      if (cur_g >= 0) fold_flush(bits, cks, cur_g, lane);
+      cur_g = g;
+      bits = 0;
+    }
+    mbar_wait(full + stage, phase);
+    const float4* src = reinterpret_cast<const float4*>(ring + stage * kFoldChunk) + threadIdx.x;
+    float4 acc[kFoldPerThread];
+#pragma unroll
+    for (int q = 0; q < kFoldPerThread; ++q) acc[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int r = 0; r < reps; ++r) {
+#pragma unroll
+      for (int q = 0; q < kFoldPerThread; ++q) {
+        const float4 v = src[q * kFoldConsumers];
+        acc[q].x = opaque(acc[q].x + v.x);
+        acc[q].y = opaque(acc[q].y + v.y);
+        acc[q].z = opaque(acc[q].z + v.z);
+        acc[q].w = opaque(acc[q].w + v.w);
+      }
+      src += rep_stride;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + stage);  // the warp's reads of the stage are done
+    if (++stage == kFoldStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+#pragma unroll
+    for (int q = 0; q < kFoldPerThread; ++q) {
+      const int i = 4 * (threadIdx.x + q * kFoldConsumers);  // the float4's first element
+      if (i >= len) continue;
+      const int f = start + i, row = f / width, col = f - row * width;
+      if (col < 128) {  // a float4 never straddles column 128 (width % 128 == 0)
+        *reinterpret_cast<float4*>(out + ((size_t)g * rows + row) * 128 + col) = acc[q];
+      } else {
+        bits += bits4(acc[q]);
+      }
     }
   }
-  block_bitsum(bits, cks + blockIdx.x);
+  if (cur_g >= 0) fold_flush(bits, cks, cur_g, lane);
 }
 
 // M2: acc [128, rows] += x[g].T (x [G, rows, 128]), reps times -> out[g].
@@ -239,19 +402,45 @@ __global__ void __launch_bounds__(kThreads) compact_kernel(
 
 }  // namespace
 
-// Each entry launches its case on `stream`, one block of 256 threads per
-// grid step, with rep_stride 0
-// (every rep reads the same block), and returns cudaGetLastError()
-// (0 = launched).
+// Each entry launches its case on `stream` with rep_stride 0 (every rep
+// reads the same block), one block of 256 threads per grid step but the
+// fold's persistent grid, and returns cudaGetLastError() (0 = launched).
 extern "C" int mosaic_tiny(const void* x, void* out, int G, int n, int reps, void* stream) {
   tiny_kernel<<<G, kThreads, 0, (cudaStream_t)stream>>>((const float*)x, (float*)out, n, reps);
   return (int)cudaGetLastError();
 }
 
+// The fold's launch shape on the current device: ring stages, dynamic
+// shared memory bytes, blocks an SM holds and SMs; returns 0 or a CUDA error.
+extern "C" int mosaic_fold_shape(int* stages, int* smem, int* per_sm, int* sms) {
+  *stages = kFoldStages;
+  *smem = kFoldSmem;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncSetAttribute(fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFoldSmem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fold_kernel, kFoldThreads, kFoldSmem);
+  return (int)cudaGetLastError();
+}
+
+// The fold over x [G, n] (16-byte aligned) with rows of `width` (a multiple
+// of 128 dividing n) on min(chunks, SMs x blocks an SM) blocks; cks must be
+// zeroed. cudaErrorInvalidValue for a shape the kernel does not take.
 extern "C" int mosaic_fold(const void* x, void* out, void* cks, int G, int n, int width,
                            int reps, void* stream) {
-  fold_kernel<<<G, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)out, (int32_t*)cks, n, width, reps, 0);
+  if (G < 0 || n <= 0 || width <= 0 || width % 128 || n % width ||
+      reinterpret_cast<uintptr_t>(x) % 16)
+    return (int)cudaErrorInvalidValue;
+  int stages, smem, per_sm, sms;
+  const int err = mosaic_fold_shape(&stages, &smem, &per_sm, &sms);
+  if (err != 0) return err;
+  if (per_sm < 1) return (int)cudaErrorInvalidValue;
+  const long long chunks = (long long)G * ((n + kFoldChunk - 1) / kFoldChunk);
+  const long long most = (long long)sms * per_sm;
+  const int grid = (int)(chunks < most ? chunks : most);
+  if (grid == 0) return 0;
+  fold_kernel<<<grid, kFoldThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, (int32_t*)cks, n, width, reps, 0, chunks);
   return (int)cudaGetLastError();
 }
 

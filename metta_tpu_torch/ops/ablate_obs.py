@@ -2,40 +2,47 @@
 
 Counterpart of the TPU kernels' variants in ``scripts/ablate_obs3.py``
 (K1, ``make_kernel`` :40) and ``scripts/ablate_obs.py`` (K4, ``make_kernel``
-:36). The CUDA kernels ``csrc/obs_render3_ablate.cu`` and
-``csrc/obs_render2_ablate.cu`` (K1's and K4's first designs, a block per env
-with a shared tile, kept for these ablations when K1 and K4 became
-persistent kernels) are templates on a mask of their sections; a set bit
-replaces the section by
-a stub that reads no device memory (K4's stubs still read the [S] rank
-table, which every cell of every env shares). Mask 0 is the render itself.
+:36). Both CUDA kernels are templates on a mask of their sections; a set
+bit replaces the section by a stub that reads no device memory, and mask 0
+is the render itself. S5 ablates the production K1, ``csrc/obs_render3.cu``
+(``obs_render3_ablate_launch``, on the render's own grid); S4 ablates K4's
+first design, a block per env with a shared tile, kept in
+``csrc/obs_render2_ablate.cu`` when K4 became a persistent kernel (its
+stubs still read the [S] rank table, which every cell of every env shares).
 
-- K1's sections (:data:`SECTIONS3`): ``globals`` (global tokens to the first
-  slots), ``winread`` (window offsets from ``scan``, block id from ``sb``),
-  ``count`` (the block's token count), ``scan`` (warp prefix sum and carry),
-  ``copy`` (tokens into the shared tile), ``fill`` (255 in the free slots),
-  ``store`` (the tile out in 16-byte stores).
+- K1's sections (:data:`SECTIONS3`, the persistent kernel's steps):
+  ``globals`` (the global-token loads and their staging writes),
+  ``winread`` (step 1's grid loads), ``count`` (step 1's count loads),
+  ``scan`` (step 2's warp scan and carry), ``copy`` (step 3: the lane
+  search, the shuffles, the token loads and the staging writes), ``fill``
+  (the 255 stores), ``store`` (step 4's token words).
 - K4's sections (:data:`SECTIONS2`): ``read`` (block id and count of every
   (agent, cell) into rank slots), ``fill`` (the 255 prefill), ``prefix``
   (exclusive prefix sums in rank order), ``globals``, ``scatter`` (every
   cell's tokens to its slots), ``store``.
 
 The stubs keep every later index in range and the later sections' work near
-the render's: a stubbed window read puts a block of 1-3 tokens in about one
-cell in twelve (the combat render's mean is about 0.2 tokens a cell); a
-stubbed prefix gives each cell a quarter slot after the global tokens, so
-that the same cells copy their tokens and the fill starts near the render's
-total; a stubbed copy or scatter writes a cell's first slot only; a stubbed
-fill writes one slot an agent (K1 the first free one, K4 the last); a
-stubbed store writes every output word from one byte of the tile.
+the render's. A stubbed window read puts a block of 1-3 tokens in about one
+cell in twelve (the combat render's mean is about 0.2 tokens a cell), and
+nothing outside the map. K1's stubs otherwise: global bytes ``i + a``; one
+slot for each lane of the scan that holds a token (a ballot in place of the
+scan; the slot takes the first token of the lane's first cell that has
+one); each cell's first slot only, as (loc, block id, count); the fill's
+first three bytes only; token words of a pattern, byte ``(k + p) & 255`` in
+word k of flat agent p's row, read from no staging row. K4's: a stubbed
+prefix gives each cell a quarter slot after the global tokens; a stubbed
+scatter writes a cell's first slot only; a stubbed fill writes one slot an
+agent, the last; a stubbed store writes every output word from one byte of
+the tile.
 
-Where a variant's slots overlap, or a slot is never written (without
-``fill``), the shared tile holds bytes no plain version can know. The plain
+Where a variant's slots overlap, or a byte is never written (K1's stubbed
+copy and fill leave gaps; K1's staging row keeps the previous agent's
+bytes), the kernel leaves bytes no plain version can know. The plain
 versions return, beside the output, the mask of the bytes the variant
-defines: a slot written exactly once in a phase of the kernel (K1 writes
-its tile in one phase; K4 in three, ordered by barriers: the prefill, the
-global tokens, the scatter), and every output byte that a stubbed store
-computes from a defined byte.
+defines: a byte written exactly once in a phase of the kernel (K1's staging
+row in one phase, then the row; K4's tile in three, ordered by barriers:
+the prefill, the global tokens, the scatter), and every output byte a
+store writes from defined bytes or from no staging byte at all.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from metta_tpu_torch.ops.build import check_tensor
 SECTIONS3 = ("globals", "winread", "count", "scan", "copy", "fill", "store")
 SECTIONS2 = ("read", "fill", "prefix", "globals", "scatter", "store")
 EMPTY = 255
+PASS = 128                  # window cells a pass of K1 takes (csrc/obs_render3.cu:kPass)
 
 # Launches of the two ablation kernels, counted by the wrappers where they launch.
 launches_obs3 = 0
@@ -74,14 +82,14 @@ def mask_of(skips, sections) -> int:
 
 
 def _apply(val, ok, slots, vals, valid, T):
-    """One phase of writes into the [E, A, T, 3] tile: a slot written once
+    """One phase of writes into an [E, A, T, w] tile: a slot written once
     takes its value and is defined; a slot written more than once is not."""
-    E, A = val.shape[:2]
+    E, A, _, w = val.shape
     idx = torch.where(valid, slots, T).reshape(E, A, -1)
     cnt = torch.zeros((E, A, T + 1), dtype=torch.int32, device=val.device)
     cnt.scatter_add_(2, idx, torch.ones_like(idx, dtype=torch.int32))
-    new = torch.zeros((E, A, T + 1, 3), dtype=torch.uint8, device=val.device)
-    new.scatter_(2, idx[..., None].expand(-1, -1, -1, 3), vals.reshape(E, A, -1, 3))
+    new = torch.zeros((E, A, T + 1, w), dtype=torch.uint8, device=val.device)
+    new.scatter_(2, idx[..., None].expand(-1, -1, -1, w), vals.reshape(E, A, -1, w))
     cnt, new = cnt[..., :T], new[:, :, :T]
     val = torch.where((cnt == 1)[..., None], new, val)
     ok = torch.where(cnt == 1, True, torch.where(cnt > 1, False, ok))
@@ -130,74 +138,116 @@ def _stub_globals(A, G, T, dev):
 
 def render_obs3_ablated_plain(skips, sb, tok, counts, rc, g_count, g_tok, scan,
                               num_tokens: int, ohr: int, owr: int):
-    """K1 with the sections in ``skips`` stubbed, in torch ops ->
-    (out [E, A, T, 3] uint8, defined [E, A, T, 3] bool); undefined bytes
-    are 0. With no skips it is ``render_obs3_plain``, every byte defined."""
+    """K1 with the sections in ``skips`` stubbed, in torch ops, step for step
+    as ``csrc/obs_render3.cu`` takes them -> (out [E, A, T, 3] uint8,
+    defined [E, A, T, 3] bool); undefined bytes are 0. With no skips it is
+    ``render_obs3_plain``, every byte defined. ``out`` is taken to be
+    16-byte aligned, as the wrapper requires: row p starts ``3 T p & 3``
+    bytes past a word boundary."""
     skips = set(skips)
     E, H, W = sb.shape
     A = rc.shape[1]
     NB, K = tok.shape[1], tok.shape[2]
     S, G, T = scan.shape[0], g_tok.shape[2], num_tokens
-    dev = sb.device
+    R, dev = 3 * T, sb.device
     s = torch.arange(S, device=dev)
+    a_idx = torch.arange(A, device=dev)
+    p = torch.arange(E, device=dev)[:, None] * A + a_idx                  # [E, A] flat agent
+    gc = g_count.long().clamp(max=T)
 
-    if "globals" in skips:
-        g = torch.full((E, A), min(G, T), dtype=torch.long, device=dev)
-        gvals = _stub_globals(A, G, T, dev).expand(E, -1, -1, -1)
-    else:
-        g = g_count.long().clamp(max=T)
-        gvals = g_tok
-    gslot = torch.arange(G, device=dev).expand(E, A, G)
-    writes = [(gslot, gvals, gslot < g[..., None])]
+    # the staging row, one phase: the global tokens' bytes, then the object slots
+    gi = torch.arange(3 * G, device=dev)
+    gvals = ((gi + a_idx[:, None]) & 255).expand(E, A, -1) if "globals" in skips \
+        else g_tok.reshape(E, A, 3 * G).long()
+    pos, vals, valid = [gi.expand(E, A, -1)], [gvals], [gi < 3 * gc[..., None]]
 
+    # step 1: each cell's block id (-1 outside the map) and count
     if "winread" in skips:
-        dr, dc = s // (2 * owr + 1) - ohr, s % (2 * owr + 1) - owr
         b, _ = _stub_blocks(E, A, S, NB, K, dev)
-        inb = torch.ones_like(b, dtype=torch.bool)
     else:
-        dr, dc = scan[:, 0].long(), scan[:, 1].long()
-        rr, cc = rc[..., 0:1].long() + dr, rc[..., 1:2].long() + dc
+        rr, cc = rc[..., 0:1].long() + scan[:, 0].long(), rc[..., 1:2].long() + scan[:, 1].long()
         inb = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < W)
         flat = (rr.clamp(0, H - 1) * W + cc.clamp(0, W - 1)).reshape(E, -1)
-        b = torch.where(inb, sb.reshape(E, -1).gather(1, flat).reshape(E, A, S).long(), 0)
+        b = torch.where(inb, sb.reshape(E, -1).gather(1, flat).reshape(E, A, S).long(), -1)
     if "count" in skips:
-        n = torch.where(b != 0, torch.clamp(1 + (b + s) % 3, max=K), 0)
+        n = torch.where(b > 0, torch.clamp(1 + (b + s) % 3, max=K), 0)
     else:
-        n = torch.where(inb, counts.gather(1, b.reshape(E, -1)).reshape(E, A, S).long(), 0)
+        n = torch.where(b >= 0, counts.gather(1, b.clamp(min=0).reshape(E, -1))
+                        .reshape(E, A, S).long(), 0)
+    b = b.clamp(min=0)
 
-    if "scan" in skips:
-        start = g[..., None] + 8 * (s // 32) + (s % 32 >> 2)
-        walked = ((T - g + 7) // 8).clamp(0, (S + 31) // 32)   # chunks begun below T
-        total = (g + 8 * walked).clamp(max=T)
+    # steps 2-3, pass by pass of 128 cells, lane l holding cells 4l .. 4l + 3
+    P = (S + PASS - 1) // PASS
+    pad = P * PASS - S
+    nP = torch.nn.functional.pad(n, (0, pad)).reshape(E, A, P, 32, 4)
+    bP = torch.nn.functional.pad(b, (0, pad)).reshape(E, A, P, 32, 4)
+    loc = torch.nn.functional.pad(((((scan[:, 0].long() + ohr) << 4)
+                                    | (scan[:, 1].long() + owr)) & 255), (0, pad))
+    local = nP.sum(-1)                                                   # [E, A, P, 32]
+    held = (local > 0).long() if "scan" in skips else local               # slots a lane takes
+    total = held.sum(-1)                                                 # [E, A, P]
+    carry = total.cumsum(-1) - total
+    first = carry[..., None] + held.cumsum(-1) - held                    # [E, A, P, 32]
+    stop = torch.minimum(carry + total, (T - gc)[..., None])             # [E, A, P]
+    cstart = first[..., None] + nP.cumsum(-1) - nP                       # each cell's first slot
+    cell = torch.arange(P * PASS, device=dev).reshape(P, 32, 4)
+    tok_flat = tok.reshape(E, NB * K, 2).long()
+
+    def token(cells, t):
+        """(loc, feat, val) of token t of the block in each of the cells
+        [E, A, N] -> [E, A, N, 3]."""
+        blk = bP.reshape(E, A, -1).gather(2, cells)
+        ft = tok_flat.gather(1, (blk * K + t).reshape(E, -1, 1).expand(-1, -1, 2))
+        return torch.cat([loc[cells][..., None], ft.reshape(E, A, -1, 2)], -1)
+
+    if "copy" in skips:                   # each cell's first slot: (loc, block id, count)
+        slot = cstart
+        ok = (nP > 0) & (cstart < stop[..., None, None])
+        v = torch.stack([loc[cell].expand_as(bP), bP & 255, nP & 255], -1)
+    elif "scan" in skips:                 # lane l's one slot: its first cell with tokens
+        k0 = (nP > 0).long().argmax(-1)                                  # [E, A, P, 32]
+        slot = first
+        ok = (local > 0) & (first < stop[..., None])
+        cells = (cell[..., 0] + k0).reshape(E, A, -1)
+        v = token(cells, torch.zeros_like(cells)).reshape(E, A, P, 32, 3)
+    else:                                 # every token t of a cell at its first slot + t
+        t = torch.arange(K, device=dev)
+        slot = cstart[..., None] + t
+        ok = (t < nP[..., None]) & (slot < stop[..., None, None, None])
+        cells = cell[..., None].expand(E, A, P, 32, 4, K).reshape(E, A, -1)
+        v = token(cells, t.expand(E, A, P, 32, 4, K).reshape(E, A, -1)).reshape(*slot.shape, 3)
+    byte = 3 * (gc.reshape(E, A, *[1] * (slot.dim() - 2)) + slot)[..., None] \
+        + torch.arange(3, device=dev)
+    pos.append(byte.reshape(E, A, -1))
+    vals.append(v.reshape(E, A, -1))
+    valid.append(ok[..., None].expand(*ok.shape, 3).reshape(E, A, -1))
+    st, st_ok = _apply(torch.zeros((E, A, R, 1), dtype=torch.uint8, device=dev),
+                       torch.zeros((E, A, R), dtype=torch.bool, device=dev),
+                       torch.cat(pos, -1), torch.cat(vals, -1).to(torch.uint8)[..., None],
+                       torch.cat(valid, -1), R)
+    st = st[..., 0]
+
+    # step 4 and the fill: the token words end at tend, the fill starts there
+    filled = (gc + total.sum(-1)).clamp(max=T)[..., None]                # [E, A, 1]
+    mis = ((p * R) & 3)[..., None]
+    n_words = (3 * filled + mis + 3) >> 2
+    tend = 4 * n_words - mis
+    i = torch.arange(R, device=dev)
+    words = i < tend
+    if "store" in skips:
+        v1, ok1 = ((i + mis) >> 2) + p[..., None], torch.ones_like(words)
     else:
-        start = g[..., None] + n.cumsum(-1) - n
-        total = (g + n.sum(-1)).clamp(max=T)
-    stop = torch.minimum(n, T - start)
-    loc = ((((dr + ohr) << 4) | (dc + owr)) & 255).expand(E, A, S)
-    if "copy" in skips:
-        vals = torch.stack([loc, b & 255, n & 255], -1).to(torch.uint8)[..., None, :]
-        writes.append((start[..., None], vals, (stop > 0)[..., None]))
-    else:
-        k = torch.arange(K, device=dev)
-        ft = tok.reshape(E, NB * K, 2).gather(
-            1, (b[..., None] * K + k).reshape(E, -1, 1).expand(-1, -1, 2)).reshape(E, A, S, K, 2)
-        vals = torch.cat([loc[..., None, None].expand(-1, -1, -1, K, 1).to(torch.uint8), ft], -1)
-        writes.append((start[..., None] + k, vals, k < stop[..., None]))
+        tokens = i < 3 * filled
+        v1, ok1 = torch.where(tokens, st.long(), EMPTY), torch.where(tokens, st_ok, True)
     if "fill" in skips:
-        fv = ((total[..., None] + torch.arange(3, device=dev)) & 255).to(torch.uint8)
-        writes.append((total, fv, total < T))
+        rest = (i >= tend) & (i < tend + 3)
+        v2 = filled + i - tend
     else:
-        t = torch.arange(T, device=dev).expand(E, A, T)
-        writes.append((t, torch.full((E, A, T, 3), EMPTY, dtype=torch.uint8, device=dev),
-                       t >= total[..., None]))
-
-    slots = torch.cat([w[0].reshape(E, A, -1) for w in writes], -1)
-    vals = torch.cat([w[1].reshape(E, A, -1, 3) for w in writes], 2)
-    valid = torch.cat([w[2].reshape(E, A, -1) for w in writes], -1)
-    tile = torch.zeros((E, A, T, 3), dtype=torch.uint8, device=dev)
-    ok = torch.zeros((E, A, T), dtype=torch.bool, device=dev)
-    tile, ok = _apply(tile, ok, slots, vals, valid, T)
-    return _store(tile, ok, "store" in skips)
+        rest, v2 = i >= tend, torch.full_like(i, EMPTY)
+    out = torch.where(words, v1, v2) & 255
+    defined = (words & ok1) | rest
+    out = torch.where(defined, out, 0).to(torch.uint8)
+    return out.reshape(E, A, T, 3), defined.reshape(E, A, T, 3)
 
 
 def render_obs2_ablated_plain(skips, sb, tok, counts, rc, g_count, g_tok, rank,
@@ -351,7 +401,7 @@ def render_obs3_ablated(skips, sb, tok, counts, rc, g_count, g_tok, scan, num_to
     if E == 0:
         return out
     with torch.cuda.device(sb.device):
-        err = _entry("obs_render3_ablate", "obs_render3_ablate_launch", 12)(
+        err = _entry("obs_render3", "obs_render3_ablate_launch", 12)(
             sb.data_ptr(), tok.data_ptr(), counts.data_ptr(), rc.data_ptr(),
             g_count.data_ptr(), g_tok.data_ptr(), scan.data_ptr(), out.data_ptr(),
             E, H, W, A, NB, K, S, G, T, ohr, owr, mask,

@@ -3,11 +3,12 @@
 Counterpart of ``scripts/ubench_mosaic.py`` (its Pallas kernels, ``pallas_call``
 at :42, :125, :170, :190, :206). Ten cases at grid G, ``reps`` repeats and
 EPS envs a step (EA = 24 EPS rows); ``csrc/ubench_mosaic.cu`` says what each
-computes, and ``csrc/ubench_gemm.cu`` holds the three GEMMs (TMA and wgmma;
+computes (:func:`fold_schedule` mirrors the chunks of its fold, M1 and M1b),
+and ``csrc/ubench_gemm.cu`` holds the three GEMMs (TMA and wgmma;
 :func:`gemm_boxes` and :func:`gemm_schedule` mirror its depth boxes and its
-block schedule). Every case returns (slots, checksum): ``slots[g]`` is what grid
-step g writes (the TPU output is the last step's, ``slots[-1]``), and the
-checksum covers what the TPU output drops (int32 sums of float bits, or
+block schedule). Every case returns (slots, checksum): ``slots[g]`` is what
+grid step g writes (the TPU output is the last step's, ``slots[-1]``), and
+the checksum covers what the TPU output drops (int32 sums of float bits, or
 float32 sums of the GEMMs' row tiles; None where nothing is dropped).
 
 Inputs come from a numpy seed: floats (u + 0.5) / 128 and bf16
@@ -39,6 +40,8 @@ launches_gemm = 0
 # most 8 stages of 16 KB, B whole (nE x padded depth x 128 bf16), barriers.
 GEMM_STAGE_BYTES, GEMM_MAX_STAGES, GEMM_SMEM_LIMIT = 16384, 8, 232448
 GEMM_MAX_DEPTH = 512
+# The fold's chunk: floats a stage holds, one bulk copy (csrc/ubench_mosaic.cu:kFoldChunk).
+FOLD_CHUNK = 4096
 
 
 def _bytes(rng, shape, device):
@@ -139,6 +142,22 @@ def gemm_schedule(pairs: int, blocks: int):
     tiles of one g (so it loads that g's B once). The kernel launches
     ``min(pairs, SMs)`` blocks (one an SM). Mirrors csrc/ubench_gemm.cu."""
     return [(pairs * i // blocks, pairs * (i + 1) // blocks) for i in range(blocks)]
+
+
+def fold_schedule(G: int, n: int, blocks: int):
+    """The chunks each block of the fold kernel takes, as (g, first element,
+    length): the G x ceil(n / FOLD_CHUNK) chunks in g-major order, FOLD_CHUNK
+    elements each but the last of each g, block i the range [i C / nb,
+    (i + 1) C / nb) of the C chunks. The kernel launches min(C, SMs x blocks
+    an SM) blocks. Mirrors csrc/ubench_mosaic.cu:fold_chunk."""
+    per_g = -(-n // FOLD_CHUNK)
+    total = G * per_g
+
+    def chunk(c):
+        g, j = divmod(c, per_g)
+        return g, j * FOLD_CHUNK, min(FOLD_CHUNK, n - j * FOLD_CHUNK)
+    return [[chunk(c) for c in range(total * i // blocks, total * (i + 1) // blocks)]
+            for i in range(blocks)]
 
 
 def compact_roll_sources(b: int):
@@ -260,6 +279,16 @@ def gemm_launch_shape(nE: int, Kd: int):
     return dict(zip(("stages", "smem", "per_sm", "sms"), (v.value for v in vals)))
 
 
+def fold_launch_shape():
+    """The fold kernel's launch shape on the current card: {stages, smem
+    bytes, blocks an SM holds, SMs} (needs the card)."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = _library().mosaic_fold_shape(*[ctypes.byref(v) for v in vals])
+    if err != 0:
+        raise RuntimeError(f"mosaic_fold_shape failed: CUDA error {err}")
+    return dict(zip(("stages", "smem", "per_sm", "sms"), (v.value for v in vals)))
+
+
 def gemm_boxes_built(Kd: int):
     """The depth boxes as the built kernel library picks them (needs the
     card's toolchain): [(first column, width)]."""
@@ -282,6 +311,7 @@ def _library():
             ("mosaic_droll", [p, p, p, i, i, i, i, s]),
             ("mosaic_rep", [p, p, p, i, i, i, i, s]),
             ("mosaic_compact", [p, p, p, i, i, i, s]),
+            ("mosaic_fold_shape", [p, p, p, p]),
         ):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
@@ -335,8 +365,11 @@ def run(case: str, inputs, reps: int):
                 err = lib.mosaic_tiny(x.data_ptr(), out.data_ptr(), G, n, reps, stream)
             elif case in ("M1", "M1b"):
                 width = 2048 if case == "M1" else 128 * COPIES
+                if n % width or x.data_ptr() % 16:
+                    raise ValueError(f"{case}: x[g] must hold whole rows of {width} and x be "
+                                     f"16-byte aligned (bulk copies)")
                 out = torch.empty((G, n // width, 128), dtype=f32, device=dev)
-                cks = torch.empty((G,), dtype=i32, device=dev)
+                cks = torch.zeros((G,), dtype=i32, device=dev)     # the kernel adds into it
                 err = lib.mosaic_fold(x.data_ptr(), out.data_ptr(), cks.data_ptr(), G, n, width,
                                       reps, stream)
             elif case == "M2":

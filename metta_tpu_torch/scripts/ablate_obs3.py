@@ -2,18 +2,22 @@
 
 Counterpart of ``scripts/ablate_obs3.py``: builds the combat map's render
 inputs (map seed 1234, E=4096, 24 agents) and times each variant of the
-kernel with sections stubbed (``ops/ablate_obs.py``), each held to its plain
-version in the bytes it defines, ``none`` to the production K1 byte for
-byte. Prints one line per variant: ms a launch, what it saves against
-``none``, the render's bound and the variant's share of it.
+production kernel with sections stubbed (``ops/ablate_obs.py``; the kernel
+is a template on its section mask, launched on the render's own grid), each
+held to its plain version in the bytes it defines, ``none`` to the
+production K1 byte for byte. Prints one line per variant: ms a launch, what
+it saves against ``none``, the render's bound and the variant's share of it.
 
-K1's sections follow the CUDA kernel, not the TPU kernel's one-hot
-formulation. The TPU script's sections map onto them so:
+K1's sections follow the persistent CUDA kernel's steps, not the TPU
+kernel's one-hot formulation. The TPU script's sections map onto them so:
 
     TPU script          this script
-    winread             winread + count
-    repack, search      scan
-    decode, fetch       copy
+    winread             winread (step 1's grid loads)
+    repack              none: step 1 reads the window in scan order
+    decode              count (the counts), and copy's token loads
+    search, fetch       copy (the lane search, the token loads)
+    (its prefix GEMM,   scan (the warp scan)
+     never stubbed)
     out                 globals + fill + store
 
 Usage: python -m metta_tpu_torch.scripts.ablate_obs3 [--num-envs 4096]

@@ -122,7 +122,8 @@ def ablate(name, sections, kernel, plain, production, variants, steps, device, w
     (out, defined), ``production()`` the unablated render; ``work`` is
     (bytes, ops) of the render. On the card each variant must equal its
     plain version in its defined bytes, and ``none`` the production render
-    byte for byte. Returns one dict per variant."""
+    byte for byte; the production render is timed beside ``none`` on the
+    same inputs. Returns one dict per variant."""
     from metta_tpu_torch.ops import ablate_obs as ab
 
     bound_ms, bound_by, _ = bound_of(*work)
@@ -144,11 +145,15 @@ def ablate(name, sections, kernel, plain, production, variants, steps, device, w
                 raise AssertionError(f"{name} none differs from the production kernel")
             buf = torch.zeros_like(got)
             row["ms"] = time_ms(lambda: kernel(skips, out=buf), steps, device)
+            if not skips:
+                row["production_ms"] = time_ms(production, steps, device)
         row["plain_ms"] = time_ms(lambda: plain(skips), 3 if device.type == "cuda" else 1, device)
         row.update(bound_ms=bound_ms, bound_by=bound_by)
         if "ms" in row:
             base = row["ms"] if base is None and v == "none" else base
             saves = f"(saves {base - row['ms']:7.4f})" if base is not None else ""
+            if "production_ms" in row:
+                saves += f" (production {row['production_ms']:.4f} ms)"
             print(f"skip {v:44s} {row['ms']:8.4f} ms/launch {saves}  bound {bound_ms:.4f} ms "
                 f"({bound_by}), {100 * bound_ms / row['ms']:5.1f}% of it; plain "
                 f"{row['plain_ms']:.3f} ms; {100 * row['defined']:.1f}% of bytes defined")

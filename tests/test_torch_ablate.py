@@ -1,15 +1,17 @@
 """The port's render ablations (``ops/ablate_obs.py``) against the JAX scripts'.
 
-The unablated variant (``none``) of each plain version must equal the JAX
-script's own Pallas kernel in interpret mode, byte for byte, on the same
-combat state: K1's (``scripts/ablate_obs3.py:make_kernel``, wired as its
-``call_variant`` wires it) at E=8 with EPS=8, and K4's
-(``scripts/ablate_obs.py:make_kernel``) at E=4 with EPS=1. The scripts are
-loaded by file path; nothing under ``scripts/`` changes. Every stubbed
-variant must differ from ``none`` somewhere in the bytes it defines (a stub
-that changes nothing measures nothing), the wrappers take the plain versions
-for CPU tensors, and both CLIs run with ``--device cpu``. The CUDA kernels
-themselves are held to these plain versions on a GPU by
+S5 ablates the production K1 (``csrc/obs_render3.cu``), S4 K4's first
+design (``csrc/obs_render2_ablate.cu``). The unablated variant (``none``) of
+each plain version must equal the JAX script's own Pallas kernel in
+interpret mode, byte for byte, on the same combat state: K1's
+(``scripts/ablate_obs3.py:make_kernel``, wired as its ``call_variant`` wires
+it) at E=8 with EPS=8, and K4's (``scripts/ablate_obs.py:make_kernel``) at
+E=4 with EPS=1. The scripts are loaded by file path; nothing under
+``scripts/`` changes. Every stubbed variant must differ from ``none``
+somewhere in the bytes it defines (a stub that changes nothing measures
+nothing), the wrappers take the plain versions for CPU tensors, the masks
+are the kernels' section bits, and both CLIs run with ``--device cpu``. The
+CUDA kernels themselves are held to these plain versions on a GPU by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
@@ -210,7 +212,7 @@ def test_cpu_wrappers_take_plain_versions(combat):
 
 def test_masks_are_the_kernels_bits():
     """The wrappers' masks follow the k* constants of the CUDA sources."""
-    src3 = (REPO / "metta_tpu_torch" / "csrc" / "obs_render3_ablate.cu").read_text()
+    src3 = (REPO / "metta_tpu_torch" / "csrc" / "obs_render3.cu").read_text()
     src2 = (REPO / "metta_tpu_torch" / "csrc" / "obs_render2_ablate.cu").read_text()
     for sections, src in ((ab.SECTIONS3, src3), (ab.SECTIONS2, src2)):
         for i, name in enumerate(sections):

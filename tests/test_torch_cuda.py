@@ -17,8 +17,10 @@ K2's maxima stepping on the card through the torch-ops step; K3 (``csrc/discount
 16-byte multiples) and the advantages through it against the CPU; K5 (``csrc/obs_render.cu``)
 on the sequential env's inputs at E=1, 64 and 4097, arena30, a cut at T, rows
 of 75 bytes and a wrapping location byte, on synthetic inputs at its edges,
-and the sequential env with K5 on the GPU against the CPU; S1's M7 bit-equal
-at phase 13's shape; the wrappers' input checks; a few whole env steps on the GPU
+and the sequential env with K5 on the GPU against the CPU; S5's nine masks
+of K1 on synthetic inputs at E=8, rows of 21 bytes among them; S1's M7
+bit-equal at phase 13's shape, and its fold (M1, M1b) at G=3 with a short
+last chunk; the wrappers' input checks; a few whole env steps on the GPU
 against the CPU; and a tiny trainer update through all three kernels.
 This file imports no JAX, so it runs on a machine with a card and torch
 alone:
@@ -869,6 +871,27 @@ def test_mosaic_case_matches_plain(case):
     check(case, got, s1.plain(case, inputs, 3))
 
 
+@pytest.mark.parametrize("case", ["M1", "M1b"])
+@pytest.mark.parametrize("reps", [1, 16])
+def test_mosaic_fold_is_bit_equal(case, reps):
+    """The fold through its shared-memory ring at G=3, bit-equal to its plain
+    version (slots and checksum): M1b at eps 1 holds 33,792 elements a g,
+    eight whole chunks and a short one; M1 132 whole chunks."""
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    _cuda()
+    inputs = s1.make_inputs(case, 3, 1, seed=7, device="cuda")
+    n = inputs[0][0].numel()
+    assert (n % s1.FOLD_CHUNK != 0) == (case == "M1b")
+    before = s1.launches
+    slots, cks = s1.run(case, inputs, reps)
+    torch.cuda.synchronize()
+    assert s1.launches == before + 1
+    want_slots, want_cks = s1.plain(case, inputs, reps)
+    assert torch.equal(slots.view(torch.int32), want_slots.view(torch.int32))
+    assert torch.equal(cks, want_cks)
+
+
 @pytest.mark.parametrize("G,eps", [(2, 1), (1024, 4)], ids=["G2", "phase13"])
 def test_mosaic_compact_is_bit_equal(G, eps):
     """M7, the compaction network in registers, bit-equal to its plain
@@ -935,8 +958,8 @@ def _cut_inside_a_cell(args, T):
 ], ids=["A40", "E1", "E4097", "T7", "globals_over_T"])
 def test_k1_matches_plain_on_synthetic_inputs(E, A, T, G, g_all):
     """K1 byte-equal to its plain version where the persistent schedule and
-    the word stores meet their edges; S5's ``none`` (K1's first design)
-    byte-equal to it on the same inputs."""
+    the word stores meet their edges; S5's ``none`` (the ablation's launch of
+    mask 0) byte-equal to it on the same inputs."""
     from metta_tpu_torch.ops import ablate_obs as ab
 
     args, extra = _synthetic_render(E, A, T, G, g_all, device=_cuda())
@@ -948,6 +971,29 @@ def test_k1_matches_plain_on_synthetic_inputs(E, A, T, G, g_all):
     assert k1.launches == before + 1
     assert torch.equal(got, k1.render_obs3_plain(*args, *extra))
     assert torch.equal(ab.render_obs3_ablated(set(), *args, *extra), got)
+
+
+@pytest.mark.parametrize("T,g_all", [(200, None), (7, None), (3, 5)],
+                         ids=["T200", "T7", "globals_over_T"])
+def test_k1_ablation_masks_match_plain_on_synthetic_inputs(T, g_all):
+    """Every S5 mask of K1 equal to its plain version in the bytes it
+    defines at E=8, windows past the map's edges: rows of 600 bytes, of 21
+    (word offsets 0-3, where the stubbed token words and fill start), and
+    more global tokens than T; ``none`` byte-equal to the render."""
+    from metta_tpu_torch.ops import ablate_obs as ab
+
+    args, extra = _synthetic_render(8, 24, T, 5, g_all, seed=11, device=_cuda())
+    render = k1.render_obs3(*args, *extra)
+    for v in ab.variants(ab.SECTIONS3):
+        skips = ab.skips_of(v, ab.SECTIONS3)
+        before = ab.launches_obs3
+        got = ab.render_obs3_ablated(skips, *args, *extra)
+        torch.cuda.synchronize()
+        assert ab.launches_obs3 == before + 1
+        want, defined = ab.render_obs3_ablated_plain(skips, *args, *extra)
+        assert not bool(((got != want) & defined).any()), v
+        if not skips:
+            assert bool(defined.all()) and torch.equal(got, render)
 
 
 def _rank_args(args, extra):
@@ -1048,7 +1094,7 @@ def test_k4_wrapper_refuses_sizes_beyond_its_maxima():
 
 def test_k1_wrapper_never_takes_the_plain_version(monkeypatch):
     """A CUDA input launches the kernel or raises; it never reaches the plain
-    version (nor the first design, which lives in another library)."""
+    version."""
     args, extra = _synthetic_render(3, 24, 40, device=_cuda())
     want = k1.render_obs3_plain(*args, *extra)
 

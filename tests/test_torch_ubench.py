@@ -9,14 +9,17 @@ reps, the last block compared: float32 repeats within rtol 1e-6 (the sum
 taken in the same order), the bf16 GEMMs within 1e-3 of the largest
 magnitude (the accumulation order differs). The scripts are loaded by file
 path; ``ubench_mosaic.py`` defines its kernels inside ``main``, so their
-bodies and ``pallas_call`` wiring are copied here. Every CLI runs once with
-``--device cpu``. The CUDA kernels themselves are held to these plain
-versions on a GPU by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+bodies and ``pallas_call`` wiring are copied here. The fold's chunk
+schedule (``ops/ubench_mosaic.py:fold_schedule``) must cover every element
+once, no chunk crossing a g. Every CLI runs once with ``--device cpu``.
+The CUDA kernels themselves are held to these plain versions on a GPU by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
 import functools
 import importlib.util
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -247,6 +250,32 @@ def test_mosaic_checksum_covers_dropped_columns():
     slots2, cks2 = s1.run("M1", (x,), REPS)
     assert torch.equal(slots2[-1], s1.run("M1", inputs, REPS)[0][-1])
     assert cks2[-1] != cks[-1] and cks2[0] == cks[0]
+
+
+@pytest.mark.parametrize("n,G", [
+    (264 * 16 * 128, 1024),          # M1 at phase 13's G: 132 whole chunks a g
+    (24 * 4 * 11 * 128, 1024),       # M1b at eps 4: 33 whole chunks a g
+    (12_345, 3),                     # an odd n: a short last chunk in every g
+], ids=["M1", "M1b", "odd"])
+def test_fold_schedule_covers_each_element_once(n, G):
+    """The fold's chunks on the kernel's grid (min(chunks, 132 SMs x 2
+    blocks)): every element of every g in exactly one chunk, each chunk
+    inside one g and no longer than a stage, only a g's last chunk short,
+    and each block's chunks consecutive in g-major order."""
+    src = (REPO / "metta_tpu_torch" / "csrc" / "ubench_mosaic.cu").read_text()
+    assert re.search(rf"constexpr int kFoldChunk = {s1.FOLD_CHUNK};", src)
+    per_g = -(-n // s1.FOLD_CHUNK)
+    blocks = min(G * per_g, 132 * 2)
+    plan = s1.fold_schedule(G, n, blocks)
+    assert len(plan) == blocks and all(plan)
+    flat = [c for chunks in plan for c in chunks]
+    assert flat == sorted(flat) and len(flat) == G * per_g
+    cover = np.zeros((G, n), dtype=np.int32)
+    for g, start, length in flat:
+        assert 0 <= g < G and 0 < length <= s1.FOLD_CHUNK and start + length <= n
+        assert length == s1.FOLD_CHUNK or start + length == n
+        cover[g, start:start + length] += 1
+    assert (cover == 1).all()
 
 
 @pytest.mark.parametrize("argv", [
