@@ -7,9 +7,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (each one a hard failure):
 
 1. build every CUDA kernel of the port from ``metta_tpu_torch/csrc`` (K1-K5;
-   S5 in K1's source, a template on its section mask; S4, K4's first design,
-   in its own source; S1's GEMMs and its other cases in two sources, S2 and
-   S3; one ``nvcc`` per source, all started together), keep ``ptxas -v``'s
+   S5 and S4 in K1's and K4's sources, each a template on its section mask;
+   S1's GEMMs and its other cases in two sources, S2 and S3; one ``nvcc``
+   per source, all started together), keep ``ptxas -v``'s
    registers and shared memory of the redesigned K1, K2, K3, K4, K5, S1 fold
    and S1 GEMM kernels, and print the card's name and power limit;
 2. K1 (``csrc/obs_render3.cu``) against its plain torch version
@@ -25,9 +25,7 @@ Phases (each one a hard failure):
    curriculum env (``MultiTaskEnv`` over the arena curriculum's 16 tasks,
    E=170, the learner's env), ``make_arena(30)`` (149 block ids) at E=4096,
    and combat at E=4096, where K1 renders the same inputs too; K4's time per
-   launch and its bound at each shape, beside its first design's (S4's
-   ``none``, ``csrc/obs_render2_ablate.cu``, byte-equal to it, timed in
-   turns with it), K1's time beside them on combat;
+   launch and its bound at each shape, K1's time beside it on combat;
 5. the port on the GPU against the port on the CPU: 8 envs, 30 steps, the
    same agent orders and desync draws, state and obs byte-identical, for
    combat with ``track_stats=True`` (the torch-ops step) and combat and
@@ -91,12 +89,13 @@ Phases (each one a hard failure):
    for ``step_mode="batched"`` and taken into the sequential step;
 13. the analysis path, the six kernel-analysis scripts of
    ``metta_tpu_torch/scripts`` through their ``main`` at the JAX scripts'
-   default sizes: S5, the section ablation of the production K1 (each mask
-   an instantiation of ``csrc/obs_render3.cu``), and S4, that of K4's first
-   design (combat, E=4096: ``none``, each section stubbed alone, all
-   stubbed), every variant equal to its plain version in the bytes it
-   defines and ``none`` byte-equal to the production kernel, K1's ``none``
-   beside phase 6's K1; K2's section ablation (``ablate_fused``: combat,
+   default sizes: S5 and S4, the section ablations of the production K1
+   and K4 (each mask an instantiation of ``csrc/obs_render3.cu`` or
+   ``csrc/obs_render2.cu``; combat, E=4096: ``none``, each section stubbed
+   alone, all stubbed), every variant equal to its plain version in the
+   bytes it defines and ``none`` byte-equal to the production kernel and
+   timed beside it on the same inputs, K1's ``none`` beside phase 6's K1
+   and K4's beside phase 4's; K2's section ablation (``ablate_fused``: combat,
    E=4096, the seeded state of phase 3; ``full``, ``noasm``, ``noattack``,
    ``noswap``, ``bare``, each the kernel instantiation of its flags, byte-equal
    to its plain version), its launches counted and each section's cost
@@ -108,20 +107,22 @@ Phases (each one a hard failure):
    time, bound and plain time; the launch counts of the scripts' run; one
    PyTorch call for each S1 case that one computes (M5's ``torch.add``, the
    folds', M2's and M4's ``torch.sum`` over an expanded view), held to the
-   plain version and timed as the library yardstick; each
-   repeat loop found in the SASS (``cuobjdump -sass``) with the loads and
+   plain version and timed as the library yardstick; M5 timed in turns
+   with ``torch.add`` and ``copy_``; each repeat loop found in the SASS (``cuobjdump -sass``) with the loads and
    arithmetic it must hold (M7's, the compaction in registers: ``FSETP``
    and ``SHFL`` with no ``LDS``; the fold's, from its shared-memory ring:
-   ``FADD`` and ``LDS`` with no ``LDG``), its instruction count printed, and the S1
+   ``FADD`` and ``LDS`` with no ``LDG``; M5's ``FADD``, its kernel holding
+   16-byte global loads and stores), its instruction count printed, and the S1
    GEMM kernel's main loops holding ``HGMMA`` (the consumers' ``wgmma``) and
    ``UTMALDG`` (the producer's TMA loads), K2's production kernel
    holding ``MATCH`` and ``REDUX`` (its per-key winners), K3's chain loops
    holding ``FMUL``, ``FADD`` and ``LDS`` with no ``FFMA`` or ``LDG`` (the
    bit-exact chain from shared memory), and K4's and K5's per-agent loops
    holding ``SHFL`` and no block barrier; K1's, K2's, K3's, K4's and K5's
-   production kernels at their registers (K1's the mask-0 instantiation),
-   and they, K2's chest instantiation, M7 and the fold with no stack or
-   local memory; the launch shape (registers and shared memory from ``ptxas
+   production kernels at their registers (K1's and K4's the mask-0
+   instantiations), and they, every stubbed mask of K1 and K4, K2's chest
+   instantiation, M7 and the fold with no stack or local memory; the
+   launch shape (registers and shared memory from ``ptxas
    -v``, blocks an SM, the fold's ring stages) of the redesigned K1, K2
    (combat, arena, the chest config), K3, K4, K5, S1 fold and S1 GEMMs;
    ``torch.bmm`` on the S1 GEMMs' operands as the library yardstick;
@@ -389,14 +390,12 @@ def phase_k4_vs_plain(res):
     """K4 against its plain version on every step of three runs: the
     curriculum env (16 stacked tasks, E=170, the learner's env), make_arena(30)
     (149 block ids) and combat at E=4096, where K1 renders the same inputs
-    too; then K4's time per launch at each shape beside its first design's
-    (S4's ``none``, byte-equal to it), K1's beside them on combat."""
+    too; then K4's time per launch at each shape, K1's beside it on combat."""
     from metta_tpu_torch.builder.envs import make_arena
     from metta_tpu_torch.engine import env as env_mod
     from metta_tpu_torch.engine.env import MettaGridEnv
     from metta_tpu_torch.engine.tables import tables_at
     from metta_tpu_torch.engine.taskset import MultiTaskEnv
-    from metta_tpu_torch.ops import ablate_obs as ab
     from metta_tpu_torch.ops import obs_render2 as k4
     from metta_tpu_torch.ops import obs_render3 as k1
 
@@ -408,34 +407,21 @@ def phase_k4_vs_plain(res):
 
     def time_k4(name, args, t, k1_too=False):
         r2 = render2_args(t)
-        first = ab.render_obs2_ablated(set(), *args, *r2)
-        got = k4.render_obs2(*args, *r2)
-        torch.cuda.synchronize()
-        if not torch.equal(first, got):
-            raise AssertionError(f"K4's first design (S4's none) differs from K4 on {name}")
-        before, before1, before4 = k4.launches, k1.launches, ab.launches_obs2
-        # the redesign and its first design in turns: first, new, new, first
-        first_ms = [cuda_time_ms(lambda: ab.render_obs2_ablated(set(), *args, *r2, out=first),
-                                 50)]
-        ms = [cuda_time_ms(lambda: k4.render_obs2(*args, *r2), 50) for _ in range(2)]
-        first_ms.append(cuda_time_ms(lambda: ab.render_obs2_ablated(set(), *args, *r2, out=first),
-                                     50))
+        before, before1 = k4.launches, k1.launches
         entry = dict(
-            ms=ms[0], first_design_ms=first_ms[0],     # one 50-launch run each, as elsewhere
+            ms=cuda_time_ms(lambda: k4.render_obs2(*args, *r2), 50),
             host_ms=cuda_time_ms(lambda: k4.render_obs2(*args, *r2), 50, queue_ahead=False),
             plain_ms=cuda_time_ms(lambda: k4.render_obs2_plain(*args, *r2), 3),
         )
         if k1_too:
             entry["k1_ms"] = cuda_time_ms(lambda: k1.render_obs3(*args, *render_args(t)), 50)
-        k4.launches, k1.launches, ab.launches_obs2 = before, before1, before4  # timing only
+        k4.launches, k1.launches = before, before1               # timing only
         nbytes, ops, parts = render_work(args, t.obs_scan, t.num_obs_tokens)
         entry["bound_ms"], entry["bound_by"], _ = bound_of(nbytes, ops)
         entry["mb"] = nbytes / 1e6
         shapes[name] = entry
         log(f"[k4] {name}: {entry['ms']:.4f} ms per launch on the device "
-            f"({entry['host_ms']:.4f} ms at the wrapper's host pace; its first design, S4's "
-            f"none, {entry['first_design_ms']:.4f} ms on the same inputs; runs "
-            f"{[round(v, 4) for v in first_ms[:1] + ms + first_ms[1:]]}), plain "
+            f"({entry['host_ms']:.4f} ms at the wrapper's host pace), plain "
             f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB "
             f"at 3.35 TB/s, {entry['bound_by']}), {100 * entry['bound_ms'] / entry['ms']:.1f}% "
             f"of the bound" + (f"; K1 on the same inputs {entry['k1_ms']:.4f} ms"
@@ -1597,12 +1583,14 @@ def phase_sequential(res):
 # (8 columns at B=60, 32 at B=4080): the forward pass, its gradient, the
 # gradient with gdecay; S1's M7 (its row in registers) and fold (its
 # shared-memory ring) at any count (None), with no stack or local memory
-# either. K1 is the mask-0 instantiation of its section template.
+# either. K1 and K4 are the mask-0 instantiations of their section
+# templates; every other instantiation of the two, a stubbed mask of S5 or
+# S4, must have no stack or local memory either (SECTION_TEMPLATES).
 K2_COMBAT = "sim_fused_kernelILb1ELb0ELb1ELb1ELb0E"
 # K2 with its chest phase, the instantiation of the chest config (swap,
 # assemblers and chests)
 K2_CHESTS = "sim_fused_kernelILb0ELb0ELb1ELb1ELb1E"
-K4_MAIN = "obs_render2_kernelILi1E"
+K4_MAIN = "obs_render2_kernelILi1ELi0EE"
 K5_MAIN = "obs_render_kernelILi1E"
 K3_KERNELS = {(direction, cols): f"discounted_sum_kernelIL{flags}ELi{cols}E"
               for direction, flags in (("forward", "b0ELb0"), ("backward", "b1ELb0"),
@@ -1621,6 +1609,7 @@ PRODUCTION_REGISTERS = [("obs_render3", K1_MAIN, 48),
                             (("backward with gdecay", 32), 114))],
                         ("ubench_mosaic", "compact_kernel", None),
                         ("ubench_mosaic", "fold_kernel", None)]
+SECTION_TEMPLATES = [("obs_render3", "obs_render3_kernel"), ("obs_render2", "obs_render2_kernel")]
 # PERF.md's kernel table, combat E=4096
 PRODUCTION_MS = {"K1": 0.0909, "K4": 0.0884, "K2": 0.0304}
 # Warp instructions K2's production kernel must hold (cuobjdump -sass
@@ -1634,7 +1623,9 @@ K2_SASS_OPS = ("MATCH", "REDUX")
 # rep from its shared-memory ring: its loop holds shared loads, no global
 # one.
 # S3 has no repeat loop: its shuffles, ballot and shared atomics are counted
-# in the function.
+# in the function. M5's kernel must also hold 16-byte global loads and
+# stores (TINY_VECTOR_OPS: opcode prefix and width suffix of the full
+# mnemonic).
 SASS_LOOPS = [
     *[("ubench_pairmat", f"pairmat_kernelILi{i}E", ops) for i, ops in enumerate((
         ("ISETP",), ("IADD3",), ("SHFL",), ("IADD3",), ("SHFL", "ISETP"), ("SHFL",),
@@ -1649,6 +1640,7 @@ SASS_LOOPS = [
     ("ubench_gemm", "gemm_tma_kernel", ("HGMMA",)),
     ("ubench_gemm", "gemm_tma_kernel", ("UTMALDG",)),
 ]
+TINY_VECTOR_OPS = (("LDG", ".128"), ("STG", ".128"))
 SASS_ADDR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
 
 
@@ -1724,6 +1716,15 @@ def check_sass():
             function_instructions=len(dumps[lib][names[0]]))
         log(f"[sass] {lib} {frag}: repeat loop of {loop[0]} instructions, {loop[1]}; "
             f"{len(dumps[lib][names[0]])} instructions in the kernel")
+    (name, instrs), = [(n, i) for n, i in dumps["ubench_mosaic"].items() if "tiny_kernel" in n]
+    mnemonics = [ins.split()[1] if ins.startswith("@") else ins.split()[0] for _, ins in instrs]
+    vector_ops = {op + width: sum(m.startswith(op) and width in m for m in mnemonics)
+                  for op, width in TINY_VECTOR_OPS}
+    if not all(vector_ops.values()):
+        raise AssertionError(f"ubench_mosaic tiny_kernel: no 16-byte global loads or stores in "
+                             f"the SASS: {vector_ops}")
+    log(f"[sass] ubench_mosaic tiny_kernel: {vector_ops}")
+    found["tiny_kernel vectors"] = vector_ops
     (name, instrs), = [(n, i) for n, i in dumps["smoke_sim"].items() if "smoke_sim_kernel" in n]
     ops = {op: sum(opcode(i).startswith(op) for _, i in instrs) for op in ("SHFL", "VOTE", "ATOMS")}
     if not all(ops.values()):
@@ -1749,17 +1750,21 @@ def check_sass():
             f"{len(instrs)} instructions in the kernel")
         found[frag] = dict(loop_instructions=loop[0], ops=loop[1],
                            function_instructions=len(instrs))
-    # K4 and K5: shuffles in the per-agent loop (the largest), and no block barrier
-    for lib in ("obs_render2", "obs_render"):
+    # K4 and K5: shuffles in the per-agent loop (the largest), and no block
+    # barrier; K4's production kernels are the mask-0 instantiations (its
+    # stubbed masks are S4's)
+    for lib, production in (("obs_render2", r"obs_render2_kernelILi\d+ELi0EE"),
+                            ("obs_render", r"obs_render_kernelILi\d+E")):
         for name, instrs in dumps[lib].items():
-            if f"{lib}_kernel" not in name:
+            frag = re.search(production, name)
+            if frag is None:
                 continue
+            frag = frag.group(0)
             agent_loop = max(sass_loops(instrs), key=len)
             ops = {op: sum(opcode(i) == op for i in agent_loop) for op in ("SHFL", "BAR")}
             if not ops["SHFL"] or ops["BAR"]:
                 raise AssertionError(f"{lib} {name}: the per-agent loop holds {ops}, not "
                                      f"shuffles without a block barrier")
-            frag = re.search(rf"{lib}_kernelILi\d+E", name).group(0)
             log(f"[sass] {lib} {frag}: per-agent loop of {len(agent_loop)} instructions, "
                 f"{ops}; {sum(opcode(i) == 'BAR' for _, i in instrs)} block barriers in the "
                 f"kernel")
@@ -1768,23 +1773,30 @@ def check_sass():
     return found
 
 
-def check_registers():
-    """K1's, K2's, K3's, K4's and K5's production kernels use the registers
-    they were built with, and they and S1's M7 and fold use no stack or
-    local memory."""
+def resource_usage(lib):
+    """{mangled name: {REG, STACK, LOCAL, ...}} of kernel library ``lib``
+    from ``cuobjdump -res-usage``."""
     from metta_tpu_torch.ops import build
 
+    usage, cur = {}, None
+    for line in build.cuobjdump(lib, "-res-usage").splitlines():
+        m = re.search(r"Function (\S+?):?$", line.strip())
+        if m:
+            cur = m.group(1)
+        elif "REG:" in line and cur is not None:
+            usage[cur] = dict((k, int(v)) for k, v in re.findall(r"(\w+):(\d+)", line))
+    return usage
+
+
+def check_registers():
+    """K1's, K2's, K3's, K4's and K5's production kernels use the registers
+    they were built with, and they, every instantiation of K1's and K4's
+    section templates and S1's M7 and fold use no stack or local memory."""
     out, dumps = {}, {}
     for lib, frag, want in PRODUCTION_REGISTERS:
         if lib not in dumps:
-            dumps[lib] = build.cuobjdump(lib, "-res-usage")
-        usage, cur = {}, None
-        for line in dumps[lib].splitlines():
-            m = re.search(r"Function (\S+?):?$", line.strip())
-            if m:
-                cur = m.group(1)
-            elif "REG:" in line and cur is not None:
-                usage[cur] = dict((k, int(v)) for k, v in re.findall(r"(\w+):(\d+)", line))
+            dumps[lib] = resource_usage(lib)
+        usage = dumps[lib]
         hits = [u for n, u in usage.items() if frag in n]
         if not hits:
             raise AssertionError(f"{lib}: no {frag} in the resource usage ({sorted(usage)})")
@@ -1794,6 +1806,16 @@ def check_registers():
         if want not in (None, u.get("REG")) or u.get("STACK", 0) or u.get("LOCAL", 0):
             raise AssertionError(f"{lib} {frag} compiled to {u}, not {want} registers unspilled")
         out[frag] = u
+    for lib, frag in SECTION_TEMPLATES:
+        masks = {re.search(rf"{frag}I\w*?EE", n).group(0): u
+                 for n, u in (dumps.get(lib) or resource_usage(lib)).items() if frag in n}
+        spilled = {n: u for n, u in masks.items() if u.get("STACK", 0) or u.get("LOCAL", 0)}
+        log(f"[registers] {lib}: {len(masks)} instantiations of its section template at "
+            f"{sorted({u.get('REG') for u in masks.values()})} registers, "
+            f"{len(spilled)} with stack or local memory")
+        if len(masks) < 9 or spilled:
+            raise AssertionError(f"{lib}: {len(masks)} instantiations, spilled: {spilled}")
+        out[f"{frag} masks"] = masks
     return out
 
 
@@ -1907,6 +1929,30 @@ def s1_library_parts(case, acc, x):
     return acc, None
 
 
+def m5_in_turns(row):
+    """M5 on the script's inputs (G=1024, reps 16) timed in turns with its
+    ``torch.add`` and with ``copy_`` of the same bytes (the stream with no
+    arithmetic): kernel, add, copy, copy, add, kernel. Adds each's first
+    time to ``row`` (M5's row of the S1 script)."""
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    x = s1.make_inputs("M5", 1024, 4, 0, "cuda")[0]
+    before = s1.launches
+    out = torch.empty_like(x)
+    calls = dict(kernel=lambda: s1.run("M5", (x,), 16),
+                 add=lambda: s1_library_call("M5", x, 16), copy=lambda: out.copy_(x))
+    times = {name: [] for name in calls}
+    for name in ("kernel", "add", "copy", "copy", "add", "kernel"):
+        times[name].append(cuda_time_ms(calls[name], 10))
+    s1.launches = before                                   # timing launches do not count
+    row.update(kernel_in_turns_ms=times["kernel"][0], add_in_turns_ms=times["add"][0],
+               copy_in_turns_ms=times["copy"][0])
+    log(f"[analysis] S1 M5 in turns (kernel, add, copy, copy, add, kernel): kernel "
+        f"{times['kernel']} ms, torch.add {times['add']} ms, copy_ {times['copy']} ms; "
+        f"bound {row['bound_ms']:.4f} ms")
+    del x, out
+
+
 def phase_analysis(res):
     """Phase 13, the analysis path: the six kernel-analysis scripts at the
     JAX scripts' default sizes, each kernel held to its plain version inside
@@ -1998,6 +2044,7 @@ def phase_analysis(res):
                 f"{row['library_ms']:.4f} ms ({row['library_ms'] / row['ms']:.2f}x the kernel's "
                 f"time), bound {row['bound_ms']:.4f} ms")
         del inputs
+    m5_in_turns(next(r for r in s1_rows if r["case"] == "M5"))
 
     def entry(name, source, replaces, key, rows, label, shape, main=None):
         top = main if main is not None else dict(
@@ -2022,7 +2069,7 @@ def phase_analysis(res):
     res.setdefault("kernels", []).extend([
         entry("obs_render3_ablate", "obs_render3.cu", "scripts/ablate_obs3.py:211", "S5",
               s5_rows, "variant", f"combat E={E_MAIN}, the none variant", main=none5),
-        entry("obs_render2_ablate", "obs_render2_ablate.cu", "scripts/ablate_obs.py:226", "S4",
+        entry("obs_render2_ablate", "obs_render2.cu", "scripts/ablate_obs.py:226", "S4",
               s4_rows, "variant", f"combat E={E_MAIN}, the none variant", main=none4),
         entry("smoke_sim", "smoke_sim.cu", "scripts/smoke_sim_kernel.py:65", "S3",
               s3_shapes, "shape", "E=256", main=s3_shapes[0]),

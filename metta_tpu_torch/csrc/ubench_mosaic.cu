@@ -38,6 +38,21 @@
 // 3.35 TB/s. The GEMMs (M6a-c) are in their own source, csrc/ubench_gemm.cu
 // (TMA and wgmma), so that this file's kernels keep their code.
 //
+// M5 is a stream: 138 MB in and 138 MB out at G=1024, byte-bound at 0.083
+// ms. Its first design, a block per g with each thread loading one float,
+// adding and storing before its next load, lost to torch.add (1.34x). This
+// one treats x and out as one flat array of G n floats (slot g is the range
+// [g n, (g + 1) n)) and walks it in 16-byte vectors, one a thread, on a
+// grid that covers the array in one round: thread v takes vector v; the
+// last vector, where G n % 4 != 0, is partial and moves its floats in
+// scalar loads and stores. The reps run over the vector's four
+// accumulators, each element one chain of opaque adds in rep order, as the
+// plain version takes them. On the card (NVIDIA H100 80GB HBM3, 700 W) the
+// variants tried on this grid (more vectors a thread, streaming hints) came
+// within about 2% of torch.add, the best of them within noise of it and of
+// each other, so the simplest of those was kept; a persistent grid (SMs x
+// blocks an SM) was slower with every variant.
+//
 // The fold (M1, M1b) is a streaming sum over G x n float32 elements (the
 // reshape is the identity on the flat index), byte-bound at 0.70 and 0.18
 // ms. Its first design, a block per g reading one element a thread at a
@@ -65,6 +80,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kTinyThreads = 512;          // M5's block
 constexpr int kCols = 640;                 // M7's plane width
 constexpr int kPerLane = kCols / 32;
 constexpr int kFoldChunk = 4096;           // the fold's chunk: floats a stage holds (16 KB)
@@ -94,14 +110,32 @@ __device__ void block_bitsum(uint32_t v, int32_t* dst) {
   }
 }
 
-// M5: acc = x[g] + 1, reps times -> out[g] (x, out: [G, n]).
-__global__ void __launch_bounds__(kThreads) tiny_kernel(
-    const float* __restrict__ x, float* __restrict__ out, int n, int reps) {
-  const size_t base = (size_t)blockIdx.x * n;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    float acc = x[base + i];
-    for (int r = 0; r < reps; ++r) acc = opaque(acc + 1.0f);
-    out[base + i] = acc;
+// M5: out = x + 1, reps times, over the flat [total] floats (16-byte aligned).
+__global__ void __launch_bounds__(kTinyThreads) tiny_kernel(
+    const float* __restrict__ x, float* __restrict__ out, long long total, int reps) {
+  const long long v = (long long)blockIdx.x * kTinyThreads + threadIdx.x;
+  if (v >= (total + 3) / 4) return;  // vectors, the last one partial where total % 4 != 0
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int m = (int)min(total - 4 * v, 4LL);  // floats in this vector
+  if (m == 4) {
+    acc = reinterpret_cast<const float4*>(x)[v];
+  } else {
+    acc.x = x[4 * v];
+    if (m > 1) acc.y = x[4 * v + 1];
+    if (m > 2) acc.z = x[4 * v + 2];
+  }
+  for (int r = 0; r < reps; ++r) {
+    acc.x = opaque(acc.x + 1.0f);
+    acc.y = opaque(acc.y + 1.0f);
+    acc.z = opaque(acc.z + 1.0f);
+    acc.w = opaque(acc.w + 1.0f);
+  }
+  if (m == 4) {
+    reinterpret_cast<float4*>(out)[v] = acc;
+  } else {
+    out[4 * v] = acc.x;
+    if (m > 1) out[4 * v + 1] = acc.y;
+    if (m > 2) out[4 * v + 2] = acc.z;
   }
 }
 
@@ -403,10 +437,22 @@ __global__ void __launch_bounds__(kThreads) compact_kernel(
 }  // namespace
 
 // Each entry launches its case on `stream` with rep_stride 0 (every rep
-// reads the same block), one block of 256 threads per grid step but the
-// fold's persistent grid, and returns cudaGetLastError() (0 = launched).
+// reads the same block), one block of 256 threads per grid step but M5's
+// flat grid of 512-thread blocks and the fold's persistent grid, and
+// returns cudaGetLastError() (0 = launched).
+
+// M5 over x [G, n] (16-byte aligned), a vector a thread in one round;
+// cudaErrorInvalidValue for a misaligned x or a grid past 2^31 - 1 blocks.
 extern "C" int mosaic_tiny(const void* x, void* out, int G, int n, int reps, void* stream) {
-  tiny_kernel<<<G, kThreads, 0, (cudaStream_t)stream>>>((const float*)x, (float*)out, n, reps);
+  if (G < 0 || n < 0 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)G * n;
+  const long long grid = ((total + 3) / 4 + kTinyThreads - 1) / kTinyThreads;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (total == 0) return 0;
+  tiny_kernel<<<(unsigned)grid, kTinyThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, total, reps);
   return (int)cudaGetLastError();
 }
 

@@ -5,10 +5,9 @@ Counterpart of the TPU kernels' variants in ``scripts/ablate_obs3.py``
 :36). Both CUDA kernels are templates on a mask of their sections; a set
 bit replaces the section by a stub that reads no device memory, and mask 0
 is the render itself. S5 ablates the production K1, ``csrc/obs_render3.cu``
-(``obs_render3_ablate_launch``, on the render's own grid); S4 ablates K4's
-first design, a block per env with a shared tile, kept in
-``csrc/obs_render2_ablate.cu`` when K4 became a persistent kernel (its
-stubs still read the [S] rank table, which every cell of every env shares).
+(``obs_render3_ablate_launch``), and S4 the production K4,
+``csrc/obs_render2.cu`` (``obs_render2_ablate_launch``, at one pass of 128
+window cells), each on the render's own grid.
 
 - K1's sections (:data:`SECTIONS3`, the persistent kernel's steps):
   ``globals`` (the global-token loads and their staging writes),
@@ -16,33 +15,35 @@ stubs still read the [S] rank table, which every cell of every env shares).
   ``scan`` (step 2's warp scan and carry), ``copy`` (step 3: the lane
   search, the shuffles, the token loads and the staging writes), ``fill``
   (the 255 stores), ``store`` (step 4's token words).
-- K4's sections (:data:`SECTIONS2`): ``read`` (block id and count of every
-  (agent, cell) into rank slots), ``fill`` (the 255 prefill), ``prefix``
-  (exclusive prefix sums in rank order), ``globals``, ``scatter`` (every
-  cell's tokens to its slots), ``store``.
+- K4's sections (:data:`SECTIONS2`) carry the same names and bits over its
+  own steps: ``globals``, ``winread`` (level 2's grid loads), ``count``
+  (level 3's count loads; the rank-slot writes stay), ``scan`` (the warp
+  scan in rank order), ``copy``, ``fill``, ``store``.
 
 The stubs keep every later index in range and the later sections' work near
 the render's. A stubbed window read puts a block of 1-3 tokens in about one
 cell in twelve (the combat render's mean is about 0.2 tokens a cell), and
-nothing outside the map. K1's stubs otherwise: global bytes ``i + a``; one
-slot for each lane of the scan that holds a token (a ballot in place of the
-scan; the slot takes the first token of the lane's first cell that has
-one); each cell's first slot only, as (loc, block id, count); the fill's
-first three bytes only; token words of a pattern, byte ``(k + p) & 255`` in
-word k of flat agent p's row, read from no staging row. K4's: a stubbed
-prefix gives each cell a quarter slot after the global tokens; a stubbed
-scatter writes a cell's first slot only; a stubbed fill writes one slot an
-agent, the last; a stubbed store writes every output word from one byte of
-the tile.
+nothing outside the map. Otherwise: global bytes ``i + a``; one slot for
+each lane of the scan that holds a token (a ballot in place of the scan;
+the slot takes the first token of the lane's first cell that has one);
+each cell's first slot only, as (loc, block id, count); the fill's first
+three bytes only; token words of a pattern, byte ``(k + p) & 255`` in word
+k of flat agent p's row, read from no staging row.
 
-Where a variant's slots overlap, or a byte is never written (K1's stubbed
-copy and fill leave gaps; K1's staging row keeps the previous agent's
+K4's rank slot r holds, at one pass, what K1's scan cell r holds (the r-th
+cell of the center-out walk), lane l the slots 4l .. 4l + 3 as K1's lane l
+its cells, and K4's stubs are K1's with the rank slot for K1's scan index:
+the two ablations are one function of the inputs, and
+:func:`render_obs2_ablated_plain` is :func:`render_obs3_ablated_plain` on
+the walk that the rank table describes.
+
+Where a variant's slots overlap, or a byte is never written (the stubbed
+copy and fill leave gaps; the staging row keeps the previous agent's
 bytes), the kernel leaves bytes no plain version can know. The plain
 versions return, beside the output, the mask of the bytes the variant
-defines: a byte written exactly once in a phase of the kernel (K1's staging
-row in one phase, then the row; K4's tile in three, ordered by barriers:
-the prefill, the global tokens, the scatter), and every output byte a
-store writes from defined bytes or from no staging byte at all.
+defines: a byte of the staging row written exactly once in its phase, and
+every output byte a store writes from defined bytes or from no staging byte
+at all.
 """
 
 from __future__ import annotations
@@ -54,9 +55,9 @@ import torch
 from metta_tpu_torch.ops.build import check_tensor
 
 SECTIONS3 = ("globals", "winread", "count", "scan", "copy", "fill", "store")
-SECTIONS2 = ("read", "fill", "prefix", "globals", "scatter", "store")
+SECTIONS2 = SECTIONS3       # K4's (csrc/obs_render2.cu), the same names and bits
 EMPTY = 255
-PASS = 128                  # window cells a pass of K1 takes (csrc/obs_render3.cu:kPass)
+PASS = 128                  # window cells a pass takes (csrc/obs_render{3,2}.cu:kPass)
 
 # Launches of the two ablation kernels, counted by the wrappers where they launch.
 launches_obs3 = 0
@@ -81,59 +82,24 @@ def mask_of(skips, sections) -> int:
     return sum(1 << sections.index(name) for name in skips)
 
 
-def _apply(val, ok, slots, vals, valid, T):
-    """One phase of writes into an [E, A, T, w] tile: a slot written once
-    takes its value and is defined; a slot written more than once is not."""
-    E, A, _, w = val.shape
-    idx = torch.where(valid, slots, T).reshape(E, A, -1)
-    cnt = torch.zeros((E, A, T + 1), dtype=torch.int32, device=val.device)
+def _apply(slots, vals, valid, R):
+    """One phase of byte writes into an [E, A, R] row -> (bytes, defined): a
+    byte written once takes its value and is defined; one written more than
+    once, or never, is not."""
+    E, A = slots.shape[:2]
+    idx = torch.where(valid, slots, R).reshape(E, A, -1)
+    cnt = torch.zeros((E, A, R + 1), dtype=torch.int32, device=slots.device)
     cnt.scatter_add_(2, idx, torch.ones_like(idx, dtype=torch.int32))
-    new = torch.zeros((E, A, T + 1, w), dtype=torch.uint8, device=val.device)
-    new.scatter_(2, idx[..., None].expand(-1, -1, -1, w), vals.reshape(E, A, -1, w))
-    cnt, new = cnt[..., :T], new[:, :, :T]
-    val = torch.where((cnt == 1)[..., None], new, val)
-    ok = torch.where(cnt == 1, True, torch.where(cnt > 1, False, ok))
-    return val, ok
+    new = torch.zeros((E, A, R + 1), dtype=torch.uint8, device=slots.device)
+    new.scatter_(2, idx, vals.reshape(E, A, -1))
+    return new[..., :R], cnt[..., :R] == 1
 
 
-def _store(tile, ok, stub: bool):
-    """The store section: the tile itself, or (stubbed) every output word
-    ``(i + e) ^ tile[e, 0, 0, 0]`` (16-byte words of four equal 32-bit
-    lanes where the env's bytes are a multiple of 16, else bytes)."""
-    E, A, T, _ = tile.shape
-    okb = ok[..., None].expand(-1, -1, -1, 3)
-    if not stub:
-        return torch.where(okb, tile, torch.zeros_like(tile)), okb.clone()
-    nbytes = A * T * 3
-    dev = tile.device
-    e = torch.arange(E, device=dev)[:, None]
-    x = tile[:, 0, 0, 0].long()[:, None]
-    if nbytes % 16 == 0:
-        v = ((torch.arange(nbytes // 16, device=dev) + e) & 0xFFFFFFFF) ^ x      # [E, words]
-        lanes = (v[..., None] >> (8 * torch.arange(4, device=dev))) & 255       # [E, words, 4]
-        flat = lanes[:, :, None, :].expand(-1, -1, 4, -1).reshape(E, nbytes)
-    else:
-        flat = ((torch.arange(nbytes, device=dev) + e) & 255) ^ x
-    out = flat.to(torch.uint8).reshape(E, A, T, 3)
-    okb = ok[:, 0, 0][:, None, None, None].expand(E, A, T, 3).clone()
-    return torch.where(okb, out, torch.zeros_like(out)), okb
-
-
-def _stub_blocks(E, A, S, NB, K, dev):
-    """The stubbed window read: block ids and counts as a function of (e, a, s)."""
+def _stub_blocks(E, A, S, NB, dev):
+    """The stubbed window read: block ids as a function of (e, a, s)."""
     h = (torch.arange(E, device=dev)[:, None, None] + torch.arange(A, device=dev)[None, :, None]
          + torch.arange(S, device=dev))
-    b = torch.where((h % 12 == 0) & (NB > 1), 1 + h % max(NB - 1, 1), 0)
-    s = torch.arange(S, device=dev)
-    n = torch.where(b != 0, torch.clamp(1 + (b + s) % 3, max=K), 0)
-    return b, n
-
-
-def _stub_globals(A, G, T, dev):
-    """The stubbed global tokens: byte i of agent a is (i + a) & 255 in the
-    first min(G, T) slots -> [1, A, G, 3] uint8."""
-    i = torch.arange(3 * G, device=dev).reshape(1, 1, G, 3)
-    return ((i + torch.arange(A, device=dev).reshape(1, A, 1, 1)) & 255).to(torch.uint8)
+    return torch.where((h % 12 == 0) & (NB > 1), 1 + h % max(NB - 1, 1), 0)
 
 
 def render_obs3_ablated_plain(skips, sb, tok, counts, rc, g_count, g_tok, scan,
@@ -163,7 +129,7 @@ def render_obs3_ablated_plain(skips, sb, tok, counts, rc, g_count, g_tok, scan,
 
     # step 1: each cell's block id (-1 outside the map) and count
     if "winread" in skips:
-        b, _ = _stub_blocks(E, A, S, NB, K, dev)
+        b = _stub_blocks(E, A, S, NB, dev)
     else:
         rr, cc = rc[..., 0:1].long() + scan[:, 0].long(), rc[..., 1:2].long() + scan[:, 1].long()
         inb = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < W)
@@ -221,11 +187,8 @@ def render_obs3_ablated_plain(skips, sb, tok, counts, rc, g_count, g_tok, scan,
     pos.append(byte.reshape(E, A, -1))
     vals.append(v.reshape(E, A, -1))
     valid.append(ok[..., None].expand(*ok.shape, 3).reshape(E, A, -1))
-    st, st_ok = _apply(torch.zeros((E, A, R, 1), dtype=torch.uint8, device=dev),
-                       torch.zeros((E, A, R), dtype=torch.bool, device=dev),
-                       torch.cat(pos, -1), torch.cat(vals, -1).to(torch.uint8)[..., None],
+    st, st_ok = _apply(torch.cat(pos, -1), torch.cat(vals, -1).to(torch.uint8),
                        torch.cat(valid, -1), R)
-    st = st[..., 0]
 
     # step 4 and the fill: the token words end at tend, the fill starts there
     filled = (gc + total.sum(-1)).clamp(max=T)[..., None]                # [E, A, 1]
@@ -250,66 +213,33 @@ def render_obs3_ablated_plain(skips, sb, tok, counts, rc, g_count, g_tok, scan,
     return out.reshape(E, A, T, 3), defined.reshape(E, A, T, 3)
 
 
+def check_one_pass(wh: int, ww: int):
+    """Raise ValueError past one pass of window cells: K4's stubs are
+    written for one pass (``csrc/obs_render2.cu``)."""
+    if not 1 <= wh * ww <= PASS:
+        raise ValueError(f"window cells: K4's ablation takes 1 to {PASS} (one pass), "
+                         f"got {wh}x{ww}")
+
+
+def walk_of_rank(rank, wh: int, ww: int):
+    """[S, 2] int32: the window offsets (dr, dc) of the center-out walk that
+    the rank table describes (the cell of rank r at row r), K1's ``scan``."""
+    s = torch.arange(wh * ww, device=rank.device)
+    off = torch.stack([s // ww - wh // 2, s % ww - ww // 2], -1).to(torch.int32)
+    return torch.empty_like(off).index_copy_(0, rank.long(), off)
+
+
 def render_obs2_ablated_plain(skips, sb, tok, counts, rc, g_count, g_tok, rank,
                               num_tokens: int, wh: int, ww: int):
-    """K4 with the sections in ``skips`` stubbed, in torch ops ->
-    (out [E, A, T, 3] uint8, defined [E, A, T, 3] bool); undefined bytes
-    are 0. With no skips it is ``render_obs2_plain``, every byte defined."""
-    skips = set(skips)
-    E, H, W = sb.shape
-    A = rc.shape[1]
-    NB, K = tok.shape[1], tok.shape[2]
-    S, G, T = wh * ww, g_tok.shape[2], num_tokens
-    dev = sb.device
-    s = torch.arange(S, device=dev)
-    j, i = s // ww, s % ww
-
-    if "read" in skips:
-        b, n = _stub_blocks(E, A, S, NB, K, dev)
-    else:
-        rr, cc = rc[..., 0:1].long() + j - wh // 2, rc[..., 1:2].long() + i - ww // 2
-        inb = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < W)
-        flat = (rr.clamp(0, H - 1) * W + cc.clamp(0, W - 1)).reshape(E, -1)
-        b = torch.where(inb, sb.reshape(E, -1).gather(1, flat).reshape(E, A, S).long(), 0)
-        n = torch.where(inb, counts.gather(1, b.reshape(E, -1)).reshape(E, A, S).long(), 0)
-    rk = rank.long().expand(E, A, S)
-    if "prefix" in skips:
-        start = min(G, T) + (rk >> 2)
-    else:
-        in_rank = torch.zeros_like(n).scatter_(2, rk, n)                # counts by rank
-        start = (in_rank.cumsum(-1) - in_rank).gather(2, rk) + g_count.long()[..., None]
-
-    if "fill" in skips:
-        tile = torch.zeros((E, A, T, 3), dtype=torch.uint8, device=dev)
-        tile[:, :, T - 1] = torch.arange(A, device=dev).to(torch.uint8)[:, None]
-        ok = torch.zeros((E, A, T), dtype=torch.bool, device=dev)
-        ok[:, :, T - 1] = True
-    else:
-        tile = torch.full((E, A, T, 3), EMPTY, dtype=torch.uint8, device=dev)
-        ok = torch.ones((E, A, T), dtype=torch.bool, device=dev)
-
-    gi = torch.arange(G, device=dev).expand(E, A, G)
-    if "globals" in skips:
-        gvals = _stub_globals(A, G, T, dev).expand(E, -1, -1, -1)
-        gvalid = gi < min(G, T)
-    else:
-        gvals, gvalid = g_tok, (gi < g_count.long()[..., None]) & (gi < T)
-    tile, ok = _apply(tile, ok, gi, gvals, gvalid, T)
-
-    loc = ((j << 4) | i) & 255
-    if "scatter" in skips:
-        vals = torch.stack([loc.expand(E, A, S), b & 255, s.expand(E, A, S) & 255], -1)
-        tile, ok = _apply(tile, ok, start, vals.to(torch.uint8), (b != 0) & (start < T), T)
-    else:
-        nb = counts.gather(1, b.reshape(E, -1)).reshape(E, A, S).long()
-        stop = torch.minimum(nb, T - start)
-        k = torch.arange(K, device=dev)
-        ft = tok.reshape(E, NB * K, 2).gather(
-            1, (b[..., None] * K + k).reshape(E, -1, 1).expand(-1, -1, 2)).reshape(E, A, S, K, 2)
-        locs = loc.to(torch.uint8).expand(E, A, S)[..., None, None].expand(-1, -1, -1, K, 1)
-        tile, ok = _apply(tile, ok, start[..., None] + k, torch.cat([locs, ft], -1),
-                          k < stop[..., None], T)
-    return _store(tile, ok, "store" in skips)
+    """K4 with the sections in ``skips`` stubbed, in torch ops, step for step
+    as ``csrc/obs_render2.cu`` takes them at one pass -> (out [E, A, T, 3]
+    uint8, defined [E, A, T, 3] bool); undefined bytes are 0. Its counts by
+    rank slot are K1's by scan cell, so it is K1's plain version on the walk
+    of ``rank``. With no skips it is ``render_obs2_plain``, every byte
+    defined."""
+    check_one_pass(wh, ww)
+    return render_obs3_ablated_plain(skips, sb, tok, counts, rc, g_count, g_tok,
+                                     walk_of_rank(rank, wh, ww), num_tokens, wh // 2, ww // 2)
 
 
 def render_work(args, scan, T):
@@ -417,10 +347,12 @@ def render_obs2_ablated(skips, sb, tok, counts, rc, g_count, g_tok, rank, num_to
                         wh: int, ww: int, out=None):
     """K4 with the sections in ``skips`` stubbed -> [E, A, T, 3] uint8, into
     ``out`` if given, else into a zeroed tensor. The CUDA kernel for CUDA
-    tensors, the plain version's output for CPU tensors."""
+    tensors, the plain version's output for CPU tensors; a window past one
+    pass is refused before either."""
     global launches_obs2
     skips = set(skips)
     mask = mask_of(skips, SECTIONS2)
+    check_one_pass(wh, ww)
     if sb.device.type == "cpu":
         return render_obs2_ablated_plain(skips, sb, tok, counts, rc, g_count, g_tok, rank,
                                          num_tokens, wh, ww)[0]
@@ -435,7 +367,7 @@ def render_obs2_ablated(skips, sb, tok, counts, rc, g_count, g_tok, rank, num_to
     if E == 0:
         return out
     with torch.cuda.device(sb.device):
-        err = _entry("obs_render2_ablate", "obs_render2_ablate_launch", 11)(
+        err = _entry("obs_render2", "obs_render2_ablate_launch", 11)(
             sb.data_ptr(), tok.data_ptr(), counts.data_ptr(), rc.data_ptr(),
             g_count.data_ptr(), g_tok.data_ptr(), rank.data_ptr(), out.data_ptr(),
             E, H, W, A, NB, K, wh, ww, G, T, mask,

@@ -361,6 +361,8 @@ def run(case: str, inputs, reps: int):
         n = x[0].numel()
         with torch.cuda.device(dev):
             if case == "M5":
+                if x.data_ptr() % 16:
+                    raise ValueError("M5: x must be 16-byte aligned (16-byte vector loads)")
                 out = torch.empty_like(x)
                 err = lib.mosaic_tiny(x.data_ptr(), out.data_ptr(), G, n, reps, stream)
             elif case in ("M1", "M1b"):

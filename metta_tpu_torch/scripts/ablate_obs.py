@@ -1,26 +1,31 @@
-"""Ablate sections of K4, the v2 token render, on the card.
+"""Ablate sections of K4, the v2 token render (``csrc/obs_render2.cu``), on the card.
 
 Counterpart of ``scripts/ablate_obs.py``: builds the combat map's render
-inputs (map seed 1234, E=4096, 24 agents) and times each variant of K4's
-first design (``csrc/obs_render2_ablate.cu``, a block per env) with sections
-stubbed (``ops/ablate_obs.py``), each held to its plain version in the bytes
-it defines, ``none`` to the production K4 (``csrc/obs_render2.cu``, the
-persistent redesign) byte for byte. The TPU script runs ``none`` and all
-sections; this one runs ``none``, each section alone, and all. Prints one
-line per variant: ms a launch, what it saves against ``none``, the render's
-bound and the variant's share of it.
+inputs (map seed 1234, E=4096, 24 agents) and times each variant of the
+production kernel with sections stubbed (``ops/ablate_obs.py``; the kernel
+is a template on its section mask, launched on the render's own grid at
+one pass of 128 window cells), each held to its plain version in the bytes
+it defines, ``none`` to the production K4 byte for byte and timed beside it
+on the same inputs. The TPU script runs ``none`` and all sections; this
+one runs ``none``, each section alone, and all. Prints one line per
+variant: ms a launch, what it saves against ``none``, the render's bound
+and the variant's share of it.
 
-K4's sections follow the CUDA kernel. The TPU script's sections map onto
+K4's sections follow the persistent CUDA kernel's steps, under K1's names,
+not the TPU kernel's one-hot GEMMs. The TPU script's sections map onto
 them so:
 
     TPU script          this script
-    winread, decode     read (fill: the prefill, split out of it)
-    prefix              prefix
-    scatter             scatter
-    write, antidiag     globals + store
+    winread             winread (level 2's grid loads)
+    decode              count (level 3's count loads), and copy's token loads
+    prefix              scan (the warp scan in rank order)
+    scatter             copy (the lane search, the shuffles, the staging writes)
+    write               store (the token words)
+    antidiag            globals + fill + store (the merge with the global
+                        tokens, the 255s, the row's stores)
 
 Usage: python -m metta_tpu_torch.scripts.ablate_obs [--num-envs 4096]
-    [--steps 30] [--agents 24] [--only none,read] [--device cuda|cpu] [--seed 1234]
+    [--steps 30] [--agents 24] [--only none,copy] [--device cuda|cpu] [--seed 1234]
 """
 
 from __future__ import annotations

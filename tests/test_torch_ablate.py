@@ -1,7 +1,8 @@
 """The port's render ablations (``ops/ablate_obs.py``) against the JAX scripts'.
 
-S5 ablates the production K1 (``csrc/obs_render3.cu``), S4 K4's first
-design (``csrc/obs_render2_ablate.cu``). The unablated variant (``none``) of
+S5 ablates the production K1 (``csrc/obs_render3.cu``), S4 the production
+K4 (``csrc/obs_render2.cu``), whose plain version is K1's on the walk of its
+rank table. The unablated variant (``none``) of
 each plain version must equal the JAX script's own Pallas kernel in
 interpret mode, byte for byte, on the same combat state: K1's
 (``scripts/ablate_obs3.py:make_kernel``, wired as its ``call_variant`` wires
@@ -9,8 +10,9 @@ it) at E=8 with EPS=8, and K4's (``scripts/ablate_obs.py:make_kernel``) at
 E=4 with EPS=1. The scripts are loaded by file path; nothing under
 ``scripts/`` changes. Every stubbed variant must differ from ``none``
 somewhere in the bytes it defines (a stub that changes nothing measures
-nothing), the wrappers take the plain versions for CPU tensors, the masks
-are the kernels' section bits, and both CLIs run with ``--device cpu``. The
+nothing), the wrappers take the plain versions for CPU tensors, K4's
+refuses a window past one pass, the masks are the kernels' section bits,
+and both CLIs run with ``--device cpu``. The
 CUDA kernels themselves are held to these plain versions on a GPU by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -201,19 +203,38 @@ def test_cpu_wrappers_take_plain_versions(combat):
     before = ab.launches_obs3, ab.launches_obs2
     skips = {"copy", "fill"}
     got3 = ab.render_obs3_ablated(skips, *args, *_extra3(tables))
-    got2 = ab.render_obs2_ablated({"scatter"}, *args, *_extra2(tables))
+    got2 = ab.render_obs2_ablated({"scan"}, *args, *_extra2(tables))
     assert torch.equal(got3, ab.render_obs3_ablated_plain(skips, *args, *_extra3(tables))[0])
-    assert torch.equal(got2, ab.render_obs2_ablated_plain({"scatter"}, *args,
+    assert torch.equal(got2, ab.render_obs2_ablated_plain({"scan"}, *args,
                                                           *_extra2(tables))[0])
     assert (ab.launches_obs3, ab.launches_obs2) == before
     with pytest.raises(ValueError):
         ab.skips_of("copy+antidiag", ab.SECTIONS3)
 
 
+def test_k4_ablation_refuses_windows_past_one_pass(combat):
+    """K4's stubs are written for one pass of 128 window cells: a 13x13
+    window is refused by name, by the wrapper and by the plain version."""
+    _, _, tables, args = combat
+    rank = torch.arange(13 * 13, dtype=torch.int32)
+    before = ab.launches_obs2
+    for fn in (ab.render_obs2_ablated, ab.render_obs2_ablated_plain):
+        with pytest.raises(ValueError, match="window cells"):
+            fn(set(), *args, rank, tables.num_obs_tokens, 13, 13)
+    assert ab.launches_obs2 == before
+
+
+def test_walk_of_rank_inverts_rank_table(combat):
+    """The walk that K4's rank table describes is K1's scan, row for row."""
+    _, _, tables, _ = combat
+    rank, _, wh, ww = _extra2(tables)
+    assert torch.equal(ab.walk_of_rank(rank, wh, ww), tables.obs_scan.to(torch.int32))
+
+
 def test_masks_are_the_kernels_bits():
     """The wrappers' masks follow the k* constants of the CUDA sources."""
     src3 = (REPO / "metta_tpu_torch" / "csrc" / "obs_render3.cu").read_text()
-    src2 = (REPO / "metta_tpu_torch" / "csrc" / "obs_render2_ablate.cu").read_text()
+    src2 = (REPO / "metta_tpu_torch" / "csrc" / "obs_render2.cu").read_text()
     for sections, src in ((ab.SECTIONS3, src3), (ab.SECTIONS2, src2)):
         for i, name in enumerate(sections):
             assert f"constexpr int k{name.capitalize()} = {1 << i};" in src, name

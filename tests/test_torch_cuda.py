@@ -5,7 +5,7 @@ K1 (``csrc/obs_render3.cu``) on rolled combat states and on a window outside
 the TPU kernel's limits; K4 (``csrc/obs_render2.cu``) on the same, on
 ``make_arena(30)`` (149 block ids), on the curriculum's stacked tables at
 E=170 and on synthetic inputs at the persistent schedule's edges, against
-K1's plain version and its first design (S4's ``none``); the
+K1's plain version and S4's ``none`` (its own mask 0); the
 multi-task env GPU against CPU and a tiny multi-task trainer update; K2
 (``csrc/sim_fused.cu``) on combat, cooperation, arena with gained/lost
 tracking, navigation at A=4 and the arena at A=32, at E=1, at an E that no
@@ -17,10 +17,12 @@ K2's maxima stepping on the card through the torch-ops step; K3 (``csrc/discount
 16-byte multiples) and the advantages through it against the CPU; K5 (``csrc/obs_render.cu``)
 on the sequential env's inputs at E=1, 64 and 4097, arena30, a cut at T, rows
 of 75 bytes and a wrapping location byte, on synthetic inputs at its edges,
-and the sequential env with K5 on the GPU against the CPU; S5's nine masks
-of K1 on synthetic inputs at E=8, rows of 21 bytes among them; S1's M7
-bit-equal at phase 13's shape, and its fold (M1, M1b) at G=3 with a short
-last chunk; the wrappers' input checks; a few whole env steps on the GPU
+and the sequential env with K5 on the GPU against the CPU; S5's and S4's
+nine masks of K1 and K4 on synthetic inputs at E=8, rows of 21 bytes among
+them, and S4's on combat at E=64; S1's M7 bit-equal at phase 13's shape,
+its fold (M1, M1b) at G=3 with a short last chunk, and M5 at phase 13's
+shape and with a scalar tail; the wrappers' input
+checks (M5's alignment, S4's one pass); a few whole env steps on the GPU
 against the CPU; and a tiny trainer update through all three kernels.
 This file imports no JAX, so it runs on a machine with a card and torch
 alone:
@@ -892,6 +894,41 @@ def test_mosaic_fold_is_bit_equal(case, reps):
     assert torch.equal(cks, want_cks)
 
 
+@pytest.mark.parametrize("G,n", [
+    (1024, 264 * 128),           # phase 13's shape
+    (5, 1_003),                  # G n % 4 = 3: the scalar tail
+], ids=["phase13", "tail"])
+def test_mosaic_tiny_is_bit_equal(G, n):
+    """M5 bit-equal to its plain version (reps 16), 16-byte vectors and the
+    partial last vector alike."""
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    _cuda()
+    rng = np.random.default_rng(G + n)
+    x = ((torch.as_tensor(rng.integers(0, 256, (G, n), dtype=np.uint8)).float() + 0.5) / 128
+         ).to("cuda")
+    before = s1.launches
+    got, _ = s1.run("M5", (x,), 16)
+    torch.cuda.synchronize()
+    assert s1.launches == before + 1
+    want, _ = s1.plain("M5", (x,), 16)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_mosaic_tiny_refuses_misaligned_input():
+    """M5's 16-byte loads need a 16-byte aligned x: one that is not is
+    refused by name before any launch."""
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    _cuda()
+    x = torch.ones(4 * 1000 + 1, device="cuda")[1:].view(4, 1000)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    before = s1.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        s1.run("M5", (x,), 16)
+    assert s1.launches == before
+
+
 @pytest.mark.parametrize("G,eps", [(2, 1), (1024, 4)], ids=["G2", "phase13"])
 def test_mosaic_compact_is_bit_equal(G, eps):
     """M7, the compaction network in registers, bit-equal to its plain
@@ -1015,7 +1052,8 @@ def _rank_args(args, extra):
 def test_k4_matches_plain_on_synthetic_inputs(E, A, T, G, g_all, K):
     """K4 byte-equal to its plain version and to K1's where the persistent
     schedule, the preloaded tokens and the word stores meet their edges;
-    S4's ``none`` (K4's first design) byte-equal to it on the same inputs."""
+    S4's ``none`` (the ablation's launch of mask 0) byte-equal to it on the
+    same inputs where the window takes one pass."""
     from metta_tpu_torch.ops import ablate_obs as ab
 
     args3, extra3 = _synthetic_render(E, A, T, G, g_all, device=_cuda(), K=K)
@@ -1031,10 +1069,75 @@ def test_k4_matches_plain_on_synthetic_inputs(E, A, T, G, g_all, K):
     assert torch.equal(ab.render_obs2_ablated(set(), *args, *extra), got)
 
 
+@pytest.mark.parametrize("T,g_all", [(200, None), (7, None), (3, 5)],
+                         ids=["T200", "T7", "globals_over_T"])
+def test_k4_ablation_masks_match_plain_on_synthetic_inputs(T, g_all):
+    """Every S4 mask of K4 equal to its plain version in the bytes it
+    defines at E=8, windows past the map's edges: rows of 600 bytes, of 21
+    (word offsets 0-3, where the stubbed token words and fill start), and
+    more global tokens than T; ``none`` byte-equal to the render."""
+    from metta_tpu_torch.ops import ablate_obs as ab
+
+    args, extra = _rank_args(*_synthetic_render(8, 24, T, 5, g_all, seed=11, device=_cuda()))
+    render = k4.render_obs2(*args, *extra)
+    for v in ab.variants(ab.SECTIONS2):
+        skips = ab.skips_of(v, ab.SECTIONS2)
+        before = ab.launches_obs2
+        got = ab.render_obs2_ablated(skips, *args, *extra)
+        torch.cuda.synchronize()
+        assert ab.launches_obs2 == before + 1
+        want, defined = ab.render_obs2_ablated_plain(skips, *args, *extra)
+        assert not bool(((got != want) & defined).any()), v
+        if not skips:
+            assert bool(defined.all()) and torch.equal(got, render)
+
+
+def test_k4_ablation_masks_match_plain_on_combat():
+    """Every S4 mask equal to its plain version in the bytes it defines on
+    combat at E=64 after a few random steps; ``none`` byte-equal to K4."""
+    from metta_tpu_torch.ops import ablate_obs as ab
+
+    cfg = make_combat(A)
+    cfg.game.map_builder.seed = 1234
+    env = MettaGridEnv(cfg, num_envs=64, seed=0, track_stats=False, step_mode="batched",
+                       device=_cuda())
+    env.reset()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    t = env.tables
+    for _ in range(3):
+        env.step(torch.randint(0, t.n_actions, (64, A), generator=gen, device="cuda"))
+    s = env.state.env
+    args = k1.prep_env3(s, t, s.executed_action, s.reward)
+    extra = (k4.rank_table(t.obs_scan, t.obs_width), t.num_obs_tokens, t.obs_height,
+             t.obs_width)
+    render = k4.render_obs2(*args, *extra)
+    for v in ab.variants(ab.SECTIONS2):
+        skips = ab.skips_of(v, ab.SECTIONS2)
+        got = ab.render_obs2_ablated(skips, *args, *extra)
+        want, defined = ab.render_obs2_ablated_plain(skips, *args, *extra)
+        torch.cuda.synchronize()
+        assert not bool(((got != want) & defined).any()), v
+        if not skips:
+            assert bool(defined.all()) and torch.equal(got, render)
+
+
+def test_k4_ablation_refuses_windows_past_one_pass():
+    """S4's stubs take one pass: a 13x13 window (169 cells, which K4 itself
+    renders in two) is refused by name before any launch."""
+    from metta_tpu_torch.ops import ablate_obs as ab
+
+    args, (_, T, _, _) = _rank_args(*_synthetic_render(2, 24, 40, device=_cuda()))
+    rank = torch.arange(13 * 13, dtype=torch.int32, device="cuda")
+    before = ab.launches_obs2
+    with pytest.raises(ValueError, match="window cells"):
+        ab.render_obs2_ablated(set(), *args, rank, T, 13, 13)
+    assert ab.launches_obs2 == before
+
+
 def test_k4_matches_plain_on_the_curriculum_tables():
     """K4 at the curriculum learner's E=170 on the 16 tasks' stacked tables
     (each env reads its own task's), byte-equal to its plain version and to
-    S4's ``none`` over a few steps."""
+    S4's ``none`` (mask 0 through the ablation's launch) over a few steps."""
     from metta_tpu_torch.builder.envs import make_arena_basic_easy_shaped, make_curriculum
     from metta_tpu_torch.engine.tables import tables_at
     from metta_tpu_torch.engine.taskset import MultiTaskEnv
@@ -1064,7 +1167,7 @@ def test_k4_matches_plain_on_the_curriculum_tables():
 
 def test_k4_wrapper_never_takes_the_plain_version(monkeypatch):
     """A CUDA input launches the kernel or raises; it never reaches the plain
-    version (nor the first design, which lives in another library)."""
+    version."""
     args, extra = _rank_args(*_synthetic_render(3, 24, 40, device=_cuda()))
     want = k4.render_obs2_plain(*args, *extra)
 

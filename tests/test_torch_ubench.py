@@ -11,7 +11,8 @@ magnitude (the accumulation order differs). The scripts are loaded by file
 path; ``ubench_mosaic.py`` defines its kernels inside ``main``, so their
 bodies and ``pallas_call`` wiring are copied here. The fold's chunk
 schedule (``ops/ubench_mosaic.py:fold_schedule``) must cover every element
-once, no chunk crossing a g. Every CLI runs once with ``--device cpu``.
+once, no chunk crossing a g; M5 on CPU tensors must be one float32 chain of
+adds an element, in rep order. Every CLI runs once with ``--device cpu``.
 The CUDA kernels themselves are held to these plain versions on a GPU by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -276,6 +277,31 @@ def test_fold_schedule_covers_each_element_once(n, G):
         assert length == s1.FOLD_CHUNK or start + length == n
         cover[g, start:start + length] += 1
     assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("G,n,reps,scale", [
+    (64, 264 * 128, 16, 1.0),        # M5's rows at phase 13's reps
+    (3, 12_345, 16, 1.0),            # G n % 4 = 3: the kernel's partial last vector
+    (5, 1_003, 16, 2.0 ** 24),       # past 2^24, where x + 1 rounds: the order shows
+    (2, 4 * 512 * 3, 1, 2.0 ** 24),  # one rep
+], ids=["rows", "tail", "rounding", "one_rep"])
+def test_m5_on_cpu_is_one_chain_of_adds(G, n, reps, scale):
+    """M5 on CPU tensors (the wrapper's plain version, no launch): each
+    element one float32 chain of ``reps`` adds of 1 in rep order, as the
+    kernel takes it, so that the card's bit-equality checks hold the kernel
+    to that order; where x + 1 rounds, a sum of reps taken at once would
+    differ."""
+    rng = np.random.default_rng(G * n + reps)
+    want = (rng.integers(0, 256, (G, n)).astype(np.float32) + 0.5) / 128 * np.float32(scale)
+    x = torch.from_numpy(want.copy())
+    before = s1.launches
+    got, cks = s1.run("M5", (x,), reps)
+    assert s1.launches == before and cks is None
+    for _ in range(reps):
+        want = want + np.float32(1.0)
+    np.testing.assert_array_equal(got.view(torch.int32).numpy(), want.view(np.int32))
+    if scale > 1 and reps > 1:
+        assert not np.array_equal(want, x.numpy() + np.float32(reps))
 
 
 @pytest.mark.parametrize("argv", [
