@@ -10,8 +10,8 @@ Phases (each one a hard failure):
    S5 and S4 in K1's and K4's sources, each a template on its section mask;
    S1's GEMMs and its other cases in two sources, S2 and S3; one ``nvcc``
    per source, all started together), keep ``ptxas -v``'s
-   registers and shared memory of the redesigned K1, K2, K3, K4, K5, S1 fold
-   and S1 GEMM kernels, and print the card's name and power limit;
+   registers and shared memory of the redesigned K1, K2, K3, K4, K5, S1 fold,
+   M2, M4 and S1 GEMM kernels, and print the card's name and power limit;
 2. K1 (``csrc/obs_render3.cu``) against its plain torch version
    (``render_obs3_plain``) at the shapes of the ``track_stats=True`` path: the
    combat map, 24 agents, 4096 envs, 20 random steps, byte-equal;
@@ -107,12 +107,15 @@ Phases (each one a hard failure):
    time, bound and plain time; the launch counts of the scripts' run; one
    PyTorch call for each S1 case that one computes (M5's ``torch.add``, the
    folds', M2's and M4's ``torch.sum`` over an expanded view), held to the
-   plain version and timed as the library yardstick; M5 timed in turns
-   with ``torch.add`` and ``copy_``; each repeat loop found in the SASS (``cuobjdump -sass``) with the loads and
-   arithmetic it must hold (M7's, the compaction in registers: ``FSETP``
-   and ``SHFL`` with no ``LDS``; the fold's, from its shared-memory ring:
-   ``FADD`` and ``LDS`` with no ``LDG``; M5's ``FADD``, its kernel holding
-   16-byte global loads and stores), its instruction count printed, and the S1
+   plain version and timed as the library yardstick; M5, M2 and M4 timed
+   in turns with that call and (M5, M2) with ``copy_`` of the same bytes;
+   each repeat loop found in the SASS (``cuobjdump -sass``) with the loads
+   and arithmetic it must hold (M7's, the compaction in registers: ``FSETP``
+   and ``SHFL`` with no ``LDS``; the fold's and M2's, from shared memory:
+   ``FADD`` and ``LDS`` with no ``LDG``; M5's ``FADD``; M4's ``FADD`` and
+   ``LDG``, at least 11 adds for every float loaded; M5's and M4's kernels
+   holding 16-byte global loads and stores), its instruction count printed,
+   and the S1
    GEMM kernel's main loops holding ``HGMMA`` (the consumers' ``wgmma``) and
    ``UTMALDG`` (the producer's TMA loads), K2's production kernel
    holding ``MATCH`` and ``REDUX`` (its per-key winners), K3's chain loops
@@ -121,10 +124,11 @@ Phases (each one a hard failure):
    holding ``SHFL`` and no block barrier; K1's, K2's, K3's, K4's and K5's
    production kernels at their registers (K1's and K4's the mask-0
    instantiations), and they, every stubbed mask of K1 and K4, K2's chest
-   instantiation, M7 and the fold with no stack or local memory; the
+   instantiation, M7, the fold, M2 and M4 with no stack or local memory; the
    launch shape (registers and shared memory from ``ptxas
    -v``, blocks an SM, the fold's ring stages) of the redesigned K1, K2
-   (combat, arena, the chest config), K3, K4, K5, S1 fold and S1 GEMMs;
+   (combat, arena, the chest config), K3, K4, K5, S1 fold, M2, M4 and S1
+   GEMMs;
    ``torch.bmm`` on the S1 GEMMs' operands as the library yardstick;
 14. K2's chest phase: the chest config (``scripts/common.py:chest_mission``,
    the basic mission with the catalog's chest station twice; no catalog
@@ -1581,11 +1585,12 @@ def phase_sequential(res):
 # and assemblers, no transfer) and for the chest config (swap, assemblers,
 # chests), and K3's instantiations at the learner's tiles
 # (8 columns at B=60, 32 at B=4080): the forward pass, its gradient, the
-# gradient with gdecay; S1's M7 (its row in registers) and fold (its
-# shared-memory ring) at any count (None), with no stack or local memory
-# either. K1 and K4 are the mask-0 instantiations of their section
-# templates; every other instantiation of the two, a stubbed mask of S5 or
-# S4, must have no stack or local memory either (SECTION_TEMPLATES).
+# gradient with gdecay; S1's M7 (its row in registers), fold (its
+# shared-memory ring), M2 (its staged tile) and M4 (its 44 accumulators) at
+# any count (None), with no stack or local memory either. K1 and K4 are the
+# mask-0 instantiations of their section templates; every other
+# instantiation of the two, a stubbed mask of S5 or S4, must have no stack
+# or local memory either (SECTION_TEMPLATES).
 K2_COMBAT = "sim_fused_kernelILb1ELb0ELb1ELb1ELb0E"
 # K2 with its chest phase, the instantiation of the chest config (swap,
 # assemblers and chests)
@@ -1608,7 +1613,9 @@ PRODUCTION_REGISTERS = [("obs_render3", K1_MAIN, 48),
                             (("backward with gdecay", 8), 79),
                             (("backward with gdecay", 32), 114))],
                         ("ubench_mosaic", "compact_kernel", None),
-                        ("ubench_mosaic", "fold_kernel", None)]
+                        ("ubench_mosaic", "fold_kernel", None),
+                        ("ubench_mosaic", "transpose_kernel", None),
+                        ("ubench_mosaic", "rep_kernel", None)]
 SECTION_TEMPLATES = [("obs_render3", "obs_render3_kernel"), ("obs_render2", "obs_render2_kernel")]
 # PERF.md's kernel table, combat E=4096
 PRODUCTION_MS = {"K1": 0.0909, "K4": 0.0884, "K2": 0.0304}
@@ -1619,20 +1626,21 @@ K2_SASS_OPS = ("MATCH", "REDUX")
 # fragment of the mangled name, opcodes the loop body must hold: the rep's
 # arithmetic and, where the TPU body reads its block every rep, the load;
 # opcodes it must not hold). M7 keeps its row in registers: its loop holds
-# the compares and the shuffles, and no shared load. The fold reads each
-# rep from its shared-memory ring: its loop holds shared loads, no global
-# one.
+# the compares and the shuffles, and no shared load. The fold and M2 read
+# each rep from shared memory: their loops hold shared loads, no global one.
 # S3 has no repeat loop: its shuffles, ballot and shared atomics are counted
-# in the function. M5's kernel must also hold 16-byte global loads and
-# stores (TINY_VECTOR_OPS: opcode prefix and width suffix of the full
-# mnemonic).
+# in the function. M5's and M4's kernels must also hold 16-byte global loads
+# and stores (VECTOR_OPS: opcode prefix and width suffix of the full
+# mnemonic), and M4's loop at least one add a copy of the tile
+# (ops/ubench_mosaic.py:COPIES) for every float its loads bring: one load a
+# rep feeds every copy.
 SASS_LOOPS = [
     *[("ubench_pairmat", f"pairmat_kernelILi{i}E", ops) for i, ops in enumerate((
         ("ISETP",), ("IADD3",), ("SHFL",), ("IADD3",), ("SHFL", "ISETP"), ("SHFL",),
         ("IADD3",), ("ISETP",), ("I2F",)))],
     ("ubench_mosaic", "tiny_kernel", ("FADD",)),
     ("ubench_mosaic", "fold_kernel", ("FADD", "LDS"), ("LDG",)),
-    ("ubench_mosaic", "transpose_kernel", ("FADD", "LDG")),
+    ("ubench_mosaic", "transpose_kernel", ("FADD", "LDS"), ("LDG",)),
     ("ubench_mosaic", "droll_kernel", ("FADD", "LDG")),
     ("ubench_mosaic", "rep_kernel", ("FADD", "LDG")),
     ("ubench_mosaic", "compact_kernel", ("FSETP", "SHFL"), ("LDS",)),
@@ -1640,7 +1648,8 @@ SASS_LOOPS = [
     ("ubench_gemm", "gemm_tma_kernel", ("HGMMA",)),
     ("ubench_gemm", "gemm_tma_kernel", ("UTMALDG",)),
 ]
-TINY_VECTOR_OPS = (("LDG", ".128"), ("STG", ".128"))
+VECTOR_OPS = (("LDG", ".128"), ("STG", ".128"))
+VECTOR_KERNELS = ("tiny_kernel", "rep_kernel")
 SASS_ADDR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
 
 
@@ -1677,14 +1686,26 @@ def sass_loops(instrs):
 
 def sass_loop(instrs, ops, absent=()):
     """The smallest loop whose body holds every opcode of ``ops``:
-    (instructions in the body, {op: count} over ``ops`` and ``absent``), or
-    None."""
+    (instructions in the body, {op: count} over ``ops`` and ``absent``, the
+    body), or None."""
     best = None
     for body in sass_loops(instrs):
         counts = {op: sum(opcode(i).startswith(op) for i in body) for op in ops + absent}
         if all(counts[op] for op in ops) and (best is None or len(body) < best[0]):
-            best = (len(body), counts)
+            best = (len(body), counts, body)
     return best
+
+
+def mnemonic(ins):
+    """The full mnemonic of a SASS instruction (``LDG.E.128``), its predicate dropped."""
+    toks = ins.split()
+    return toks[1] if toks[0].startswith("@") else toks[0]
+
+
+def words_loaded(body):
+    """4-byte words the global loads of a loop body bring (``.128`` 4, ``.64`` 2)."""
+    return sum(4 if ".128" in m else 2 if ".64" in m else 1
+               for m in map(mnemonic, body) if m.startswith("LDG"))
 
 
 def check_sass():
@@ -1694,6 +1715,7 @@ def check_sass():
     K3's chain loops multiply and add from shared memory without FFMA or LDG;
     K4's and K5's per-agent loops shuffle without a block barrier."""
     from metta_tpu_torch.ops import build
+    from metta_tpu_torch.ops.ubench_mosaic import COPIES
 
     dumps = {lib: sass_functions(build.cuobjdump(lib, "-sass"))
              for lib in ("ubench_pairmat", "ubench_mosaic", "ubench_gemm", "smoke_sim",
@@ -1716,15 +1738,26 @@ def check_sass():
             function_instructions=len(dumps[lib][names[0]]))
         log(f"[sass] {lib} {frag}: repeat loop of {loop[0]} instructions, {loop[1]}; "
             f"{len(dumps[lib][names[0]])} instructions in the kernel")
-    (name, instrs), = [(n, i) for n, i in dumps["ubench_mosaic"].items() if "tiny_kernel" in n]
-    mnemonics = [ins.split()[1] if ins.startswith("@") else ins.split()[0] for _, ins in instrs]
-    vector_ops = {op + width: sum(m.startswith(op) and width in m for m in mnemonics)
-                  for op, width in TINY_VECTOR_OPS}
-    if not all(vector_ops.values()):
-        raise AssertionError(f"ubench_mosaic tiny_kernel: no 16-byte global loads or stores in "
-                             f"the SASS: {vector_ops}")
-    log(f"[sass] ubench_mosaic tiny_kernel: {vector_ops}")
-    found["tiny_kernel vectors"] = vector_ops
+    for frag in VECTOR_KERNELS:
+        (name, instrs), = [(n, i) for n, i in dumps["ubench_mosaic"].items() if frag in n]
+        mnemonics = [mnemonic(ins) for _, ins in instrs]
+        vector_ops = {op + width: sum(m.startswith(op) and width in m for m in mnemonics)
+                      for op, width in VECTOR_OPS}
+        if not all(vector_ops.values()):
+            raise AssertionError(f"ubench_mosaic {frag}: no 16-byte global loads or stores in "
+                                 f"the SASS: {vector_ops}")
+        log(f"[sass] ubench_mosaic {frag}: {vector_ops}")
+        found[f"{frag} vectors"] = vector_ops
+    # M4: at least COPIES adds in its repeat loop for every float loaded
+    (name, instrs), = [(n, i) for n, i in dumps["ubench_mosaic"].items() if "rep_kernel" in n]
+    _, ops, body = sass_loop(instrs, ("FADD", "LDG"))
+    words = words_loaded(body)
+    if ops["FADD"] < COPIES * words:
+        raise AssertionError(f"ubench_mosaic rep_kernel: its repeat loop holds {ops['FADD']} "
+                             f"FADDs for {words} floats loaded, under {COPIES} a float")
+    log(f"[sass] ubench_mosaic rep_kernel: {ops['FADD']} FADDs for {words} floats loaded in its "
+        f"repeat loop ({ops['FADD'] / words:.2f} a float)")
+    found["rep_kernel adds a float"] = dict(fadd=ops["FADD"], words_loaded=words)
     (name, instrs), = [(n, i) for n, i in dumps["smoke_sim"].items() if "smoke_sim_kernel" in n]
     ops = {op: sum(opcode(i).startswith(op) for _, i in instrs) for op in ("SHFL", "VOTE", "ATOMS")}
     if not all(ops.values()):
@@ -1837,8 +1870,8 @@ def redesign_shapes(res):
     """The launch shape of the redesigned K1 (combat's 121 window cells), K4
     and K5 (the same window; K5 also the 17x17 window's 289 cells), K3 (the
     learner's [255, 60] and [255, 4080], forward and backward), S1's fold
-    (M1 and M1b: its ring stages), S1 GEMMs (M6a's and M6b/c's shapes at
-    eps 4) and K2
+    (M1 and M1b: its ring stages), M2 (phase 13's 96 rows) and M4, S1 GEMMs
+    (M6a's and M6b/c's shapes at eps 4) and K2
     (combat's and the arena's tables): registers and static shared memory
     from ``ptxas -v``, dynamic shared memory, blocks an SM, SMs."""
     from metta_tpu_torch.engine.env import MettaGridEnv
@@ -1859,6 +1892,8 @@ def redesign_shapes(res):
               "K5 (S=121, T=200)": dict(k5.launch_shape(121, 200)),
               "K5 (S=289, T=200)": dict(k5.launch_shape(289, 200)),
               "S1 fold (M1, M1b)": dict(s1.fold_launch_shape()),
+              "S1 M2 (rows 96)": dict(s1.relayout_launch_shape("M2", 96)),
+              "S1 M4": dict(s1.relayout_launch_shape("M4")),
               "S1 GEMM M6a (nE=4, Kd=72)": dict(s1.gemm_launch_shape(4, 72)),
               "S1 GEMM M6b/c (nE=1, Kd=288)": dict(s1.gemm_launch_shape(1, 288)),
               "K2 combat": dict(k2.launch_shape(k2_tables("combat"))),
@@ -1875,6 +1910,8 @@ def redesign_shapes(res):
             "K5 (S=121": ptxas_usage(log_, "obs_render", K5_MAIN),
             "K5 (S=289": ptxas_usage(log_, "obs_render", "obs_render_kernelILi0E"),
             "S1 fold": ptxas_usage(log_, "ubench_mosaic", "fold_kernel"),
+            "S1 M2": ptxas_usage(log_, "ubench_mosaic", "transpose_kernel"),
+            "S1 M4": ptxas_usage(log_, "ubench_mosaic", "rep_kernel"),
             "S1 GEMM": ptxas_usage(log_, "ubench_gemm", "gemm_tma_kernel"),
             "K2 combat": ptxas_usage(log_, "sim_fused", K2_COMBAT),
             "K2 arena": ptxas_usage(log_, "sim_fused", "sim_fused_kernelILb0ELb0ELb1ELb1ELb0E"),
@@ -1929,28 +1966,48 @@ def s1_library_parts(case, acc, x):
     return acc, None
 
 
-def m5_in_turns(row):
-    """M5 on the script's inputs (G=1024, reps 16) timed in turns with its
-    ``torch.add`` and with ``copy_`` of the same bytes (the stream with no
-    arithmetic): kernel, add, copy, copy, add, kernel. Adds each's first
-    time to ``row`` (M5's row of the S1 script)."""
+def s1_in_turns(row):
+    """S1 case ``row["case"]`` (M5, M2 or M4) on the script's inputs (G=1024,
+    eps 4, reps 16) timed in turns with its one PyTorch call
+    (``s1_library_call``) and, for M5 and M2, with a one-pass copy of the
+    same bytes (the stream with no arithmetic: ``copy_`` of x, or of its
+    transposed view): kernel, call, copy, copy, call, kernel. Adds each's
+    first time to ``row``; for M4 also the kernel's time at reps 1, 16 and
+    32, whose step is what each rep's adds cost."""
     from metta_tpu_torch.ops import ubench_mosaic as s1
 
-    x = s1.make_inputs("M5", 1024, 4, 0, "cuda")[0]
+    case = row["case"]
+    x = s1.make_inputs(case, 1024, 4, 0, "cuda")[0]
     before = s1.launches
-    out = torch.empty_like(x)
-    calls = dict(kernel=lambda: s1.run("M5", (x,), 16),
-                 add=lambda: s1_library_call("M5", x, 16), copy=lambda: out.copy_(x))
+    calls = dict(kernel=lambda: s1.run(case, (x,), 16),
+                 library=lambda: s1_library_call(case, x, 16))
+    if case == "M5":
+        out = torch.empty_like(x)
+        calls["copy"] = lambda: out.copy_(x)
+    elif case == "M2":
+        out = torch.empty(x.shape[0], x.shape[2], x.shape[1], device=x.device)
+        calls["copy"] = lambda: out.copy_(x.transpose(1, 2))
+    order = list(calls) + list(calls)[::-1]
     times = {name: [] for name in calls}
-    for name in ("kernel", "add", "copy", "copy", "add", "kernel"):
+    for name in order:
         times[name].append(cuda_time_ms(calls[name], 10))
+    row.update({f"{name}_in_turns_ms": t[0] for name, t in times.items()})
+    if case == "M4":            # what grows with the reps (their adds) and what does not
+        row["kernel_ms_at_reps"] = {reps: cuda_time_ms(lambda: s1.run(case, (x,), reps), 10)
+                                    for reps in (1, 16, 32)}
+        per_rep = (row["kernel_ms_at_reps"][32] - row["kernel_ms_at_reps"][16]) / 16
+        _, _, adds_ms = bound_of(0, s1.work(case, 1024, 4, 1)[1], "f32")
+        log(f"[analysis] S1 M4 at reps 1, 16, 32: {row['kernel_ms_at_reps']} ms; a rep "
+            f"{per_rep:.5f} ms, its adds at the FADD issue rate (33.5 T/s) "
+            f"{2 * adds_ms:.5f} ms; the part that does not grow "
+            f"{row['kernel_ms_at_reps'][16] - 16 * per_rep:.4f} ms")
     s1.launches = before                                   # timing launches do not count
-    row.update(kernel_in_turns_ms=times["kernel"][0], add_in_turns_ms=times["add"][0],
-               copy_in_turns_ms=times["copy"][0])
-    log(f"[analysis] S1 M5 in turns (kernel, add, copy, copy, add, kernel): kernel "
-        f"{times['kernel']} ms, torch.add {times['add']} ms, copy_ {times['copy']} ms; "
-        f"bound {row['bound_ms']:.4f} ms")
-    del x, out
+    label = dict(kernel="kernel", library="torch.add" if case == "M5" else "torch.sum",
+                 copy="copy_")
+    log(f"[analysis] S1 {case} in turns ({', '.join(label[n] for n in order)}): "
+        + ", ".join(f"{label[n]} {t} ms" for n, t in times.items())
+        + f"; bound {row['bound_ms']:.4f} ms")
+    del x
 
 
 def phase_analysis(res):
@@ -2044,7 +2101,9 @@ def phase_analysis(res):
                 f"{row['library_ms']:.4f} ms ({row['library_ms'] / row['ms']:.2f}x the kernel's "
                 f"time), bound {row['bound_ms']:.4f} ms")
         del inputs
-    m5_in_turns(next(r for r in s1_rows if r["case"] == "M5"))
+    for row in s1_rows:
+        if row["case"] in ("M5", "M2", "M4"):
+            s1_in_turns(row)
 
     def entry(name, source, replaces, key, rows, label, shape, main=None):
         top = main if main is not None else dict(

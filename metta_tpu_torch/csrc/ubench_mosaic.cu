@@ -23,7 +23,7 @@
 //
 // Keeping the work real: the relayouts (M1, M1b, M2, M3, M4) are address
 // arithmetic on Hopper, so every rep reloads each element it reads (from
-// shared memory in the fold, from L1 after the first rep elsewhere): its
+// shared memory in the fold and M2, from L1 after the first rep elsewhere): its
 // address is offset by r * rep_stride, a kernel argument the launchers set
 // to 0, so that no compiler stage can prove two reps' loads alike and merge
 // them (an empty asm barrier on the pointer does not stop ptxas from merging
@@ -33,10 +33,15 @@
 // counts their instructions in the SASS and checks that each holds its
 // loads and its arithmetic.
 //
-// What bounds them: M1, M1b, M4 and M5 read their 0.1-2.2 GB inputs once
-// and add reps times; the adds bound them at 67 T f32 ops/s, the bytes at
-// 3.35 TB/s. The GEMMs (M6a-c) are in their own source, csrc/ubench_gemm.cu
-// (TMA and wgmma), so that this file's kernels keep their code.
+// What bounds them: each input byte read once and each output byte written
+// once at 3.35 TB/s, or the float32 operations at the data sheet's 67 T/s,
+// whichever takes longer (ops/timing.py:bound_of). M1, M1b, M2, M3 and M5
+// are bound by their bytes, M4 and M7 by their operations. The data sheet
+// counts an FFMA as two operations; an FADD issues at one a lane a clock,
+// 132 x 128 = 16,896 adds a clock, 33.5 T/s at 1,980 MHz, so a case made of
+// adds alone (M4) cannot come within half of that bound. The GEMMs (M6a-c)
+// are in their own source, csrc/ubench_gemm.cu (TMA and wgmma), so that this
+// file's kernels keep their code.
 //
 // M5 is a stream: 138 MB in and 138 MB out at G=1024, byte-bound at 0.083
 // ms. Its first design, a block per g with each thread loading one float,
@@ -72,6 +77,48 @@
 // reads (reps x 4 bytes an element at 128 bytes a clock an SM) set a floor
 // above the byte bound: about 1.1-1.2 ms for M1 and 0.27-0.30 for M1b at
 // reps 16.
+//
+// M4 (scripts/ubench_mosaic.py:141-153, the TPU body acc +
+// pltpu.repeat(x_ref[0], 11, 0)) reads its [264, 128] block once a rep and
+// adds it into each of its 11 copies. At G=1024, reps 16 that is 138 MB in,
+// 138 MB out and 6.09 G float32 adds: bound 0.0909 ms by the operations at
+// 67 T/s, and at least 0.182 ms by the FADD issue rate above. Its first
+// design gave each of the 11 n outputs of a g its own thread-iteration, so
+// every element was loaded 11 times a rep, behind an integer modulo, one
+// dependent chain a thread at a time (2.15 ms). This one is a flat grid of
+// 16-byte vectors, one a thread in one round, as M5's: each rep the thread
+// loads its vector once and adds it into 11 x 4 independent accumulators,
+// one for each copy of the tile, each its own chain of reps opaque adds in
+// rep order (the TPU body's 2,904 rows are 2,904 adds; no copy's sum is
+// taken from another's). Each chain starts from a zero of its own, the bits
+// of c * rep_stride, so that no compiler stage can prove two copies' chains
+// alike and merge them. Copy 0 goes to out[g] in 16-byte stores, the bits of
+// copies 1-10, summed as a tree, into cks[g] by one wrapping atomicAdd a warp
+// (n % 128 == 0, so a warp's 32 vectors lie in one g). Blocks of 128 threads,
+// eight an SM (the launch bound caps a thread at 64 registers). On the card
+// (NVIDIA H100 80GB HBM3, 700 W) the reps run at 84% of the FADD issue rate
+// (chip_smoke.py times M4 at reps 1, 16 and 32; the loop's 51 instructions a
+// rep hold 44 adds); above that stays a part that does not grow with reps,
+// each thread's start, zeros and checksum tail, which the reps do not hide.
+// Variants tried there were slower: 256- and 512-thread blocks, 768 threads
+// an SM, a persistent grid, two to eight vectors a thread with or without
+// the next one's load issued early, a block-level checksum, the rep loop
+// unrolled twice.
+//
+// M2 (scripts/ubench_mosaic.py:104-113, acc + x_ref[0].T) is 50 MB in and
+// 50 MB out at G=1024, eps 4: bound 0.0300 ms by the bytes. Its first design
+// read output (c, r) as x[r][c] from global memory every rep, neighbouring
+// threads 512 bytes apart (32 sectors a warp load for 128 useful bytes).
+// This one splits x[g] [rows, 128] into four column tiles of 32, a block
+// each: the block stages its tile [rows, 32] once in shared memory in
+// coalesced 16-byte loads, each row padded to 33 floats, and every rep reads
+// each element its outputs need from there in transposed order. A warp takes
+// four of the tile's columns, its lanes consecutive rows r (lanes past the
+// last row idle), so one warp read is 32 rows at one column: at a stride of
+// 33 floats, 32 banks. Each thread carries its four columns' sums as four
+// chains, and a warp's stores are 32 consecutive floats of an out[g] row.
+// The reps' shared reads (805 MB at 128 bytes a clock an SM, about 0.024 ms
+// at 1,980 MHz) are this design's floor, near the byte bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,6 +128,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTinyThreads = 512;          // M5's block
+constexpr int kRepCopies = 11;             // M4's copies of the tile (ops/ubench_mosaic.py:COPIES)
+constexpr int kRepThreads = 128;           // M4's block: 8 an SM at <= 64 registers
+constexpr int kTrCols = 32;                // M2's column tile: x[g][:, 32 q:32 q + 32]
+constexpr int kTrStride = kTrCols + 1;     // its padded row in shared memory
+constexpr int kTrColsPerWarp = kTrCols / kWarps;
+constexpr int kTrMaxRows = 256;            // M2's rows a block stages: 33,792 B, no opt-in needed
 constexpr int kCols = 640;                 // M7's plane width
 constexpr int kPerLane = kCols / 32;
 constexpr int kFoldChunk = 4096;           // the fold's chunk: floats a stage holds (16 KB)
@@ -296,16 +349,38 @@ __global__ void __launch_bounds__(kFoldThreads, 2) fold_kernel(
 }
 
 // M2: acc [128, rows] += x[g].T (x [G, rows, 128]), reps times -> out[g].
+// Block b takes g = b / 4 and the column tile q = b % 4 (described at the
+// top of this file); dynamic shared memory: rows x kTrStride floats.
 __global__ void __launch_bounds__(kThreads) transpose_kernel(
     const float* __restrict__ x, float* __restrict__ out, int rows, int reps, int rep_stride) {
-  const int n = rows * 128;
-  const float* xg = x + (size_t)blockIdx.x * n;
-  float* og = out + (size_t)blockIdx.x * n;
-  for (int o = threadIdx.x; o < n; o += kThreads) {
-    const int c = o / rows, r = o - c * rows;
-    float acc = 0.0f;
-    for (int i = 0; i < reps; ++i) acc = opaque(acc + xg[r * 128 + c + i * rep_stride]);
-    og[o] = acc;
+  extern __shared__ __align__(16) float tile[];
+  constexpr int tiles = 128 / kTrCols, vecs = kTrCols / 4;  // tiles a g, 16-byte vectors a row
+  const int g = blockIdx.x / tiles, c0 = (blockIdx.x % tiles) * kTrCols;
+  const float* xg = x + (size_t)g * rows * 128 + c0;
+  for (int i = threadIdx.x; i < rows * vecs; i += kThreads) {
+    const int r = i / vecs, q = i % vecs;
+    const float4 v = *reinterpret_cast<const float4*>(xg + (size_t)r * 128 + 4 * q);
+    float* d = tile + r * kTrStride + 4 * q;  // a padded row is not 16-byte aligned
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* og = out + ((size_t)g * 128 + c0) * rows;
+  for (int r = lane; r < rows; r += 32) {  // the warp's columns warp + kWarps k
+    float acc[kTrColsPerWarp];
+#pragma unroll
+    for (int k = 0; k < kTrColsPerWarp; ++k) acc[k] = 0.0f;
+    const float* src = tile + r * kTrStride + warp;
+    for (int i = 0; i < reps; ++i) {
+#pragma unroll
+      for (int k = 0; k < kTrColsPerWarp; ++k) acc[k] = opaque(acc[k] + src[kWarps * k]);
+      src += rep_stride;
+    }
+#pragma unroll
+    for (int k = 0; k < kTrColsPerWarp; ++k) og[(size_t)(warp + kWarps * k) * rows + r] = acc[k];
   }
 }
 
@@ -327,25 +402,45 @@ __global__ void __launch_bounds__(kThreads) droll_kernel(
   }
 }
 
-// M4: acc [copies * rows, 128] += tile(x[g], copies rows), reps times; the
-// first `n` elements -> out[g], the rest's bits -> cks[g].
-__global__ void __launch_bounds__(kThreads) rep_kernel(
-    const float* __restrict__ x, float* __restrict__ out, int32_t* __restrict__ cks,
-    int n, int copies, int reps, int rep_stride) {
-  const float* xg = x + (size_t)blockIdx.x * n;
-  float* og = out + (size_t)blockIdx.x * n;
+// M4: acc [copies * rows, 128] += tile(x[g], copies rows), reps times, over
+// the G n floats as 16-byte vectors, vector v a thread (described at the top
+// of this file): copy 0 -> out[g], the other copies' bits -> cks[g] (zeroed
+// by the caller). per_g (vectors a g) is a multiple of 32.
+__global__ void __launch_bounds__(kRepThreads, 8) rep_kernel(
+    const float4* __restrict__ x, float4* __restrict__ out, int32_t* __restrict__ cks,
+    int per_g, int vecs, int reps, int rep_stride) {
+  const int v = blockIdx.x * kRepThreads + threadIdx.x;
   uint32_t bits = 0;
-  for (int o = threadIdx.x; o < n * copies; o += kThreads) {
-    const int src = o % n;
-    float acc = 0.0f;
-    for (int r = 0; r < reps; ++r) acc = opaque(acc + xg[src + r * rep_stride]);
-    if (o < n) {
-      og[o] = acc;
-    } else {
-      bits += __float_as_uint(acc);
+  if (v < vecs) {  // whole warps: vecs is a multiple of 32
+    float4 acc[kRepCopies];
+#pragma unroll
+    for (int c = 0; c < kRepCopies; ++c) {
+      const float z = __int_as_float(c * rep_stride);  // +0.0f, an expression of its own
+      acc[c] = make_float4(z, z, z, z);
     }
+    const float4* src = x + v;
+#pragma unroll 1
+    for (int r = 0; r < reps; ++r) {
+      const float4 t = *src;  // one load a rep feeds the 11 copies
+#pragma unroll
+      for (int c = 0; c < kRepCopies; ++c) {
+        acc[c].x = opaque(acc[c].x + t.x);
+        acc[c].y = opaque(acc[c].y + t.y);
+        acc[c].z = opaque(acc[c].z + t.z);
+        acc[c].w = opaque(acc[c].w + t.w);
+      }
+      src += rep_stride;
+    }
+    out[v] = acc[0];
+    uint32_t b[kRepCopies - 1];  // copies 1-10, summed as a tree: a short tail after the reps
+#pragma unroll
+    for (int c = 1; c < kRepCopies; ++c) b[c - 1] = bits4(acc[c]);
+    bits = ((b[0] + b[1]) + (b[2] + b[3])) + ((b[4] + b[5]) + (b[6] + b[7])) + (b[8] + b[9]);
   }
-  block_bitsum(bits, cks + blockIdx.x);
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) bits += __shfl_xor_sync(0xffffffffu, bits, d);
+  if ((threadIdx.x & 31) == 0 && v < vecs)
+    atomicAdd(reinterpret_cast<unsigned int*>(cks + (unsigned)v / (unsigned)per_g), bits);
 }
 
 // M7: per row of x[g] [rows, 640]: v = x, d = x / 2; reps times, for b < 10:
@@ -437,8 +532,9 @@ __global__ void __launch_bounds__(kThreads) compact_kernel(
 }  // namespace
 
 // Each entry launches its case on `stream` with rep_stride 0 (every rep
-// reads the same block), one block of 256 threads per grid step but M5's
-// flat grid of 512-thread blocks and the fold's persistent grid, and
+// reads the same block), one block of 256 threads per grid step for M3 and
+// M7, four for M2 (one a column tile), M4's and M5's flat grids of 16-byte
+// vectors (128- and 512-thread blocks) and the fold's persistent grid, and
 // returns cudaGetLastError() (0 = launched).
 
 // M5 over x [G, n] (16-byte aligned), a vector a thread in one round;
@@ -490,10 +586,39 @@ extern "C" int mosaic_fold(const void* x, void* out, void* cks, int G, int n, in
   return (int)cudaGetLastError();
 }
 
+// Threads a block, dynamic shared memory bytes, blocks an SM holds and SMs
+// of `kernel` on the current device; returns 0 or a CUDA error.
+static int relayout_shape(const void* kernel, int block, int bytes, int* threads, int* smem,
+                          int* per_sm, int* sms) {
+  *threads = block;
+  *smem = bytes;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, block, bytes);
+  return (int)cudaGetLastError();
+}
+
+// M2's launch shape at `rows` and M4's, as relayout_shape gives them.
+extern "C" int mosaic_transpose_shape(int rows, int* threads, int* smem, int* per_sm, int* sms) {
+  return relayout_shape((const void*)transpose_kernel, kThreads, rows * kTrStride * 4, threads,
+                        smem, per_sm, sms);
+}
+
+extern "C" int mosaic_rep_shape(int* threads, int* smem, int* per_sm, int* sms) {
+  return relayout_shape((const void*)rep_kernel, kRepThreads, 0, threads, smem, per_sm, sms);
+}
+
+// M2 over x [G, rows, 128] (16-byte aligned), rows <= kTrMaxRows: four
+// blocks a g; cudaErrorInvalidValue for a shape the kernel does not take.
 extern "C" int mosaic_transpose(const void* x, void* out, int G, int rows, int reps,
                                 void* stream) {
-  transpose_kernel<<<G, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)out, rows, reps, 0);
+  if (G < 0 || rows <= 0 || rows > kTrMaxRows || reinterpret_cast<uintptr_t>(x) % 16 ||
+      (long long)G * (128 / kTrCols) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (G == 0) return 0;
+  transpose_kernel<<<G * (128 / kTrCols), kThreads, rows * kTrStride * 4,
+                     (cudaStream_t)stream>>>((const float*)x, (float*)out, rows, reps, 0);
   return (int)cudaGetLastError();
 }
 
@@ -504,10 +629,19 @@ extern "C" int mosaic_droll(const void* x, const void* shifts, void* out, int G,
   return (int)cudaGetLastError();
 }
 
-extern "C" int mosaic_rep(const void* x, void* out, void* cks, int G, int n, int copies,
-                          int reps, void* stream) {
-  rep_kernel<<<G, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)out, (int32_t*)cks, n, copies, reps, 0);
+// M4 over x [G, n] (16-byte aligned, n a multiple of 128, G n / 4 < 2^31)
+// with kRepCopies copies, a vector a thread in one round; cks must be zeroed.
+// cudaErrorInvalidValue for a shape the kernel does not take.
+extern "C" int mosaic_rep(const void* x, void* out, void* cks, int G, int n, int reps,
+                          void* stream) {
+  const long long vecs = (long long)G * (n / 4);
+  if (G < 0 || n <= 0 || n % 128 || vecs > 0x7fffffffLL ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (vecs == 0) return 0;
+  rep_kernel<<<(int)((vecs + kRepThreads - 1) / kRepThreads), kRepThreads, 0,
+               (cudaStream_t)stream>>>((const float4*)x, (float4*)out, (int32_t*)cks, n / 4,
+                                       (int)vecs, reps, 0);
   return (int)cudaGetLastError();
 }
 

@@ -42,6 +42,8 @@ GEMM_STAGE_BYTES, GEMM_MAX_STAGES, GEMM_SMEM_LIMIT = 16384, 8, 232448
 GEMM_MAX_DEPTH = 512
 # The fold's chunk: floats a stage holds, one bulk copy (csrc/ubench_mosaic.cu:kFoldChunk).
 FOLD_CHUNK = 4096
+# M2's rows a block stages in shared memory (csrc/ubench_mosaic.cu:kTrMaxRows).
+TR_MAX_ROWS = 256
 
 
 def _bytes(rng, shape, device):
@@ -289,6 +291,19 @@ def fold_launch_shape():
     return dict(zip(("stages", "smem", "per_sm", "sms"), (v.value for v in vals)))
 
 
+def relayout_launch_shape(case: str, rows: int = 96):
+    """M2's launch shape at ``rows`` (``case="M2"``) or M4's on the current
+    card: {threads a block, smem bytes (dynamic), blocks an SM holds, SMs}
+    (needs the card)."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    lib = _library()
+    args = [ctypes.byref(v) for v in vals]
+    err = lib.mosaic_transpose_shape(rows, *args) if case == "M2" else lib.mosaic_rep_shape(*args)
+    if err != 0:
+        raise RuntimeError(f"{case}'s launch shape failed: CUDA error {err}")
+    return dict(zip(("threads", "smem", "per_sm", "sms"), (v.value for v in vals)))
+
+
 def gemm_boxes_built(Kd: int):
     """The depth boxes as the built kernel library picks them (needs the
     card's toolchain): [(first column, width)]."""
@@ -309,9 +324,11 @@ def _library():
             ("mosaic_fold", [p, p, p, i, i, i, i, s]),
             ("mosaic_transpose", [p, p, i, i, i, s]),
             ("mosaic_droll", [p, p, p, i, i, i, i, s]),
-            ("mosaic_rep", [p, p, p, i, i, i, i, s]),
+            ("mosaic_rep", [p, p, p, i, i, i, s]),
             ("mosaic_compact", [p, p, p, i, i, i, s]),
             ("mosaic_fold_shape", [p, p, p, p]),
+            ("mosaic_transpose_shape", [i, p, p, p, p]),
+            ("mosaic_rep_shape", [p, p, p, p]),
         ):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
@@ -375,6 +392,12 @@ def run(case: str, inputs, reps: int):
                 err = lib.mosaic_fold(x.data_ptr(), out.data_ptr(), cks.data_ptr(), G, n, width,
                                       reps, stream)
             elif case == "M2":
+                if x.dim() != 3 or x.shape[2] != 128 or not 0 < x.shape[1] <= TR_MAX_ROWS:
+                    raise ValueError(f"M2 takes [G, rows, 128] with rows <= {TR_MAX_ROWS} (a "
+                                     f"block stages rows x 32 in shared memory), got "
+                                     f"{tuple(x.shape)}")
+                if x.data_ptr() % 16:
+                    raise ValueError("M2: x must be 16-byte aligned (16-byte vector loads)")
                 out = torch.empty((G, 128, x.shape[1]), dtype=f32, device=dev)
                 err = lib.mosaic_transpose(x.data_ptr(), out.data_ptr(), G, x.shape[1], reps,
                                            stream)
@@ -385,10 +408,14 @@ def run(case: str, inputs, reps: int):
                 err = lib.mosaic_droll(x.data_ptr(), shifts.data_ptr(), out.data_ptr(), G,
                                        x.shape[1], NSHIFT, reps, stream)
             elif case == "M4":
+                if n % 128 or x.data_ptr() % 16 or G * n // 4 >= 2 ** 31:
+                    raise ValueError("M4: x must be 16-byte aligned and hold under 2^31 "
+                                     "16-byte vectors, x[g] whole rows of 128 floats (16-byte "
+                                     "vector loads, whole warps a g)")
                 out = torch.empty_like(x)
-                cks = torch.empty((G,), dtype=i32, device=dev)
-                err = lib.mosaic_rep(x.data_ptr(), out.data_ptr(), cks.data_ptr(), G, n, COPIES,
-                                     reps, stream)
+                cks = torch.zeros((G,), dtype=i32, device=dev)     # the kernel adds into it
+                err = lib.mosaic_rep(x.data_ptr(), out.data_ptr(), cks.data_ptr(), G, n, reps,
+                                     stream)
             else:                                                      # M7
                 if x.shape[2] != COLS:
                     raise ValueError(f"M7 takes [G, rows, {COLS}], got {tuple(x.shape)}")

@@ -20,9 +20,10 @@ of 75 bytes and a wrapping location byte, on synthetic inputs at its edges,
 and the sequential env with K5 on the GPU against the CPU; S5's and S4's
 nine masks of K1 and K4 on synthetic inputs at E=8, rows of 21 bytes among
 them, and S4's on combat at E=64; S1's M7 bit-equal at phase 13's shape,
-its fold (M1, M1b) at G=3 with a short last chunk, and M5 at phase 13's
-shape and with a scalar tail; the wrappers' input
-checks (M5's alignment, S4's one pass); a few whole env steps on the GPU
+its fold (M1, M1b) at G=3 with a short last chunk, M5 at phase 13's
+shape and with a scalar tail, and M4 and M2 at phase 13's shape and at G=3
+(M2 at rows 24, 48 and 96); the wrappers' input checks (M5's, M4's and
+M2's alignment, S4's one pass); a few whole env steps on the GPU
 against the CPU; and a tiny trainer update through all three kernels.
 This file imports no JAX, so it runs on a machine with a card and torch
 alone:
@@ -945,6 +946,81 @@ def test_mosaic_compact_is_bit_equal(G, eps):
     want_slots, want_cks = s1.plain("M7", inputs, 16)
     assert torch.equal(slots.view(torch.int32), want_slots.view(torch.int32))
     assert torch.equal(cks, want_cks)
+
+
+def _wide(rng, shape):
+    """float32 in [2^24, 2^25), all mantissa bits drawn: sums round, so the
+    order of the adds shows."""
+    m = rng.integers(0, 2 ** 23, size=shape, dtype=np.uint32)
+    return torch.from_numpy((m | np.uint32(151 << 23)).view(np.float32)).to("cuda")
+
+
+@pytest.mark.parametrize("case,G,eps,reps", [
+    ("M4", 1024, 4, 16), ("M4", 3, 4, 1), ("M4", 3, 4, 16),
+    ("M2", 1024, 4, 16), ("M2", 3, 4, 1), ("M2", 3, 4, 16), ("M2", 3, 1, 16),
+    ("M2", 3, 2, 16),
+], ids=["M4-phase13", "M4-G3-rep1", "M4-G3", "M2-phase13", "M2-G3-rep1", "M2-G3",
+        "M2-rows24", "M2-rows48"])
+def test_mosaic_relayout_is_bit_equal(case, G, eps, reps):
+    """M4 (one load a rep into 11 chains) and M2 (the tile through shared
+    memory) bit-equal to their plain versions (slots and M4's checksum), a
+    launch counted: at phase 13's shape on the script's inputs, and at G=3
+    with reps 1 and 16 (M2 also at rows 24 and 48) on values past 2^24,
+    where the order of the adds shows."""
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    _cuda()
+    inputs = s1.make_inputs(case, G, eps, seed=11, device="cuda")
+    if G == 3:
+        inputs = (_wide(np.random.default_rng(eps + reps), tuple(inputs[0].shape)),)
+    before = s1.launches
+    slots, cks = s1.run(case, inputs, reps)
+    torch.cuda.synchronize()
+    assert s1.launches == before + 1
+    want_slots, want_cks = s1.plain(case, inputs, reps)
+    assert torch.equal(slots.view(torch.int32), want_slots.view(torch.int32))
+    if case == "M4":
+        assert torch.equal(cks, want_cks)
+    else:
+        assert cks is None and want_cks is None
+
+
+@pytest.mark.parametrize("case,shape", [("M2", (2, 24, 128)), ("M4", (2, 264, 128))])
+def test_mosaic_relayout_refuses_misaligned_input(case, shape):
+    """M2's and M4's 16-byte loads need a 16-byte aligned x: one that is not
+    is refused by name before any launch."""
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    _cuda()
+    x = torch.ones(int(np.prod(shape)) + 1, device="cuda")[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    before = s1.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        s1.run(case, (x,), 16)
+    assert s1.launches == before
+
+
+@pytest.mark.parametrize("case,bad", [("M2", (2, 24, 64)), ("M2", (2, 300, 128)),
+                                      ("M4", (2, 100))])
+def test_mosaic_relayout_never_takes_the_plain_version(monkeypatch, case, bad):
+    """For CUDA tensors M2's and M4's wrappers launch their kernels or raise:
+    a shape the kernel does not take (M2's rows of other than 128 floats or
+    past its shared-memory tile, M4's n not a multiple of 128) is refused,
+    never handed to the plain version."""
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    _cuda()
+
+    def plain(*_):
+        raise AssertionError("the plain version ran on CUDA inputs")
+    monkeypatch.setattr(s1, "plain", plain)
+    before = s1.launches
+    with pytest.raises(ValueError):
+        s1.run(case, (torch.ones(bad, device="cuda"),), 2)
+    assert s1.launches == before
+    s1.run(case, s1.make_inputs(case, 2, 1, seed=0, device="cuda"), 2)
+    torch.cuda.synchronize()
+    assert s1.launches == before + 1
 
 
 # ---- the redesigned kernels: K1 (persistent, word stores) and S1's GEMMs (TMA + wgmma) ----

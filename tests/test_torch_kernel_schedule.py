@@ -398,6 +398,17 @@ def test_render1_constants_are_the_kernels():
             k5.check_sizes(S, T)
 
 
+def test_mosaic_constants_are_the_kernels():
+    """The sizes S1's wrapper mirrors are the constants of its CUDA source:
+    the fold's chunk, M4's copies and M2's most rows, whose staged tile
+    (rows x 33 floats) fits the 48 KB a block takes without opting in."""
+    const = _constants("ubench_mosaic.cu")
+    assert (const["kFoldChunk"], const["kRepCopies"], const["kTrMaxRows"]) == (
+        s1.FOLD_CHUNK, s1.COPIES, s1.TR_MAX_ROWS)
+    assert s1.TR_MAX_ROWS * (const["kTrCols"] + 1) * 4 <= 48 * 1024
+    assert 128 % const["kTrCols"] == 0
+
+
 @pytest.mark.parametrize("b", range(10))
 def test_compact_index_map_is_the_roll(b):
     """M7's register renaming (b >= 5) and shuffle map (b < 5), emulated in

@@ -11,8 +11,9 @@ magnitude (the accumulation order differs). The scripts are loaded by file
 path; ``ubench_mosaic.py`` defines its kernels inside ``main``, so their
 bodies and ``pallas_call`` wiring are copied here. The fold's chunk
 schedule (``ops/ubench_mosaic.py:fold_schedule``) must cover every element
-once, no chunk crossing a g; M5 on CPU tensors must be one float32 chain of
-adds an element, in rep order. Every CLI runs once with ``--device cpu``.
+once, no chunk crossing a g; M5, M4 (each of its 11 copies) and M2 on CPU
+tensors must be one float32 chain of adds an element, in rep order. Every
+CLI runs once with ``--device cpu``.
 The CUDA kernels themselves are held to these plain versions on a GPU by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -302,6 +303,59 @@ def test_m5_on_cpu_is_one_chain_of_adds(G, n, reps, scale):
     np.testing.assert_array_equal(got.view(torch.int32).numpy(), want.view(np.int32))
     if scale > 1 and reps > 1:
         assert not np.array_equal(want, x.numpy() + np.float32(reps))
+
+
+def _wide(rng, shape):
+    """float32 in [2^24, 2^25) with all 23 mantissa bits drawn: a sum of such
+    values rounds, so the order of the adds shows in the result."""
+    m = rng.integers(0, 2 ** 23, size=shape, dtype=np.uint32)
+    return (m | np.uint32(151 << 23)).view(np.float32)
+
+
+@pytest.mark.parametrize("G,rows,reps", [
+    (2, 264, 16),                    # M4's rows at phase 13's reps
+    (3, 8, 16),                      # a smaller tile
+    (2, 264, 1),                     # one rep
+], ids=["rows", "small", "one_rep"])
+def test_m4_on_cpu_is_eleven_chains_of_adds(G, rows, reps):
+    """M4 on CPU tensors (the wrapper's plain version, no launch): every copy
+    of the tile one float32 chain of ``reps`` adds of x in rep order, copy 0
+    in the slots and the checksum the wrapping int32 sum of the bits of
+    copies 1-10, so that the card's bit-equality checks hold the kernel's 11
+    chains to that order; past 2^24 a sum taken at once would differ."""
+    x_np = _wide(np.random.default_rng(G * rows + reps), (G, rows, 128))
+    x = torch.from_numpy(x_np.copy())
+    before = s1.launches
+    slots, cks = s1.run("M4", (x,), reps)
+    assert s1.launches == before
+    chain = np.zeros_like(x_np)
+    for _ in range(reps):
+        chain = chain + x_np
+    np.testing.assert_array_equal(slots.view(torch.int32).numpy(), chain.view(np.int32))
+    others = np.tile(chain, (1, s1.COPIES - 1, 1))                   # copies 1-10
+    bits = others.view(np.uint32).reshape(G, -1).astype(np.int64).sum(1)
+    assert cks.dtype == torch.int32 and cks.shape == (G,)
+    np.testing.assert_array_equal(cks.numpy(), (bits % 2 ** 32).astype(np.uint32)
+                                  .view(np.int32))
+    if reps > 1:
+        assert not np.array_equal(chain, x_np * np.float32(reps))
+
+
+@pytest.mark.parametrize("eps", [1, 2, 4])
+def test_m2_on_cpu_is_the_transposed_chain(eps):
+    """M2 on CPU tensors at rows 24, 48 and 96 (eps 1, 2, 4; the plain
+    version, no launch): out[g, c, r] one float32 chain of 16 adds of
+    x[g, r, c] in rep order."""
+    G, rows, reps = 3, 24 * eps, 16
+    x_np = _wide(np.random.default_rng(eps), (G, rows, 128))
+    before = s1.launches
+    slots, cks = s1.run("M2", (torch.from_numpy(x_np.copy()),), reps)
+    assert s1.launches == before and cks is None
+    chain = np.zeros((G, 128, rows), np.float32)
+    for _ in range(reps):
+        chain = chain + x_np.transpose(0, 2, 1)
+    np.testing.assert_array_equal(slots.view(torch.int32).numpy(), chain.view(np.int32))
+    assert not np.array_equal(chain, x_np.transpose(0, 2, 1) * np.float32(reps))
 
 
 @pytest.mark.parametrize("argv", [
