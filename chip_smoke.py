@@ -11,7 +11,7 @@ Phases (each one a hard failure):
    S1's GEMMs and its other cases in two sources, S2 and S3; one ``nvcc``
    per source, all started together), keep ``ptxas -v``'s
    registers and shared memory of the redesigned K1, K2, K3, K4, K5, S1 fold,
-   M2, M4 and S1 GEMM kernels, and print the card's name and power limit;
+   M2, M3, M4 and S1 GEMM kernels, and print the card's name and power limit;
 2. K1 (``csrc/obs_render3.cu``) against its plain torch version
    (``render_obs3_plain``) at the shapes of the ``track_stats=True`` path: the
    combat map, 24 agents, 4096 envs, 20 random steps, byte-equal;
@@ -101,18 +101,25 @@ Phases (each one a hard failure):
    to its plain version), its launches counted and each section's cost
    (``full`` minus the variant) logged; S3, the sim-kernel smoke check, at
    E=256 and 257; S2,
-   the nine pair-mat cases at E=4096, byte-equal; S1, the ten primitive
+   the nine pair-mat cases at E=4096, byte-equal, each with its bound, its
+   share and its issue floor from the SASS (``s2_issue_floors``), the four
+   cases nearest their floor timed in turns with a launch of the same grid
+   that only loads and stores x, and pair_full (24 shuffles a rep) in turns
+   with its form by K2's warp match; S1, the ten primitive
    cases at G=1024, reps 16, eps 4 (float32 within rtol 1e-6, the bf16
    GEMMs within 1e-3 of their largest magnitude); each variant's and case's
    time, bound and plain time; the launch counts of the scripts' run; one
    PyTorch call for each S1 case that one computes (M5's ``torch.add``, the
    folds', M2's and M4's ``torch.sum`` over an expanded view), held to the
    plain version and timed as the library yardstick; M5, M2 and M4 timed
-   in turns with that call and (M5, M2) with ``copy_`` of the same bytes;
+   in turns with that call and (M5, M2) with ``copy_`` of the same bytes,
+   M3 in turns with ``copy_`` of its x;
    each repeat loop found in the SASS (``cuobjdump -sass``) with the loads
    and arithmetic it must hold (M7's, the compaction in registers: ``FSETP``
-   and ``SHFL`` with no ``LDS``; the fold's and M2's, from shared memory:
-   ``FADD`` and ``LDS`` with no ``LDG``; M5's ``FADD``; M4's ``FADD`` and
+   and ``SHFL`` with no ``LDS``; the fold's, M2's and M3's, from shared
+   memory: ``FADD`` and ``LDS`` with no ``LDG``; S2's pair_full ``SHFL``
+   with no ``MATCH``, red_a ``REDUX``, tdiv ``I2F``, ``FMUL`` and ``F2I``
+   with no ``MUFU`` or ``CALL``; M5's ``FADD``; M4's ``FADD`` and
    ``LDG``, at least 11 adds for every float loaded; M5's and M4's kernels
    holding 16-byte global loads and stores), its instruction count printed,
    and the S1
@@ -124,11 +131,12 @@ Phases (each one a hard failure):
    holding ``SHFL`` and no block barrier; K1's, K2's, K3's, K4's and K5's
    production kernels at their registers (K1's and K4's the mask-0
    instantiations), and they, every stubbed mask of K1 and K4, K2's chest
-   instantiation, M7, the fold, M2 and M4 with no stack or local memory; the
+   instantiation, M7, the fold, M2, M3, M4 and S2's eleven instantiations
+   with no stack or local memory; the
    launch shape (registers and shared memory from ``ptxas
    -v``, blocks an SM, the fold's ring stages) of the redesigned K1, K2
-   (combat, arena, the chest config), K3, K4, K5, S1 fold, M2, M4 and S1
-   GEMMs;
+   (combat, arena, the chest config), K3, K4, K5, S1 fold, M2, M3, M4 and
+   S1 GEMMs;
    ``torch.bmm`` on the S1 GEMMs' operands as the library yardstick;
 14. K2's chest phase: the chest config (``scripts/common.py:chest_mission``,
    the basic mission with the catalog's chest station twice; no catalog
@@ -158,9 +166,11 @@ result, without a CUDA device or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import functools
 import json
 import re
 import statistics
+from collections import Counter
 import subprocess
 import sys
 import time
@@ -1615,7 +1625,10 @@ PRODUCTION_REGISTERS = [("obs_render3", K1_MAIN, 48),
                         ("ubench_mosaic", "compact_kernel", None),
                         ("ubench_mosaic", "fold_kernel", None),
                         ("ubench_mosaic", "transpose_kernel", None),
-                        ("ubench_mosaic", "rep_kernel", None)]
+                        ("ubench_mosaic", "rep_kernel", None),
+                        ("ubench_mosaic", "droll_kernel", None),
+                        # S2: the nine cases, then pair_full_match and load_store
+                        *[("ubench_pairmat", f"pairmat_kernelILi{i}E", None) for i in range(11)]]
 SECTION_TEMPLATES = [("obs_render3", "obs_render3_kernel"), ("obs_render2", "obs_render2_kernel")]
 # PERF.md's kernel table, combat E=4096
 PRODUCTION_MS = {"K1": 0.0909, "K4": 0.0884, "K2": 0.0304}
@@ -1626,8 +1639,12 @@ K2_SASS_OPS = ("MATCH", "REDUX")
 # fragment of the mangled name, opcodes the loop body must hold: the rep's
 # arithmetic and, where the TPU body reads its block every rep, the load;
 # opcodes it must not hold). M7 keeps its row in registers: its loop holds
-# the compares and the shuffles, and no shared load. The fold and M2 read
-# each rep from shared memory: their loops hold shared loads, no global one.
+# the compares and the shuffles, and no shared load. The fold, M2 and M3
+# read each rep from shared memory: their loops hold shared loads, no global
+# one. S2's pair_full counts by 24 shuffles a rep (no warp match: its match
+# form, pair_full_match, timed beside it, was slower), red_a sums by the
+# warp reduce, and tdiv multiplies by a reciprocal taken before the loop (no
+# reciprocal and no call of the division's slow path in the loop).
 # S3 has no repeat loop: its shuffles, ballot and shared atomics are counted
 # in the function. M5's and M4's kernels must also hold 16-byte global loads
 # and stores (VECTOR_OPS: opcode prefix and width suffix of the full
@@ -1635,19 +1652,41 @@ K2_SASS_OPS = ("MATCH", "REDUX")
 # (ops/ubench_mosaic.py:COPIES) for every float its loads bring: one load a
 # rep feeds every copy.
 SASS_LOOPS = [
-    *[("ubench_pairmat", f"pairmat_kernelILi{i}E", ops) for i, ops in enumerate((
-        ("ISETP",), ("IADD3",), ("SHFL",), ("IADD3",), ("SHFL", "ISETP"), ("SHFL",),
-        ("IADD3",), ("ISETP",), ("I2F",)))],
+    *[("ubench_pairmat", f"pairmat_kernelILi{i}E", *spec) for i, spec in enumerate((
+        (("ISETP",),), (("IADD3",),), (("SHFL",),), (("IADD3",),),
+        (("SHFL", "ISETP"), ("MATCH",)), (("REDUX",),), (("IADD3",),), (("ISETP",),),
+        (("I2F", "FMUL", "F2I"), ("CALL", "MUFU")), (("MATCH",), ("SHFL",))))],
     ("ubench_mosaic", "tiny_kernel", ("FADD",)),
     ("ubench_mosaic", "fold_kernel", ("FADD", "LDS"), ("LDG",)),
     ("ubench_mosaic", "transpose_kernel", ("FADD", "LDS"), ("LDG",)),
-    ("ubench_mosaic", "droll_kernel", ("FADD", "LDG")),
+    ("ubench_mosaic", "droll_kernel", ("FADD", "LDS"), ("LDG",)),
     ("ubench_mosaic", "rep_kernel", ("FADD", "LDG")),
     ("ubench_mosaic", "compact_kernel", ("FSETP", "SHFL"), ("LDS",)),
     # S1's GEMMs: the consumers' loop issues wgmma, the producer's TMA loads
     ("ubench_gemm", "gemm_tma_kernel", ("HGMMA",)),
     ("ubench_gemm", "gemm_tma_kernel", ("UTMALDG",)),
 ]
+# S2's issue floors (s2_issue_floors): each case's reps an element and the
+# reps its repeat loop in the SASS covers (its unroll in
+# csrc/ubench_pairmat.cu). A warp's loop issues at most four instructions a
+# clock an SM (one a scheduler), and each pipe takes its opcodes at its
+# lanes a clock an SM, from the throughput table of NVIDIA's CUDA C++
+# Programming Guide for compute capability 9.0: the int32 pipe 64, shuffles
+# 32, conversions and population counts 16; the float32 pipe 128, which is
+# taken to run IMAD, VIADD, I2FP and MOV too (the table's int32 rate for
+# them would put the floor above the measured times); warp reduces 16, and
+# MATCH, which the table does not list, at REDUX's 16. Branches, convergence
+# barriers and uniform-datapath instructions take issue slots only.
+S2_LOOP = dict(elemwise=(768, 4), flat=(32, 4), bT=(32, 4), bA=(32, 4), pair_full=(32, 2),
+               red_a=(32, 4), repeat_na=(352, 8), iota_div=(32, 4), tdiv=(256, 4),
+               pair_full_match=(32, 4))
+PIPE_OF = {"FADD": "f32", "FMUL": "f32", "FFMA": "f32", "IMAD": "f32", "VIADD": "f32",
+           "I2FP": "f32", "MOV": "f32", "SHFL": "shuffle", "I2F": "conversion",
+           "F2I": "conversion", "MUFU": "conversion", "POPC": "conversion", "FLO": "conversion",
+           "REDUX": "warp reduce", "MATCH": "warp reduce"}
+PIPE_LANES = {"int32": 64, "f32": 128, "shuffle": 32, "conversion": 16, "warp reduce": 16}
+ISSUE_ONLY = ("BRA", "BSSY", "BSYNC", "NOP", "WARPSYNC", "EXIT")
+SM_CLOCK_MHZ = 1980
 VECTOR_OPS = (("LDG", ".128"), ("STG", ".128"))
 VECTOR_KERNELS = ("tiny_kernel", "rep_kernel")
 SASS_ADDR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
@@ -1735,7 +1774,8 @@ def check_sass():
                                  f"allowed")
         found[f"{frag} {'+'.join(ops)}"] = dict(
             loop_instructions=loop[0], ops=loop[1],
-            function_instructions=len(dumps[lib][names[0]]))
+            function_instructions=len(dumps[lib][names[0]]),
+            opcodes=dict(Counter(opcode(i) for i in loop[2])))
         log(f"[sass] {lib} {frag}: repeat loop of {loop[0]} instructions, {loop[1]}; "
             f"{len(dumps[lib][names[0]])} instructions in the kernel")
     for frag in VECTOR_KERNELS:
@@ -1824,7 +1864,8 @@ def resource_usage(lib):
 def check_registers():
     """K1's, K2's, K3's, K4's and K5's production kernels use the registers
     they were built with, and they, every instantiation of K1's and K4's
-    section templates and S1's M7 and fold use no stack or local memory."""
+    section templates, S1's M7, fold, M2, M3 and M4 and S2's eleven
+    instantiations use no stack or local memory."""
     out, dumps = {}, {}
     for lib, frag, want in PRODUCTION_REGISTERS:
         if lib not in dumps:
@@ -1870,7 +1911,8 @@ def redesign_shapes(res):
     """The launch shape of the redesigned K1 (combat's 121 window cells), K4
     and K5 (the same window; K5 also the 17x17 window's 289 cells), K3 (the
     learner's [255, 60] and [255, 4080], forward and backward), S1's fold
-    (M1 and M1b: its ring stages), M2 (phase 13's 96 rows) and M4, S1 GEMMs
+    (M1 and M1b: its ring stages), M2 (phase 13's 96 rows), M3 (its 16) and
+    M4, S1 GEMMs
     (M6a's and M6b/c's shapes at eps 4) and K2
     (combat's and the arena's tables): registers and static shared memory
     from ``ptxas -v``, dynamic shared memory, blocks an SM, SMs."""
@@ -1893,6 +1935,7 @@ def redesign_shapes(res):
               "K5 (S=289, T=200)": dict(k5.launch_shape(289, 200)),
               "S1 fold (M1, M1b)": dict(s1.fold_launch_shape()),
               "S1 M2 (rows 96)": dict(s1.relayout_launch_shape("M2", 96)),
+              "S1 M3 (rows 16)": dict(s1.relayout_launch_shape("M3", 16)),
               "S1 M4": dict(s1.relayout_launch_shape("M4")),
               "S1 GEMM M6a (nE=4, Kd=72)": dict(s1.gemm_launch_shape(4, 72)),
               "S1 GEMM M6b/c (nE=1, Kd=288)": dict(s1.gemm_launch_shape(1, 288)),
@@ -1911,6 +1954,7 @@ def redesign_shapes(res):
             "K5 (S=289": ptxas_usage(log_, "obs_render", "obs_render_kernelILi0E"),
             "S1 fold": ptxas_usage(log_, "ubench_mosaic", "fold_kernel"),
             "S1 M2": ptxas_usage(log_, "ubench_mosaic", "transpose_kernel"),
+            "S1 M3": ptxas_usage(log_, "ubench_mosaic", "droll_kernel"),
             "S1 M4": ptxas_usage(log_, "ubench_mosaic", "rep_kernel"),
             "S1 GEMM": ptxas_usage(log_, "ubench_gemm", "gemm_tma_kernel"),
             "K2 combat": ptxas_usage(log_, "sim_fused", K2_COMBAT),
@@ -1967,21 +2011,23 @@ def s1_library_parts(case, acc, x):
 
 
 def s1_in_turns(row):
-    """S1 case ``row["case"]`` (M5, M2 or M4) on the script's inputs (G=1024,
-    eps 4, reps 16) timed in turns with its one PyTorch call
-    (``s1_library_call``) and, for M5 and M2, with a one-pass copy of the
-    same bytes (the stream with no arithmetic: ``copy_`` of x, or of its
-    transposed view): kernel, call, copy, copy, call, kernel. Adds each's
-    first time to ``row``; for M4 also the kernel's time at reps 1, 16 and
-    32, whose step is what each rep's adds cost."""
+    """S1 case ``row["case"]`` (M5, M2, M3 or M4) on the script's inputs
+    (G=1024, eps 4, reps 16) timed in turns with its one PyTorch call
+    (``s1_library_call``; M3 has none) and, for M5, M2 and M3, with a
+    one-pass copy of the same bytes (the stream with no arithmetic: ``copy_``
+    of x, or of M2's transposed view): kernel, call, copy, copy, call,
+    kernel. Adds each's first time to ``row``; for M4 also the kernel's time
+    at reps 1, 16 and 32, whose step is what each rep's adds cost."""
     from metta_tpu_torch.ops import ubench_mosaic as s1
 
     case = row["case"]
-    x = s1.make_inputs(case, 1024, 4, 0, "cuda")[0]
+    inputs = s1.make_inputs(case, 1024, 4, 0, "cuda")
+    x = inputs[0]
     before = s1.launches
-    calls = dict(kernel=lambda: s1.run(case, (x,), 16),
-                 library=lambda: s1_library_call(case, x, 16))
-    if case == "M5":
+    calls = dict(kernel=lambda: s1.run(case, inputs, 16))
+    if case != "M3":
+        calls["library"] = lambda: s1_library_call(case, x, 16)
+    if case in ("M5", "M3"):
         out = torch.empty_like(x)
         calls["copy"] = lambda: out.copy_(x)
     elif case == "M2":
@@ -2007,7 +2053,70 @@ def s1_in_turns(row):
     log(f"[analysis] S1 {case} in turns ({', '.join(label[n] for n in order)}): "
         + ", ".join(f"{label[n]} {t} ms" for n, t in times.items())
         + f"; bound {row['bound_ms']:.4f} ms")
-    del x
+    del x, inputs
+
+
+def s2_in_turns(rows):
+    """S2 on the script's inputs (E=4096, x from seed 0), timed in turns:
+    the four cases nearest their launch's floor (flat, bT, bA, iota_div)
+    with load_store, the thread-per-element grid that only loads x and
+    stores it; pair_full (24 shuffles a rep) with pair_full_match (K2's warp
+    match), each order run forwards, then backwards. The extras are first
+    held byte-equal to their plain versions. Adds each case's first time to
+    its row; returns {name: [times]}."""
+    from metta_tpu_torch.ops import ubench_pairmat as s2
+
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 24, (s2.A, E_MAIN),
+                                                           dtype=np.int32)).cuda()
+    before = s2.launches
+    for extra in s2.EXTRAS:
+        if not torch.equal(s2.run(extra, x), s2.plain(extra, x)):
+            raise AssertionError(f"S2 {extra} differs from its plain version")
+    times = {}
+    for group in (("flat", "bT", "bA", "iota_div", "load_store"),
+                  ("pair_full", "pair_full_match")):
+        for case in group + group[::-1]:
+            times.setdefault(case, []).append(
+                cuda_time_ms(functools.partial(s2.run, case, x), 20))
+        log(f"[analysis] S2 in turns ({', '.join(group + group[::-1])}): "
+            + ", ".join(f"{c} {times[c]} ms" for c in group))
+    s2.launches = before                                   # timing launches do not count
+    for row in rows:
+        if row["case"] in times:
+            row["in_turns_ms"] = times[row["case"]]
+    return times
+
+
+def s2_issue_floors(rows, sass):
+    """Each S2 case's issue floor at E=4096 (and pair_full_match's) from its
+    repeat loop in the SASS (``S2_LOOP``, ``PIPE_LANES``): the larger of the
+    loop's instructions over four a clock an SM and each pipe's lanes, times
+    the loop's iterations and the warps the launch runs, over the SMs at
+    ``SM_CLOCK_MHZ``. Adds ``issue_floor_ms`` and ``loop_instructions_a_rep``
+    to each row; returns {case: floor ms}."""
+    from metta_tpu_torch.ops import ubench_pairmat as s2
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floors = {}
+    for i, case in enumerate(s2.CASES + s2.EXTRAS[:1]):
+        loop = next(v for k, v in sass.items() if k.startswith(f"pairmat_kernelILi{i}E "))
+        reps, unroll = S2_LOOP[case]
+        pipes = Counter()
+        for op, n in loop["opcodes"].items():
+            if op not in ISSUE_ONLY and not op.startswith("U"):
+                pipes[PIPE_OF.get(op, "int32")] += n * 32 / PIPE_LANES[PIPE_OF.get(op, "int32")]
+        clocks = max(loop["loop_instructions"] / 4, *pipes.values())  # an SM's, a warp-iteration
+        warps = (-(-E_MAIN // s2.ENVS) * s2.ENVS if case in s2.WARP_PER_ENV
+                 else s2.A * -(-E_MAIN // s2.THREADS) * s2.THREADS // 32)
+        floors[case] = clocks * reps / unroll * warps / sms / (SM_CLOCK_MHZ * 1e3)
+        log(f"[analysis] S2 {case}: repeat loop {loop['loop_instructions']} instructions for "
+            f"{unroll} reps ({loop['opcodes']}); issue floor {floors[case]:.5f} ms "
+            f"({warps} warps, {reps} reps, {sms} SMs at {SM_CLOCK_MHZ} MHz)")
+        for row in rows:
+            if row["case"] == case:
+                row["issue_floor_ms"] = floors[case]
+                row["loop_instructions_a_rep"] = loop["loop_instructions"] / unroll
+    return floors
 
 
 def phase_analysis(res):
@@ -2102,8 +2211,15 @@ def phase_analysis(res):
                 f"time), bound {row['bound_ms']:.4f} ms")
         del inputs
     for row in s1_rows:
-        if row["case"] in ("M5", "M2", "M4"):
+        if row["case"] in ("M5", "M2", "M3", "M4"):
             s1_in_turns(row)
+    s2_in_turns(s2_rows)
+    sass = check_sass()
+    s2_issue_floors(s2_rows, sass)
+    for row in s2_rows:
+        log(f"[analysis] S2 {row['case']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}%), issue floor "
+            f"{row['issue_floor_ms']:.5f} ms ({100 * row['issue_floor_ms'] / row['ms']:.1f}%)")
 
     def entry(name, source, replaces, key, rows, label, shape, main=None):
         top = main if main is not None else dict(
@@ -2143,7 +2259,6 @@ def phase_analysis(res):
               "on the same bf16 operands as library_ms)"),
     ])
     shapes = redesign_shapes(res)
-    sass = check_sass()
     registers = check_registers()
     res["analysis"] = dict(registers=registers, sass=sass, launches=launches, shapes=shapes,
                            k2_ablation=k2_rows)

@@ -23,7 +23,7 @@
 //
 // Keeping the work real: the relayouts (M1, M1b, M2, M3, M4) are address
 // arithmetic on Hopper, so every rep reloads each element it reads (from
-// shared memory in the fold and M2, from L1 after the first rep elsewhere): its
+// shared memory in the fold, M2 and M3, from L1 after the first rep in M4): its
 // address is offset by r * rep_stride, a kernel argument the launchers set
 // to 0, so that no compiler stage can prove two reps' loads alike and merge
 // them (an empty asm barrier on the pointer does not stop ptxas from merging
@@ -119,6 +119,23 @@
 // chains, and a warp's stores are 32 consecutive floats of an out[g] row.
 // The reps' shared reads (805 MB at 128 bytes a clock an SM, about 0.024 ms
 // at 1,980 MHz) are this design's floor, near the byte bound.
+//
+// M3 (scripts/ubench_mosaic.py:115-138, acc + pltpu.roll(x_ref[0],
+// s_ref[0, i % 24], 1)) is 8.4 MB in and 8.4 MB out at G=1024, rows 16:
+// bound 0.0050 ms by the bytes. Its first design walked each thread's eight
+// outputs one after another, and every rep of each paid an integer modulo, a
+// global load of its shift and a global (L1) load of x for one add. This one
+// stages x[g] (8 KB) once in shared memory in coalesced 16-byte loads, and
+// its shifts beside it. Thread t takes column j = t % 128 of rows t / 128 +
+// 2 k, k < 8, as eight chains in rep order, and every rep reads element
+// (j - s) & 127 of each of its rows from shared memory: a warp's 32
+// consecutive columns fall in 32 banks for any s. The shift index is a
+// counter that wraps at nshift. A block a g, 256 threads at no more than 32
+// registers, so eight blocks an SM take G=1024 in one round on 132 SMs (the
+// rep loop unrolled twice: at the compiler's four it spilled under that
+// cap, and without the cap it took 79 registers and ran slower). The
+// reps' shared reads (134 MB at 128 bytes a clock an SM, about 0.004 ms at
+// 1,980 MHz) are its floor beside the byte bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -134,6 +151,11 @@ constexpr int kTrCols = 32;                // M2's column tile: x[g][:, 32 q:32 
 constexpr int kTrStride = kTrCols + 1;     // its padded row in shared memory
 constexpr int kTrColsPerWarp = kTrCols / kWarps;
 constexpr int kTrMaxRows = 256;            // M2's rows a block stages: 33,792 B, no opt-in needed
+constexpr int kRollRowStep = kThreads / 128;  // M3: a thread a column, so 2 rows at a time
+constexpr int kRollPerThread = 8;          // M3's rows a thread carries
+constexpr int kRollRows = kRollRowStep * kRollPerThread;  // 16: M3's rows are a multiple
+constexpr int kRollMaxRows = 64;           // M3's rows a block stages: 32 KB, no opt-in needed
+constexpr int kRollMaxShifts = 32;
 constexpr int kCols = 640;                 // M7's plane width
 constexpr int kPerLane = kCols / 32;
 constexpr int kFoldChunk = 4096;           // the fold's chunk: floats a stage holds (16 KB)
@@ -384,21 +406,37 @@ __global__ void __launch_bounds__(kThreads) transpose_kernel(
   }
 }
 
-// M3: acc [rows, 128] += roll(x[g], shifts[i % nshift], lanes), reps times.
-__global__ void __launch_bounds__(kThreads) droll_kernel(
+// M3: acc [rows, 128] += roll(x[g], shifts[i % nshift], lanes), reps times
+// (x [G, rows, 128], rows a multiple of kRollRows; described at the top of
+// this file). Dynamic shared memory: rows x 128 floats.
+__global__ void __launch_bounds__(kThreads, 8) droll_kernel(
     const float* __restrict__ x, const int32_t* __restrict__ shifts, float* __restrict__ out,
     int rows, int nshift, int reps, int rep_stride) {
+  extern __shared__ __align__(16) float tile[];
+  __shared__ int shift[kRollMaxShifts];
   const int n = rows * 128;
-  const float* xg = x + (size_t)blockIdx.x * n;
-  float* og = out + (size_t)blockIdx.x * n;
-  for (int o = threadIdx.x; o < n; o += kThreads) {
-    const int r = o >> 7, j = o & 127;
-    float acc = 0.0f;
-    for (int i = 0; i < reps; ++i) {
-      const int s = shifts[i % nshift];
-      acc = opaque(acc + xg[r * 128 + ((j - s) & 127) + i * rep_stride]);
+  const float4* xg = reinterpret_cast<const float4*>(x + (size_t)blockIdx.x * n);
+  for (int v = threadIdx.x; v < n / 4; v += kThreads) reinterpret_cast<float4*>(tile)[v] = xg[v];
+  if (threadIdx.x < nshift) shift[threadIdx.x] = shifts[threadIdx.x];
+  __syncthreads();
+  const int j = threadIdx.x & 127;
+  float* og = out + (size_t)blockIdx.x * n + j;
+  for (int r0 = threadIdx.x >> 7; r0 < rows; r0 += kRollRows) {
+    float acc[kRollPerThread];
+#pragma unroll
+    for (int k = 0; k < kRollPerThread; ++k) acc[k] = 0.0f;
+    const float* src = tile + r0 * 128;
+#pragma unroll 2
+    for (int i = 0, s = 0; i < reps; ++i) {
+      const float* rolled = src + ((j - shift[s]) & 127);
+#pragma unroll
+      for (int k = 0; k < kRollPerThread; ++k)
+        acc[k] = opaque(acc[k] + rolled[k * kRollRowStep * 128]);
+      src += rep_stride;
+      if (++s == nshift) s = 0;
     }
-    og[o] = acc;
+#pragma unroll
+    for (int k = 0; k < kRollPerThread; ++k) og[(r0 + k * kRollRowStep) * 128] = acc[k];
   }
 }
 
@@ -622,9 +660,22 @@ extern "C" int mosaic_transpose(const void* x, void* out, int G, int rows, int r
   return (int)cudaGetLastError();
 }
 
+// M3's launch shape at `rows`, as relayout_shape gives it.
+extern "C" int mosaic_droll_shape(int rows, int* threads, int* smem, int* per_sm, int* sms) {
+  return relayout_shape((const void*)droll_kernel, kThreads, rows * 128 * 4, threads, smem,
+                        per_sm, sms);
+}
+
+// M3 over x [G, rows, 128] (16-byte aligned; rows a multiple of kRollRows, at
+// most kRollMaxRows) with nshift <= kRollMaxShifts shifts: a block a g;
+// cudaErrorInvalidValue for a shape the kernel does not take.
 extern "C" int mosaic_droll(const void* x, const void* shifts, void* out, int G, int rows,
                             int nshift, int reps, void* stream) {
-  droll_kernel<<<G, kThreads, 0, (cudaStream_t)stream>>>(
+  if (G < 0 || rows <= 0 || rows % kRollRows || rows > kRollMaxRows || nshift <= 0 ||
+      nshift > kRollMaxShifts || reinterpret_cast<uintptr_t>(x) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (G == 0) return 0;
+  droll_kernel<<<G, kThreads, rows * 128 * 4, (cudaStream_t)stream>>>(
       (const float*)x, (const int32_t*)shifts, (float*)out, rows, nshift, reps, 0);
   return (int)cudaGetLastError();
 }

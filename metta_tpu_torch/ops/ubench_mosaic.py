@@ -44,6 +44,9 @@ GEMM_MAX_DEPTH = 512
 FOLD_CHUNK = 4096
 # M2's rows a block stages in shared memory (csrc/ubench_mosaic.cu:kTrMaxRows).
 TR_MAX_ROWS = 256
+# M3's rows: a multiple of ROLL_ROWS (the rows a block's threads carry at
+# once, kRollRowStep x kRollPerThread), at most ROLL_MAX_ROWS (kRollMaxRows).
+ROLL_ROWS, ROLL_MAX_ROWS = 16, 64
 
 
 def _bytes(rng, shape, device):
@@ -292,13 +295,15 @@ def fold_launch_shape():
 
 
 def relayout_launch_shape(case: str, rows: int = 96):
-    """M2's launch shape at ``rows`` (``case="M2"``) or M4's on the current
-    card: {threads a block, smem bytes (dynamic), blocks an SM holds, SMs}
-    (needs the card)."""
+    """M2's or M3's launch shape at ``rows`` (``case="M2"`` or ``"M3"``) or
+    M4's on the current card: {threads a block, smem bytes (dynamic), blocks
+    an SM holds, SMs} (needs the card)."""
     vals = [ctypes.c_int() for _ in range(4)]
     lib = _library()
     args = [ctypes.byref(v) for v in vals]
-    err = lib.mosaic_transpose_shape(rows, *args) if case == "M2" else lib.mosaic_rep_shape(*args)
+    err = (lib.mosaic_transpose_shape(rows, *args) if case == "M2"
+           else lib.mosaic_droll_shape(rows, *args) if case == "M3"
+           else lib.mosaic_rep_shape(*args))
     if err != 0:
         raise RuntimeError(f"{case}'s launch shape failed: CUDA error {err}")
     return dict(zip(("threads", "smem", "per_sm", "sms"), (v.value for v in vals)))
@@ -328,6 +333,7 @@ def _library():
             ("mosaic_compact", [p, p, p, i, i, i, s]),
             ("mosaic_fold_shape", [p, p, p, p]),
             ("mosaic_transpose_shape", [i, p, p, p, p]),
+            ("mosaic_droll_shape", [i, p, p, p, p]),
             ("mosaic_rep_shape", [p, p, p, p]),
         ):
             fn = getattr(lib, name)
@@ -404,6 +410,14 @@ def run(case: str, inputs, reps: int):
             elif case == "M3":
                 shifts = inputs[1]
                 check_tensor("shifts", shifts, i32, (1, NSHIFT), dev)
+                if x.dim() != 3 or x.shape[2] != 128 or x.shape[1] % ROLL_ROWS or \
+                        not 0 < x.shape[1] <= ROLL_MAX_ROWS:
+                    raise ValueError(f"M3 takes [G, rows, 128] with rows a multiple of "
+                                     f"{ROLL_ROWS} up to {ROLL_MAX_ROWS} (a block stages x[g] in "
+                                     f"shared memory, {ROLL_ROWS} rows at a time), got "
+                                     f"{tuple(x.shape)}")
+                if x.data_ptr() % 16:
+                    raise ValueError("M3: x must be 16-byte aligned (16-byte vector loads)")
                 out = torch.empty_like(x)
                 err = lib.mosaic_droll(x.data_ptr(), shifts.data_ptr(), out.data_ptr(), G,
                                        x.shape[1], NSHIFT, reps, stream)

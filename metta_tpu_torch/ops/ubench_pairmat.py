@@ -3,9 +3,19 @@
 Counterpart of ``scripts/ubench_pairmat.py`` (the nine Pallas cases
 :29-:117): each repeats one layout primitive of the fused sim kernel REP
 times over x [A=24, E] int32 and writes [24, E] int32. The kernel
-(``csrc/ubench_pairmat.cu``) takes K2's formulation: one warp per env,
-lane = agent, shuffles over the env's lanes. The plain versions repeat the
-TPU bodies' arithmetic in torch ops, loop for loop.
+(``csrc/ubench_pairmat.cu``) takes a thread per element in the six cases
+that use only their own agent's value, and K2's formulation (a warp per env,
+lane = agent, warp shuffles and reduce, x staged through shared memory) in
+the three that need the env's other agents (``WARP_PER_ENV``). ``EXTRAS``
+are two launches that are no TPU case, timed beside the cases:
+``pair_full_match``, pair_full by K2's warp match, and ``load_store``, the
+thread-per-element grid that only copies x.
+The plain versions repeat the TPU bodies' arithmetic in torch ops, loop for
+loop.
+
+``tdiv`` runs, on the card, the TPU body's float32 route with n's
+reciprocal taken once (``csrc/ubench_pairmat.cu`` says why it is exact):
+it equals the plain version for |x + i| < ``TDIV_LIMIT`` at every rep.
 """
 
 from __future__ import annotations
@@ -18,6 +28,13 @@ from metta_tpu_torch.ops.build import check_tensor
 
 A, EL, NA, REP = 24, 128, 88, 32
 CASES = ("elemwise", "flat", "bT", "bA", "pair_full", "red_a", "repeat_na", "iota_div", "tdiv")
+EXTRAS = ("pair_full_match", "load_store")    # the kernel's entries after CASES, in order
+WARP_PER_ENV = ("bT", "pair_full", "red_a", "pair_full_match")
+# The kernel's blocks: THREADS envs of one agent row (thread per element), or
+# ENVS envs, a warp each (WARP_PER_ENV)
+THREADS, ENVS = 256, 32
+TDIV_REPS = REP * 8
+TDIV_LIMIT = 2 ** 23                # |x + i| below it: the reciprocal route is exact
 # int32 operations of the TPU body per output element, for the bound
 OPS_PER_ELEMENT = {
     "elemwise": 2 * REP * 24,              # compare, add
@@ -35,8 +52,20 @@ OPS_PER_ELEMENT = {
 launches = 0
 
 
+def corrected_quotient(aa, q0, n):
+    """The TPU body's correction of a quotient estimate: ``q0`` within 1 of
+    trunc(aa / n) (aa >= 0, n >= 1) -> trunc(aa / n) exactly."""
+    r0 = aa - q0 * n
+    return q0 + (r0 >= n).to(q0.dtype) - (r0 < 0).to(q0.dtype)
+
+
 def plain(case: str, x):
-    """Case ``case`` in torch ops, as the TPU body computes it -> [A, E] int32."""
+    """Case ``case`` (or an extra) in torch ops, as the TPU body computes
+    it -> [A, E] int32."""
+    if case == "pair_full_match":
+        case = "pair_full"
+    if case == "load_store":
+        return x.clone()
     acc = torch.zeros_like(x)
     if case == "elemwise":
         for i in range(REP * 24):
@@ -66,15 +95,14 @@ def plain(case: str, x):
             acc = acc + (x + i == blk).to(torch.int32)
     elif case == "tdiv":
         n = (x & 7) + 1
-        for i in range(REP * 8):
+        for i in range(TDIV_REPS):
             a = x + i
             aa = a.abs()
-            q0 = (aa.to(torch.float32) / n.to(torch.float32)).to(torch.int32)
-            r0 = aa - q0 * n
-            q = q0 + (r0 >= n).to(torch.int32) - (r0 < 0).to(torch.int32)
+            q = corrected_quotient(aa, (aa.to(torch.float32) / n.to(torch.float32))
+                                   .to(torch.int32), n)
             acc = acc + torch.where(a >= 0, q, -q)
     else:
-        raise ValueError(f"unknown case {case!r}; known: {CASES}")
+        raise ValueError(f"unknown case {case!r}; known: {CASES + EXTRAS}")
     return acc
 
 
@@ -94,11 +122,11 @@ def _library():
 
 
 def run(case: str, x):
-    """Case ``case`` on x [24, E] int32: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    """Case ``case`` (or an extra) on x [24, E] int32: the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors."""
     global launches
-    if case not in CASES:
-        raise ValueError(f"unknown case {case!r}; known: {CASES}")
+    if case not in CASES + EXTRAS:
+        raise ValueError(f"unknown case {case!r}; known: {CASES + EXTRAS}")
     if x.device.type == "cpu":
         return plain(case, x)
     E = x.shape[1]
@@ -107,7 +135,8 @@ def run(case: str, x):
     if E == 0:
         return out
     with torch.cuda.device(x.device):
-        err = _library().pairmat_launch(x.data_ptr(), out.data_ptr(), E, CASES.index(case),
+        err = _library().pairmat_launch(x.data_ptr(), out.data_ptr(), E,
+                                        (CASES + EXTRAS).index(case),
                                         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pairmat {case} launch failed: CUDA error {err}")

@@ -2,9 +2,12 @@
 
 Counterpart of ``scripts/ubench_pairmat.py``: each case repeats one
 primitive REP=32 times over x [24, E] int32 (random in [0, 24) from
-``--seed``), in K2's formulation (one warp per env, lane = agent). On the
-card each case is held byte for byte to its plain version and timed; prints
-ms in total, ns per env per rep, the bound and the plain version's time.
+``--seed``): a thread per element where the case uses only its own agent's
+value, K2's formulation (a warp per env, lane = agent, warp shuffles and
+reduce) where it needs the env's other agents (bT, pair_full, red_a). On
+the card each case is held byte for byte to its plain version and timed;
+prints ms in total, ns per env per rep, the bound and its share, and the
+plain version's time.
 
 Usage: python -m metta_tpu_torch.scripts.ubench_pairmat [--num-envs 4096]
     [--only elemwise,tdiv] [--device cuda|cpu] [--seed 0]

@@ -21,9 +21,12 @@ and the sequential env with K5 on the GPU against the CPU; S5's and S4's
 nine masks of K1 and K4 on synthetic inputs at E=8, rows of 21 bytes among
 them, and S4's on combat at E=64; S1's M7 bit-equal at phase 13's shape,
 its fold (M1, M1b) at G=3 with a short last chunk, M5 at phase 13's
-shape and with a scalar tail, and M4 and M2 at phase 13's shape and at G=3
-(M2 at rows 24, 48 and 96); the wrappers' input checks (M5's, M4's and
-M2's alignment, S4's one pass); a few whole env steps on the GPU
+shape and with a scalar tail, M4 and M2 at phase 13's shape and at G=3
+(M2 at rows 24, 48 and 96), and M3 at phase 13's shape with reps 1, 16 and
+30 and at G=3; S2's nine cases and two extras at E=1, 128, 300 and 4096,
+and tdiv's reciprocal route across its stated domain; the wrappers' input
+checks (M5's, M4's, M3's and M2's alignment, M3's rows, S4's one pass); a
+few whole env steps on the GPU
 against the CPU; and a tiny trainer update through all three kernels.
 This file imports no JAX, so it runs on a machine with a card and torch
 alone:
@@ -850,14 +853,38 @@ def test_smoke_sim_matches_plain(n_envs):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-@pytest.mark.parametrize("n_envs", [128, 300])
+@pytest.mark.parametrize("n_envs", [1, 128, 300, 4096])
 def test_pairmat_cases_match_plain(n_envs):
+    """S2's nine cases and its two extras byte-equal to their plain versions,
+    one launch counted a call: odd E leaves a partial block in both layouts
+    (a thread per element, a warp per env)."""
     from metta_tpu_torch.ops import ubench_pairmat as s2
 
     x = torch.as_tensor(np.random.default_rng(1).integers(0, 24, (s2.A, n_envs),
                                                            dtype=np.int32), device=_cuda())
-    for case in s2.CASES:
-        assert torch.equal(s2.run(case, x), s2.plain(case, x)), case
+    for case in s2.CASES + s2.EXTRAS:
+        before = s2.launches
+        got = s2.run(case, x)
+        torch.cuda.synchronize()
+        assert s2.launches == before + 1, case
+        assert torch.equal(got, s2.plain(case, x)), case
+
+
+@pytest.mark.parametrize("n_envs", [300, 4096])
+def test_pairmat_tdiv_is_exact_across_its_domain(n_envs):
+    """tdiv's reciprocal route bit-equal to the plain version's IEEE divide
+    over x drawn across the stated domain (|x + i| < TDIV_LIMIT at every
+    rep), its edges included, and on negative x."""
+    from metta_tpu_torch.ops import ubench_pairmat as s2
+
+    _cuda()
+    lo, hi = -s2.TDIV_LIMIT + 1, s2.TDIV_LIMIT - s2.TDIV_REPS
+    x = np.random.default_rng(n_envs).integers(lo, hi, (s2.A, n_envs))
+    x[0, :4] = [lo, hi - 1, -s2.TDIV_REPS // 2, 0]
+    x = torch.as_tensor(x.astype(np.int32), device="cuda")
+    got = s2.run("tdiv", x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, s2.plain("tdiv", x))
 
 
 @pytest.mark.parametrize("case", ["M5", "M1", "M1b", "M2", "M3", "M4", "M6a", "M6b", "M6c",
@@ -1021,6 +1048,53 @@ def test_mosaic_relayout_never_takes_the_plain_version(monkeypatch, case, bad):
     s1.run(case, s1.make_inputs(case, 2, 1, seed=0, device="cuda"), 2)
     torch.cuda.synchronize()
     assert s1.launches == before + 1
+
+
+@pytest.mark.parametrize("G,reps", [(1024, 1), (1024, 16), (1024, 30), (3, 16), (3, 30)],
+                         ids=["phase13-rep1", "phase13", "phase13-rep30", "G3", "G3-rep30"])
+def test_mosaic_droll_is_bit_equal(G, reps):
+    """M3 (x[g] staged in shared memory, eight chains a thread) bit-equal to
+    its plain version, a launch counted: at phase 13's G=1024 on the
+    script's inputs with reps 1, 16 and 30 (past the wrap of the 24
+    shifts), and at an odd G=3 on values past 2^24, where the order of the
+    adds shows."""
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    _cuda()
+    inputs = s1.make_inputs("M3", G, 4, seed=13, device="cuda")
+    if G == 3:
+        inputs = (_wide(np.random.default_rng(reps), tuple(inputs[0].shape)), inputs[1])
+    before = s1.launches
+    slots, cks = s1.run("M3", inputs, reps)
+    torch.cuda.synchronize()
+    assert s1.launches == before + 1 and cks is None
+    want, _ = s1.plain("M3", inputs, reps)
+    assert torch.equal(slots.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape,misaligned", [((2, 24, 128), False), ((2, 80, 128), False),
+                                              ((2, 16, 64), False), ((2, 16, 128), True)],
+                         ids=["rows24", "rows80", "width64", "misaligned"])
+def test_mosaic_droll_refuses_shapes_it_does_not_take(monkeypatch, shape, misaligned):
+    """M3's wrapper launches its kernel or raises: rows that are not a
+    multiple of 16 or past 64, rows of other than 128 floats and a
+    misaligned x are refused by name before any launch, never handed to the
+    plain version."""
+    from metta_tpu_torch.ops import ubench_mosaic as s1
+
+    _cuda()
+
+    def plain(*_):
+        raise AssertionError("the plain version ran on CUDA inputs")
+    monkeypatch.setattr(s1, "plain", plain)
+    n = int(np.prod(shape))
+    x = (torch.ones(n + 1, device="cuda")[1:] if misaligned
+         else torch.ones(n, device="cuda")).view(shape)
+    shifts = torch.zeros((1, s1.NSHIFT), dtype=torch.int32, device="cuda")
+    before = s1.launches
+    with pytest.raises(ValueError, match="16-byte aligned" if misaligned else "M3 takes"):
+        s1.run("M3", (x, shifts), 2)
+    assert s1.launches == before
 
 
 # ---- the redesigned kernels: K1 (persistent, word stores) and S1's GEMMs (TMA + wgmma) ----

@@ -401,12 +401,18 @@ def test_render1_constants_are_the_kernels():
 def test_mosaic_constants_are_the_kernels():
     """The sizes S1's wrapper mirrors are the constants of its CUDA source:
     the fold's chunk, M4's copies and M2's most rows, whose staged tile
-    (rows x 33 floats) fits the 48 KB a block takes without opting in."""
+    (rows x 33 floats) fits the 48 KB a block takes without opting in; M3's
+    row step (a thread a column: 2 rows at a time in 256 threads) and most
+    rows, whose staged x[g] fits the same 48 KB beside its shifts."""
     const = _constants("ubench_mosaic.cu")
     assert (const["kFoldChunk"], const["kRepCopies"], const["kTrMaxRows"]) == (
         s1.FOLD_CHUNK, s1.COPIES, s1.TR_MAX_ROWS)
     assert s1.TR_MAX_ROWS * (const["kTrCols"] + 1) * 4 <= 48 * 1024
     assert 128 % const["kTrCols"] == 0
+    assert (const["kThreads"] // 128 * const["kRollPerThread"], const["kRollMaxRows"]) == (
+        s1.ROLL_ROWS, s1.ROLL_MAX_ROWS)
+    assert s1.ROLL_MAX_ROWS % s1.ROLL_ROWS == 0 and s1.NSHIFT <= const["kRollMaxShifts"]
+    assert s1.ROLL_MAX_ROWS * 128 * 4 + 4 * const["kRollMaxShifts"] <= 48 * 1024
 
 
 @pytest.mark.parametrize("b", range(10))

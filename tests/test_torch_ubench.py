@@ -5,14 +5,20 @@ interpret mode on the same inputs from a numpy seed: the sim-kernel smoke
 check (``scripts/smoke_sim_kernel.py:kernel``) at E=256, all nine pair-mat
 cases (``scripts/ubench_pairmat.py:KERNELS``) at E=128, byte for byte, and
 all ten primitive cases of ``scripts/ubench_mosaic.py`` at G=2, eps 1, two
-reps, the last block compared: float32 repeats within rtol 1e-6 (the sum
-taken in the same order), the bf16 GEMMs within 1e-3 of the largest
-magnitude (the accumulation order differs). The scripts are loaded by file
+reps (M3 also at 30, past the wrap of its 24 shifts), the last block
+compared: float32 repeats within rtol 1e-6 (the sum taken in the same
+order), the bf16 GEMMs within 1e-3 of the largest magnitude (the
+accumulation order differs). S2's tdiv: the TPU body's correction turns any
+quotient estimate within 1 into the truncated quotient, and a float32
+mirror of the kernel's reciprocal route is within 1 across its stated
+domain (every |a| < 2^16 and a seeded sample up to 2^23), the argument that
+lets the kernel skip the IEEE divide. The scripts are loaded by file
 path; ``ubench_mosaic.py`` defines its kernels inside ``main``, so their
 bodies and ``pallas_call`` wiring are copied here. The fold's chunk
 schedule (``ops/ubench_mosaic.py:fold_schedule``) must cover every element
 once, no chunk crossing a g; M5, M4 (each of its 11 copies) and M2 on CPU
-tensors must be one float32 chain of adds an element, in rep order. Every
+tensors must be one float32 chain of adds an element, in rep order, and M3
+one chain of rolled adds. Every
 CLI runs once with ``--device cpu``.
 The CUDA kernels themselves are held to these plain versions on a GPU by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -94,6 +100,88 @@ def test_pairmat_case_matches_jax_script_kernel(pairmat, case):
     )(jnp.asarray(x))
     got = s2.run(case, torch.from_numpy(x))
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+def test_pairmat_extras_are_cases():
+    """The two launches beside the cases: pair_full_match computes pair_full,
+    load_store copies x; an unknown name is refused."""
+    x = torch.from_numpy(np.random.default_rng(4).integers(0, 24, (s2.A, 40), dtype=np.int32))
+    assert torch.equal(s2.run("pair_full_match", x), s2.run("pair_full", x))
+    assert torch.equal(s2.run("load_store", x), x)
+    with pytest.raises(ValueError, match="unknown case"):
+        s2.run("pair", x)
+
+
+def test_pairmat_cases_are_the_kernels_enum():
+    """The wrapper's case order (CASES, then EXTRAS) is the kernel's Case
+    enum, whose index the wrapper passes, WARP_PER_ENV names the cases the
+    kernel launches a warp per env, and THREADS and ENVS are its blocks'
+    envs (the kernel cannot run here to catch a drift)."""
+    src = (REPO / "metta_tpu_torch" / "csrc" / "ubench_pairmat.cu").read_text()
+    enum = re.search(r"enum Case \{([^}]*)\}", src).group(1)
+    names = [n.strip()[1:].lower() for n in enum.split(",")]
+    assert names == [c.replace("_", "").lower() for c in s2.CASES + s2.EXTRAS]
+    body = re.search(r"bool warp_per_env\(int c\) \{([^}]*)\}", src).group(1)
+    warp = [n[1:].lower() for n in re.findall(r"c == (k\w+)", body)]
+    assert warp == [c.replace("_", "").lower() for c in s2.WARP_PER_ENV]
+    const = {m.group(1): int(m.group(2))
+             for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (const["kThreads"], const["kEnvs"]) == (s2.THREADS, s2.ENVS)
+
+
+def _tdiv_values(seed):
+    """Every a with |a| < 2^16, and a seeded sample of |a| up to the edge of
+    the domain where the kernel's reciprocal route is exact."""
+    a = np.arange(-2 ** 16 + 1, 2 ** 16, dtype=np.int64)
+    rng = np.random.default_rng(seed)
+    edge = s2.TDIV_LIMIT - 1
+    sample = rng.integers(-edge, edge + 1, 200_000)
+    return np.concatenate([a, sample, [edge, -edge, edge - 1, -(edge - 1)]])
+
+
+@pytest.mark.parametrize("n", range(1, 9))
+def test_tdiv_correction_gives_the_truncated_quotient(n):
+    """The TPU body's correction (``corrected_quotient``, the arithmetic of
+    the kernel's loop) maps q0 = trunc(|a| / n) + d, d in {-1, 0, 1}, to
+    trunc(|a| / n) exactly: any quotient estimate within 1 stands."""
+    aa = np.abs(_tdiv_values(n))
+    want = aa // n
+    for d in (-1, 0, 1):
+        got = s2.corrected_quotient(torch.from_numpy(aa.astype(np.int32)),
+                                    torch.from_numpy((want + d).astype(np.int32)), n)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n", range(1, 9))
+def test_tdiv_reciprocal_route_is_within_one(n):
+    """A float32 mirror of the kernel's route: q0 = trunc(float(|a|) *
+    rn(1 / n)) (each step rounded to nearest in float32, as FMUL and the
+    IEEE reciprocal round) is within 1 of trunc(|a| / n) across the domain,
+    as the TPU body's IEEE quotient is, so after the correction both give
+    the truncated quotient, bit for bit."""
+    aa = np.abs(_tdiv_values(100 + n))
+    want = aa // n
+    rcp = np.float32(1.0) / np.float32(n)
+    for q0 in ((aa.astype(np.float32) * rcp).astype(np.int64),
+               (aa.astype(np.float32) / np.float32(n)).astype(np.int64)):
+        assert np.abs(q0 - want).max() <= 1
+        got = s2.corrected_quotient(torch.from_numpy(aa.astype(np.int32)),
+                                    torch.from_numpy(q0.astype(np.int32)), n)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_tdiv_plain_is_the_sum_of_truncated_quotients():
+    """tdiv's plain version over x drawn across the domain (|x + i| <
+    TDIV_LIMIT at every rep): each element the sum over its reps of
+    trunc((x + i) / n), n = (x & 7) + 1, in exact integers."""
+    rng = np.random.default_rng(9)
+    x = rng.integers(-s2.TDIV_LIMIT + 1, s2.TDIV_LIMIT - s2.TDIV_REPS, (s2.A, 16))
+    x[0, :4] = [-s2.TDIV_LIMIT + 1, s2.TDIV_LIMIT - s2.TDIV_REPS, -s2.TDIV_REPS // 2, 0]
+    got = s2.plain("tdiv", torch.from_numpy(x.astype(np.int32)))
+    a = x[..., None] + np.arange(s2.TDIV_REPS)
+    n = (x[..., None] & 7) + 1
+    want = (np.sign(a) * (np.abs(a) // n)).sum(-1)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # ---- S1: the kernel bodies of scripts/ubench_mosaic.py:main, copied ----
@@ -192,7 +280,7 @@ def _gemm_call(a, b, loop):
     )(a, b)
 
 
-def _jax_case(case, inputs):
+def _jax_case(case, inputs, reps=REPS):
     """The TPU case's output (the last grid step's block), in interpret mode."""
     mod = _script("ubench_mosaic")
     arr = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) if t.dtype == torch.bfloat16
@@ -201,7 +289,7 @@ def _jax_case(case, inputs):
         return _gemm_call(*arr, loop=case == "M6a")
     if case == "M3":
         return pl.pallas_call(
-            functools.partial(k_droll, inner=REPS),
+            functools.partial(k_droll, inner=reps),
             out_shape=jax.ShapeDtypeStruct((16, 128), jnp.float32),
             grid=(G,),
             in_specs=[pl.BlockSpec((1, 16, 128), lambda i: (i, 0, 0), memory_space=VMEM),
@@ -240,6 +328,36 @@ def test_mosaic_case_matches_jax_script_kernel(case):
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
         if cks is not None:
             assert cks.shape == (G,) and cks.dtype == torch.int32
+
+
+def test_m3_matches_jax_script_kernel_past_the_shift_wrap():
+    """M3 at G=2 with 30 reps: the shift index wraps past its 24 shifts
+    (``i % 24``), and the plain version's last slot still equals the TPU
+    case's output."""
+    inputs = s1.make_inputs("M3", G, EPS, seed=2, device="cpu")
+    slots, cks = s1.run("M3", inputs, 30)
+    want = np.asarray(_jax_case("M3", inputs, reps=30))
+    assert cks is None and slots.shape == (G, 16, 128)
+    np.testing.assert_allclose(slots[-1].numpy(), want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("reps", [1, 16, 30])
+def test_m3_on_cpu_is_one_chain_of_rolled_adds(reps):
+    """M3 on CPU tensors (the plain version, no launch): out[g, r, j] one
+    float32 chain of ``reps`` adds of x[g, r, (j - s_i) % 128] in rep order,
+    s_i the shift i % 24, so that the card's bit-equality checks hold the
+    kernel's chains to that order (the values past 2^24, where it shows)."""
+    G3 = 3
+    x_np = _wide(np.random.default_rng(reps), (G3, 16, 128))
+    shifts = np.random.default_rng(reps + 1).integers(-130, 260, (1, s1.NSHIFT), dtype=np.int32)
+    before = s1.launches
+    slots, cks = s1.run("M3", (torch.from_numpy(x_np.copy()), torch.from_numpy(shifts)), reps)
+    assert s1.launches == before and cks is None
+    chain = np.zeros_like(x_np)
+    j = np.arange(128)
+    for i in range(reps):
+        chain = chain + x_np[..., (j - shifts[0, i % s1.NSHIFT]) % 128]
+    np.testing.assert_array_equal(slots.view(torch.int32).numpy(), chain.view(np.int32))
 
 
 def test_mosaic_checksum_covers_dropped_columns():
