@@ -100,12 +100,14 @@ Phases (each one a hard failure):
    ``noswap``, ``bare``, each the kernel instantiation of its flags, byte-equal
    to its plain version), its launches counted and each section's cost
    (``full`` minus the variant) logged; S3, the sim-kernel smoke check, at
-   E=256 and 257; S2,
+   E=256 and 257, timed also in turns with ``copy_`` of its inv; S2,
    the nine pair-mat cases at E=4096, byte-equal, each with its bound, its
    share and its issue floor from the SASS (``s2_issue_floors``), the four
    cases nearest their floor timed in turns with a launch of the same grid
    that only loads and stores x, and pair_full (24 shuffles a rep) in turns
-   with its form by K2's warp match; S1, the ten primitive
+   with its form by K2's warp match, and tdiv on x across all of int32
+   bit-equal to its plain version and timed in turns with the script's x;
+   S1, the ten primitive
    cases at G=1024, reps 16, eps 4 (float32 within rtol 1e-6, the bf16
    GEMMs within 1e-3 of their largest magnitude); each variant's and case's
    time, bound and plain time; the launch counts of the scripts' run; one
@@ -119,9 +121,11 @@ Phases (each one a hard failure):
    and ``SHFL`` with no ``LDS``; the fold's, M2's and M3's, from shared
    memory: ``FADD`` and ``LDS`` with no ``LDG``; S2's pair_full ``SHFL``
    with no ``MATCH``, red_a ``REDUX``, tdiv ``I2F``, ``FMUL`` and ``F2I``
-   with no ``MUFU`` or ``CALL``; M5's ``FADD``; M4's ``FADD`` and
-   ``LDG``, at least 11 adds for every float loaded; M5's and M4's kernels
-   holding 16-byte global loads and stores), its instruction count printed,
+   with no ``MUFU`` or ``CALL`` and its second loop, the IEEE route,
+   ``FCHK``; S3's kernel ``SHFL``, ``VOTE``, ``ATOMS`` and ``LDS``; M5's
+   ``FADD``; M4's ``FADD`` and ``LDG``, at least 11 adds for every float
+   loaded; M5's and M4's kernels holding 16-byte global loads and stores),
+   its instruction count printed,
    and the S1
    GEMM kernel's main loops holding ``HGMMA`` (the consumers' ``wgmma``) and
    ``UTMALDG`` (the producer's TMA loads), K2's production kernel
@@ -131,8 +135,8 @@ Phases (each one a hard failure):
    holding ``SHFL`` and no block barrier; K1's, K2's, K3's, K4's and K5's
    production kernels at their registers (K1's and K4's the mask-0
    instantiations), and they, every stubbed mask of K1 and K4, K2's chest
-   instantiation, M7, the fold, M2, M3, M4 and S2's eleven instantiations
-   with no stack or local memory; the
+   instantiation, M7, the fold, M2, M3, M4, S2's eleven instantiations and
+   S3's kernel with no stack or local memory; the
    launch shape (registers and shared memory from ``ptxas
    -v``, blocks an SM, the fold's ring stages) of the redesigned K1, K2
    (combat, arena, the chest config), K3, K4, K5, S1 fold, M2, M3, M4 and
@@ -1628,7 +1632,8 @@ PRODUCTION_REGISTERS = [("obs_render3", K1_MAIN, 48),
                         ("ubench_mosaic", "rep_kernel", None),
                         ("ubench_mosaic", "droll_kernel", None),
                         # S2: the nine cases, then pair_full_match and load_store
-                        *[("ubench_pairmat", f"pairmat_kernelILi{i}E", None) for i in range(11)]]
+                        *[("ubench_pairmat", f"pairmat_kernelILi{i}E", None) for i in range(11)],
+                        ("smoke_sim", "smoke_sim_kernel", None)]
 SECTION_TEMPLATES = [("obs_render3", "obs_render3_kernel"), ("obs_render2", "obs_render2_kernel")]
 # PERF.md's kernel table, combat E=4096
 PRODUCTION_MS = {"K1": 0.0909, "K4": 0.0884, "K2": 0.0304}
@@ -1643,10 +1648,15 @@ K2_SASS_OPS = ("MATCH", "REDUX")
 # read each rep from shared memory: their loops hold shared loads, no global
 # one. S2's pair_full counts by 24 shuffles a rep (no warp match: its match
 # form, pair_full_match, timed beside it, was slower), red_a sums by the
-# warp reduce, and tdiv multiplies by a reciprocal taken before the loop (no
-# reciprocal and no call of the division's slow path in the loop).
-# S3 has no repeat loop: its shuffles, ballot and shared atomics are counted
-# in the function. M5's and M4's kernels must also hold 16-byte global loads
+# warp reduce, and tdiv's fast loop multiplies by a reciprocal taken before
+# the loop (no reciprocal and no call of the division's slow path in it);
+# its second loop, taken where a rep leaves the reciprocal's domain, holds
+# the IEEE divide (FCHK, the divide's range check) and is listed after the
+# S2 block, so that the fast loop is the one s2_issue_floors reads (the
+# fast loop, unrolled as the IEEE loop is, is the smaller of the two that
+# hold its opcodes). S3 has no repeat loop: its shuffles, ballot, shared
+# atomics and shared loads are counted in the function. M5's and M4's
+# kernels must also hold 16-byte global loads
 # and stores (VECTOR_OPS: opcode prefix and width suffix of the full
 # mnemonic), and M4's loop at least one add a copy of the tile
 # (ops/ubench_mosaic.py:COPIES) for every float its loads bring: one load a
@@ -1656,6 +1666,7 @@ SASS_LOOPS = [
         (("ISETP",),), (("IADD3",),), (("SHFL",),), (("IADD3",),),
         (("SHFL", "ISETP"), ("MATCH",)), (("REDUX",),), (("IADD3",),), (("ISETP",),),
         (("I2F", "FMUL", "F2I"), ("CALL", "MUFU")), (("MATCH",), ("SHFL",))))],
+    ("ubench_pairmat", "pairmat_kernelILi8E", ("I2F", "F2I", "FCHK")),
     ("ubench_mosaic", "tiny_kernel", ("FADD",)),
     ("ubench_mosaic", "fold_kernel", ("FADD", "LDS"), ("LDG",)),
     ("ubench_mosaic", "transpose_kernel", ("FADD", "LDS"), ("LDG",)),
@@ -1750,7 +1761,7 @@ def words_loaded(body):
 def check_sass():
     """Every micro-benchmark's repeat loop is in the SASS (hard failure), with
     its instruction count and without the opcodes it must not hold; S3's
-    shuffles, ballot and shared atomics are there; K2's match and reduce;
+    shuffles, ballot, shared atomics and shared loads are there; K2's match and reduce;
     K3's chain loops multiply and add from shared memory without FFMA or LDG;
     K4's and K5's per-agent loops shuffle without a block barrier."""
     from metta_tpu_torch.ops import build
@@ -1799,9 +1810,11 @@ def check_sass():
         f"repeat loop ({ops['FADD'] / words:.2f} a float)")
     found["rep_kernel adds a float"] = dict(fadd=ops["FADD"], words_loaded=words)
     (name, instrs), = [(n, i) for n, i in dumps["smoke_sim"].items() if "smoke_sim_kernel" in n]
-    ops = {op: sum(opcode(i).startswith(op) for _, i in instrs) for op in ("SHFL", "VOTE", "ATOMS")}
+    ops = {op: sum(opcode(i).startswith(op) for _, i in instrs)
+           for op in ("SHFL", "VOTE", "ATOMS", "LDS")}
     if not all(ops.values()):
-        raise AssertionError(f"smoke_sim: warp primitives missing from the SASS: {ops}")
+        raise AssertionError(f"smoke_sim: warp primitives or shared loads missing from the "
+                             f"SASS: {ops}")
     log(f"[sass] smoke_sim_kernel: {len(instrs)} instructions; {ops}")
     found["smoke_sim_kernel"] = dict(function_instructions=len(instrs), **ops)
     (name, instrs), = [(n, i) for n, i in dumps["sim_fused"].items() if K2_COMBAT in n]
@@ -1864,8 +1877,8 @@ def resource_usage(lib):
 def check_registers():
     """K1's, K2's, K3's, K4's and K5's production kernels use the registers
     they were built with, and they, every instantiation of K1's and K4's
-    section templates, S1's M7, fold, M2, M3 and M4 and S2's eleven
-    instantiations use no stack or local memory."""
+    section templates, S1's M7, fold, M2, M3 and M4, S2's eleven
+    instantiations and S3's kernel use no stack or local memory."""
     out, dumps = {}, {}
     for lib, frag, want in PRODUCTION_REGISTERS:
         if lib not in dumps:
@@ -2119,11 +2132,70 @@ def s2_issue_floors(rows, sass):
     return floors
 
 
+def s3_timed(n):
+    """S3 on the script's draw at E=``n`` (seed n): its time over 50 launches,
+    then in turns with ``copy_`` of inv into a buffer (0.25 MB at E=256, most
+    of S3's bytes, a launch that moves them with no compute): kernel, copy,
+    copy, kernel; its bound, its plain version's time. Returns its row."""
+    from metta_tpu_torch.ops import smoke_sim as s3
+
+    rng = np.random.default_rng(n)
+    r = torch.as_tensor(rng.integers(0, 5, (s3.A, n), dtype=np.int32), device="cuda")
+    inv = torch.as_tensor(rng.integers(0, 3, (s3.R, s3.A, n), dtype=np.int32), device="cuda")
+    buf = torch.empty_like(inv)
+    calls = dict(kernel=lambda: s3.smoke_sim(r, inv), copy=lambda: buf.copy_(inv))
+    before = s3.launches
+    ms = cuda_time_ms(calls["kernel"], 50)
+    turns = {"kernel": [], "copy": []}
+    for name in ("kernel", "copy", "copy", "kernel"):
+        turns[name].append(cuda_time_ms(calls[name], 50))
+    s3.launches = before                               # timing launches do not count
+    bound, by, _ = bound_of(4 * s3.A * n * (2 + s3.R), 2 * s3.A * s3.A * n + s3.R * s3.A * n)
+    row = dict(shape=f"E={n}", ms=ms, bound_ms=bound, bound_by=by,
+               plain_ms=cuda_time_ms(lambda: s3.smoke_sim_plain(r, inv), 5), max_abs_err=0,
+               in_turns_ms=turns["kernel"], copy_inv_in_turns_ms=turns["copy"],
+               blocks=-(-n // s3.ENVS))
+    log(f"[analysis] S3 E={n}: {ms:.4f} ms, bound {bound:.5f} ms ({by}), plain "
+        f"{row['plain_ms']:.4f} ms; {row['blocks']} blocks of {s3.ENVS} envs; in turns "
+        f"(kernel, copy_ of inv, copy_, kernel): kernel {turns['kernel']} ms, copy_ "
+        f"{turns['copy']} ms")
+    return row
+
+
+def s2_tdiv_across_int32():
+    """S2's tdiv on x drawn from all of int32 at E=4096 (seed 16), with both
+    edges of its reciprocal route's domain, INT_MIN and INT_MAX - 255 in row
+    0: bit-equal to the plain version (the IEEE loop on nearly every
+    element), then timed in turns with the script's x (all in the domain):
+    script, int32, int32, script. Returns the times."""
+    from metta_tpu_torch.ops import ubench_pairmat as s2
+
+    lim, reps = s2.TDIV_LIMIT, s2.TDIV_REPS
+    x = np.random.default_rng(16).integers(-2 ** 31, 2 ** 31, (s2.A, E_MAIN))
+    x[0, :6] = [-lim + 1, -lim, lim - reps, lim - reps + 1, -2 ** 31, 2 ** 31 - reps]
+    x = torch.as_tensor(x.astype(np.int32), device="cuda")
+    script = torch.from_numpy(np.random.default_rng(0).integers(0, 24, (s2.A, E_MAIN),
+                                                                dtype=np.int32)).cuda()
+    before = s2.launches
+    if not torch.equal(s2.run("tdiv", x), s2.plain("tdiv", x)):
+        raise AssertionError("S2 tdiv on x across int32 differs from its plain version")
+    times = {"script": [], "int32": []}
+    for name in ("script", "int32", "int32", "script"):
+        times[name].append(cuda_time_ms(functools.partial(s2.run, "tdiv",
+                                                          script if name == "script" else x), 20))
+    s2.launches = before                                   # timing launches do not count
+    log(f"[analysis] S2 tdiv on x across int32 (E={E_MAIN}, the domain's edges, INT_MIN and "
+        f"INT_MAX - 255 among them): bit-equal to its plain version; in turns with the "
+        f"script's x: script {times['script']} ms, across int32 {times['int32']} ms")
+    return times
+
+
 def phase_analysis(res):
     """Phase 13, the analysis path: the six kernel-analysis scripts at the
     JAX scripts' default sizes, each kernel held to its plain version inside
-    the script; the launch counts of the scripts' run; S3's time and the S1
-    GEMMs' ``torch.bmm`` time (the library yardstick) after the run; then
+    the script; the launch counts of the scripts' run; S3's time (also in
+    turns with ``copy_`` of its inv) and the S1 GEMMs' ``torch.bmm`` time
+    (the library yardstick) after the run; S2's tdiv across int32; then
     the redesigned kernels' launch shapes, the SASS's loops and the
     production kernels' registers."""
     from metta_tpu_torch.ops import ablate_obs as ab
@@ -2174,20 +2246,7 @@ def phase_analysis(res):
                f"{none['variant']} {100 * (none['ms'] / none['production_ms'] - 1):+.1f}% from it"
                if none.get("production_ms") else ""))
 
-    s3_shapes = []
-    for n in (256, 257):
-        rng = np.random.default_rng(n)
-        r = torch.as_tensor(rng.integers(0, 5, (s3.A, n), dtype=np.int32), device="cuda")
-        inv = torch.as_tensor(rng.integers(0, 3, (s3.R, s3.A, n), dtype=np.int32), device="cuda")
-        before = s3.launches
-        ms = cuda_time_ms(lambda: s3.smoke_sim(r, inv), 50)
-        s3.launches = before                           # timing launches do not count
-        bound, by, _ = bound_of(4 * s3.A * n * (2 + s3.R), 2 * s3.A * s3.A * n + s3.R * s3.A * n)
-        s3_shapes.append(dict(shape=f"E={n}", ms=ms, bound_ms=bound, bound_by=by,
-                              plain_ms=cuda_time_ms(lambda: s3.smoke_sim_plain(r, inv), 5),
-                              max_abs_err=0))
-        log(f"[analysis] S3 E={n}: {ms:.4f} ms, bound {bound:.5f} ms ({by}), plain "
-            f"{s3_shapes[-1]['plain_ms']:.4f} ms")
+    s3_shapes = [s3_timed(n) for n in (256, 257)]
 
     for row in s1_rows:
         row["library_ms"] = None
@@ -2214,6 +2273,7 @@ def phase_analysis(res):
         if row["case"] in ("M5", "M2", "M3", "M4"):
             s1_in_turns(row)
     s2_in_turns(s2_rows)
+    tdiv_int32 = s2_tdiv_across_int32()
     sass = check_sass()
     s2_issue_floors(s2_rows, sass)
     for row in s2_rows:
@@ -2261,7 +2321,7 @@ def phase_analysis(res):
     shapes = redesign_shapes(res)
     registers = check_registers()
     res["analysis"] = dict(registers=registers, sass=sass, launches=launches, shapes=shapes,
-                           k2_ablation=k2_rows)
+                           k2_ablation=k2_rows, tdiv_across_int32=tdiv_int32)
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,8 @@
 //   red_a      acc += sum over agents of (x + i)       warp per env: __reduce_add_sync
 //   repeat_na  acc += 88 * (x + i), REP / 8 times      thread per element: 88 adds
 //   iota_div   acc += (x + i == iota / EL)             thread per element: its env index, divided
-//   tdiv       acc += trunc((x + i) / n), i < 256      thread per element: the f32 route
+//   tdiv       acc += trunc((x + i) / n), i < 256      thread per element: the f32 route, by
+//                                                      n's reciprocal where that is exact
 //
 // Two launches that are not TPU cases sit beside them, for phase 13 of
 // chip_smoke.py to time in turns with the cases: pair_full_match, pair_full
@@ -52,9 +53,16 @@
 // with R in [0, n)). For |a| < 2^23, float(|a|) is exact and rn(1 / n) and
 // the product each err by at most half an ulp, so q0 is within 1 of Q; the
 // IEEE route's q0 is too, so both give Q bit for bit. The route is exact
-// for |x + i| < 2^23 at every rep (the scripts' x lie in [0, 24)); the CPU
-// tests hold the correction and a float32 mirror of the route to that, and
-// the card tests sweep x across the domain against the plain version.
+// for |x + i| < 2^23 at every rep, so each element tests once, before its
+// loop, that -2^23 < x and x + 255 < 2^23 (the scripts' x lie in [0, 24)):
+// if so it runs the reciprocal loop, else a second loop with the IEEE
+// divide (tdiv_ieee), each loop whole in its own branch, so the fast loop
+// keeps its own opcodes and no divide (chip_smoke.py checks both loops in
+// the SASS). tdiv thus equals the plain version on the card for every
+// int32 x. A refusal in the wrapper would need a host read of max |x|
+// before every launch. The CPU tests hold a numpy mirror of both routes and
+// the choice to the plain version across int32; the card tests sweep x
+// across int32 against the plain version.
 //
 // Every repeat loop carries its sum through `opaque` (an empty asm the
 // compiler cannot see through), so that no loop folds into a closed form
@@ -73,6 +81,7 @@
 namespace {
 
 constexpr int kA = 24, kEL = 128, kNA = 88, kRep = 32;
+constexpr int kTdivReps = kRep * 8, kTdivLimit = 1 << 23;  // tdiv's reps; its domain's edge
 constexpr int kThreads = 256;              // thread per element: 256 envs of one agent row
 constexpr int kEnvs = 32;                  // warp per env: 32 envs a block, a warp each
 constexpr unsigned kFull = 0xffffffffu;
@@ -90,6 +99,28 @@ __host__ __device__ constexpr bool warp_per_env(int c) {
 __device__ __forceinline__ int opaque(int v) {
   asm volatile("" : "+r"(v));
   return v;
+}
+
+// tdiv where some rep leaves the reciprocal route's domain: the TPU body's
+// arithmetic as the plain version runs it on the card, the IEEE divide and
+// int32 ops that wrap (x + i past INT_MAX, |INT_MIN|, -q, the sums), here in
+// unsigned arithmetic reinterpreted, which wraps with no signed overflow.
+// The quotient's conversion saturates, as torch's float -> int32 does on the
+// card (x86 gives INT_MIN): the two differ only for n = 1 and |a| >= 2^31 -
+// 64, where float(|a|) rounds to 2^31.
+__device__ __forceinline__ int tdiv_ieee(int x, int n) {
+  const float fn = __int2float_rn(n);
+  unsigned acc = 0;
+#pragma unroll 4
+  for (int i = 0; i < kTdivReps; ++i) {
+    const unsigned ua = (unsigned)x + (unsigned)i;
+    const unsigned aa = (int)ua < 0 ? 0u - ua : ua;                 // |a|, INT_MIN to itself
+    const int q0 = __float2int_rz(__fdiv_rn(__int2float_rn((int)aa), fn));
+    const int r0 = (int)(aa - (unsigned)q0 * (unsigned)n);
+    const unsigned q = (unsigned)q0 + (r0 >= n ? 1u : 0u) - (r0 < 0 ? 1u : 0u);
+    acc += (int)ua < 0 ? 0u - q : q;
+  }
+  return (int)acc;
 }
 
 // Case kCase's repeats on this thread's x (0 on a dead lane) in env e.
@@ -149,18 +180,22 @@ __device__ __forceinline__ int repeat(int x, int e, bool live) {
     }
   } else if constexpr (kCase == kTdiv) {
     const int n = (x & 7) + 1, minus_n = -n;
-    const float rcp = 1.0f / __int2float_rn(n);       // IEEE, once: rn(1 / n)
+    if (x > -kTdivLimit && x < kTdivLimit - (kTdivReps - 1)) {  // every rep in the domain
+      const float rcp = 1.0f / __int2float_rn(n);     // IEEE, once: rn(1 / n)
 #pragma unroll 4
-    for (int i = 0; i < kRep * 8; ++i) {
-      const int a = opaque(x + i);
-      const int aa = a < 0 ? -a : a;
-      const int q0 = __float2int_rz(__fmul_rn(__int2float_rn(aa), rcp));
-      const int r0 = aa + q0 * minus_n;
-      int q = q0 + (r0 >> 31);                          // q0 - (r0 < 0)
-      asm("{ .reg .pred p; setp.ge.s32 p, %1, %2; @p add.s32 %0, %0, 1; }"
-          : "+r"(q) : "r"(r0), "r"(n));                 // + (r0 >= n)
-      asm volatile("{ .reg .pred p; setp.lt.s32 p, %1, 0; @p sub.s32 %0, %0, %2; "
-                   "@!p add.s32 %0, %0, %2; }" : "+r"(acc) : "r"(a), "r"(q));  // acc += sign(a) q
+      for (int i = 0; i < kTdivReps; ++i) {
+        const int a = opaque(x + i);
+        const int aa = a < 0 ? -a : a;
+        const int q0 = __float2int_rz(__fmul_rn(__int2float_rn(aa), rcp));
+        const int r0 = aa + q0 * minus_n;
+        int q = q0 + (r0 >> 31);                        // q0 - (r0 < 0)
+        asm("{ .reg .pred p; setp.ge.s32 p, %1, %2; @p add.s32 %0, %0, 1; }"
+            : "+r"(q) : "r"(r0), "r"(n));               // + (r0 >= n)
+        asm volatile("{ .reg .pred p; setp.lt.s32 p, %1, 0; @p sub.s32 %0, %0, %2; "
+                     "@!p add.s32 %0, %0, %2; }" : "+r"(acc) : "r"(a), "r"(q));  // acc += sign(a) q
+      }
+    } else {
+      acc = tdiv_ieee(x, n);
     }
   } else if constexpr (kCase == kLoadStore) {
     acc = x;

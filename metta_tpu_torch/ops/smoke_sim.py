@@ -3,9 +3,14 @@
 Counterpart of ``scripts/smoke_sim_kernel.py`` (the Pallas kernel
 ``kernel`` :31). For r [A, E] and inv [R, A, E] int32:
 ``out1[a, e] = #{t: r[t, e] == r[a, e]} + #{a': r[a', e] == r[a, e]}`` and
-``out2 = min(sum_r inv[r], 7)``, both [A, E] int32. The kernel
-(``csrc/smoke_sim.cu``) exercises K2's warp primitives: one warp per env,
-shuffles over the env's lanes, shared-memory atomics and a ballot mask.
+``out2 = min(sum_k inv[k], 7)``, both [A, E] int32, for any A up to
+``MAX_AGENTS``, any E and any R. The kernel (``csrc/smoke_sim.cu``)
+exercises K2's warp primitives (a warp per env, lane = agent, shuffles over
+the env's lanes, shared-memory atomics and a ballot mask) after one round
+trip of coalesced loads: ``ENVS`` envs a block, r staged through shared
+memory, out2 summed where inv is loaded, and in step k of A each lane
+compares with lane (a + k) mod A, so that a step's atomics hit distinct
+words.
 """
 
 from __future__ import annotations
@@ -16,7 +21,9 @@ import torch
 
 from metta_tpu_torch.ops.build import check_tensor
 
-A, R = 24, 10
+A, R = 24, 10                       # the script's agents and inventory rows
+MAX_AGENTS = 32                     # a warp's lanes: one warp per env
+ENVS = 4                            # the kernel's envs a block, a warp each
 
 # Launches of the CUDA kernel, counted by the wrapper where it launches.
 launches = 0
@@ -48,19 +55,22 @@ def _library():
 
 def smoke_sim(r, inv):
     """(out1, out2) for r [A, E] and inv [R, A, E] int32: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors. Refuses more than
+    ``MAX_AGENTS`` agents on either."""
     global launches
+    a = r.shape[0]
+    if a > MAX_AGENTS:
+        raise ValueError(f"one warp per env takes at most {MAX_AGENTS} agents, got {a} "
+                         f"agents (r's rows)")
     if r.device.type == "cpu":
         return smoke_sim_plain(r, inv)
-    a, E = r.shape
+    E = r.shape[1]
     nr = inv.shape[0]
-    if a > 32:
-        raise ValueError(f"one warp per env takes at most 32 agents, got {a}")
     check_tensor("r", r, torch.int32, (a, E), r.device)
     check_tensor("inv", inv, torch.int32, (nr, a, E), r.device)
     out1 = torch.empty((a, E), dtype=torch.int32, device=r.device)
     out2 = torch.empty_like(out1)
-    if E == 0:
+    if E == 0 or a == 0:
         return out1, out2
     with torch.cuda.device(r.device):
         err = _library().smoke_sim_launch(

@@ -14,8 +14,11 @@ The plain versions repeat the TPU bodies' arithmetic in torch ops, loop for
 loop.
 
 ``tdiv`` runs, on the card, the TPU body's float32 route with n's
-reciprocal taken once (``csrc/ubench_pairmat.cu`` says why it is exact):
-it equals the plain version for |x + i| < ``TDIV_LIMIT`` at every rep.
+reciprocal taken once where that is exact, |x + i| < ``TDIV_LIMIT`` at
+every rep, and the IEEE divide elsewhere (``csrc/ubench_pairmat.cu`` says
+why): it equals the plain version on the card for every int32 x. The plain
+version on the CPU differs from it only for n = 1 and |x + i| >= 2^31 - 64,
+where the quotient 2^31 converts to INT_MAX on the card and INT_MIN on x86.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ WARP_PER_ENV = ("bT", "pair_full", "red_a", "pair_full_match")
 # ENVS envs, a warp each (WARP_PER_ENV)
 THREADS, ENVS = 256, 32
 TDIV_REPS = REP * 8
-TDIV_LIMIT = 2 ** 23                # |x + i| below it: the reciprocal route is exact
+TDIV_LIMIT = 2 ** 23                # |x + i| below it at every rep: the reciprocal route
 # int32 operations of the TPU body per output element, for the bound
 OPS_PER_ELEMENT = {
     "elemwise": 2 * REP * 24,              # compare, add

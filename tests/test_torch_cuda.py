@@ -24,7 +24,9 @@ its fold (M1, M1b) at G=3 with a short last chunk, M5 at phase 13's
 shape and with a scalar tail, M4 and M2 at phase 13's shape and at G=3
 (M2 at rows 24, 48 and 96), and M3 at phase 13's shape with reps 1, 16 and
 30 and at G=3; S2's nine cases and two extras at E=1, 128, 300 and 4096,
-and tdiv's reciprocal route across its stated domain; the wrappers' input
+tdiv's reciprocal route across its stated domain and tdiv across all of
+int32; S3 (``csrc/smoke_sim.cu``) at E=1, 31, 32, 33, 256, 257 and 4096 on
+the script's inputs and adversarial ones; the wrappers' input
 checks (M5's, M4's, M3's and M2's alignment, M3's rows, S4's one pass); a
 few whole env steps on the GPU
 against the CPU; and a tiny trainer update through all three kernels.
@@ -840,17 +842,53 @@ def test_ablation_wrapper_checks_inputs():
         ab.render_obs3_ablated(set(), *args, *extra3, out=out[:, :-1])
 
 
-@pytest.mark.parametrize("n_envs", [256, 257, 1])
+SMOKE_SIM_PATTERNS = ("script", "equal", "distinct", "extreme")
+
+
+def smoke_sim_inputs(pattern, agents, rows, n_envs, seed=0):
+    """S3's inputs as numpy int32, r [agents, n_envs] and inv [rows, agents,
+    n_envs]: the script's draw (r in [0, 5), inv in [0, 3)), or an
+    adversarial one: every agent of an env equal, every agent distinct, or r
+    from the int32 extremes and small negatives; inv then in [-3, 3], times
+    2^24 in every other env, so that sums run above 7 and below 0 (and stay
+    inside int32, where numpy's int64 sum and torch's int32 sum agree)."""
+    rng = np.random.default_rng(seed)
+    if pattern == "script":
+        return (rng.integers(0, 5, (agents, n_envs), dtype=np.int32),
+                rng.integers(0, 3, (rows, agents, n_envs), dtype=np.int32))
+    if pattern == "equal":
+        r = np.broadcast_to(rng.integers(-2 ** 31, 2 ** 31, (1, n_envs)), (agents, n_envs))
+    elif pattern == "distinct":
+        r = rng.integers(-2 ** 31, 2 ** 31 - agents, (1, n_envs)) + np.arange(agents)[:, None]
+    else:
+        r = rng.choice(np.array([-2 ** 31, 2 ** 31 - 1, -2 ** 31 + 1, -1, 0, 1, -7]),
+                       (agents, n_envs))
+    inv = rng.integers(-3, 4, (rows, agents, n_envs))
+    inv[..., ::2] *= 2 ** 24
+    return np.ascontiguousarray(r, dtype=np.int32), inv.astype(np.int32)
+
+
+@pytest.mark.parametrize("n_envs", [1, 31, 32, 33, 256, 257, 4096])
 def test_smoke_sim_matches_plain(n_envs):
+    """S3 bit-equal to its plain version, one launch counted a call, on the
+    script's inputs and the adversarial ones at 1, 24 and 32 agents and 0 and
+    10 inventory rows: E around a warp and the kernel's 4-env blocks, the
+    phase 13 sizes and a full grid."""
     from metta_tpu_torch.ops import smoke_sim as s3
 
-    rng = np.random.default_rng(n_envs)
-    r = torch.as_tensor(rng.integers(0, 5, (s3.A, n_envs), dtype=np.int32), device=_cuda())
-    inv = torch.as_tensor(rng.integers(0, 3, (s3.R, s3.A, n_envs), dtype=np.int32),
-                          device="cuda")
-    got = s3.smoke_sim(r, inv)
-    want = s3.smoke_sim_plain(r, inv)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    _cuda()
+    for pattern in SMOKE_SIM_PATTERNS:
+        for agents in (1, 24, 32):
+            for rows in (0, 10):
+                r, inv = (torch.as_tensor(v, device="cuda") for v in
+                          smoke_sim_inputs(pattern, agents, rows, n_envs, seed=n_envs))
+                before = s3.launches
+                got = s3.smoke_sim(r, inv)
+                torch.cuda.synchronize()
+                assert s3.launches == before + 1
+                want = s3.smoke_sim_plain(r, inv)
+                case = (pattern, agents, rows)
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), case
 
 
 @pytest.mark.parametrize("n_envs", [1, 128, 300, 4096])
@@ -884,6 +922,39 @@ def test_pairmat_tdiv_is_exact_across_its_domain(n_envs):
     x = torch.as_tensor(x.astype(np.int32), device="cuda")
     got = s2.run("tdiv", x)
     torch.cuda.synchronize()
+    assert torch.equal(got, s2.plain("tdiv", x))
+
+
+def tdiv_edges():
+    """x that S2's tdiv must take, as int64: both edges of the reciprocal
+    route's domain (-2^23 < x, x + 255 < 2^23) and the 8 x beside each on
+    either side; INT_MIN and INT_MAX - 255 (whose reps wrap past INT_MAX)
+    and the 7 x above each, one for every n = (x & 7) + 1."""
+    from metta_tpu_torch.ops import ubench_pairmat as s2
+
+    lim, reps = s2.TDIV_LIMIT, s2.TDIV_REPS
+    return np.array([e + d for e in (-lim + 1, -lim, lim - reps, lim - reps + 1)
+                     for d in range(-8, 9)]
+                    + [e + k for e in (-2 ** 31, 2 ** 31 - 1 - (reps - 1)) for k in range(8)])
+
+
+@pytest.mark.parametrize("n_envs", [300, 4096])
+def test_pairmat_tdiv_matches_plain_across_int32(n_envs):
+    """tdiv bit-equal to the card's plain version over x drawn from all of
+    int32, both domain edges, INT_MIN and INT_MAX - 255 among them: the
+    reciprocal route inside the domain, the IEEE route outside it, each
+    element's choice made in the kernel."""
+    from metta_tpu_torch.ops import ubench_pairmat as s2
+
+    _cuda()
+    x = np.random.default_rng(n_envs).integers(-2 ** 31, 2 ** 31, (s2.A, n_envs))
+    edges = tdiv_edges()
+    x.reshape(-1)[:len(edges)] = edges
+    x = torch.as_tensor(x.astype(np.int32), device="cuda")
+    before = s2.launches
+    got = s2.run("tdiv", x)
+    torch.cuda.synchronize()
+    assert s2.launches == before + 1
     assert torch.equal(got, s2.plain("tdiv", x))
 
 

@@ -12,7 +12,12 @@ accumulation order differs). S2's tdiv: the TPU body's correction turns any
 quotient estimate within 1 into the truncated quotient, and a float32
 mirror of the kernel's reciprocal route is within 1 across its stated
 domain (every |a| < 2^16 and a seeded sample up to 2^23), the argument that
-lets the kernel skip the IEEE divide. The scripts are loaded by file
+lets the kernel skip the IEEE divide there; a numpy mirror of the kernel's
+two routes and its choice between them equals the plain version across
+int32 (the n = 1 band where the card's and x86's float -> int32
+conversions differ left out). S3's wrapper on CPU tensors equals the
+script's numpy reference on adversarial inputs and refuses more than 32
+agents by name. The scripts are loaded by file
 path; ``ubench_mosaic.py`` defines its kernels inside ``main``, so their
 bodies and ``pallas_call`` wiring are copied here. The fold's chunk
 schedule (``ops/ubench_mosaic.py:fold_schedule``) must cover every element
@@ -43,6 +48,7 @@ from metta_tpu_torch.ops import smoke_sim as s3
 from metta_tpu_torch.ops import ubench_mosaic as s1
 from metta_tpu_torch.ops import ubench_pairmat as s2
 from metta_tpu_torch.scripts import smoke_sim_kernel
+from test_torch_cuda import SMOKE_SIM_PATTERNS, smoke_sim_inputs, tdiv_edges
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 VMEM = pltpu.VMEM
@@ -78,6 +84,44 @@ def test_smoke_sim_matches_jax_script_kernel():
     ref1, ref2 = smoke_sim_kernel.reference(r, inv)
     np.testing.assert_array_equal(ref1, got1.numpy())
     np.testing.assert_array_equal(ref2, got2.numpy())
+
+
+@pytest.mark.parametrize("agents", [1, 24, 32])
+def test_smoke_sim_plain_matches_script_reference(agents):
+    """S3's wrapper on CPU tensors (its plain version) equals the script's
+    numpy reference on the script's inputs and adversarial ones (every agent
+    equal, every agent distinct, the int32 extremes and negatives; inventory
+    sums above 7 and below 0), with 0 and 10 inventory rows, at E=1 and 257."""
+    for pattern in SMOKE_SIM_PATTERNS:
+        for rows in (0, 10):
+            for n_envs in (1, 257):
+                r, inv = smoke_sim_inputs(pattern, agents, rows, n_envs, seed=agents)
+                got1, got2 = s3.smoke_sim(torch.from_numpy(r), torch.from_numpy(inv))
+                ref1, ref2 = smoke_sim_kernel.reference(r, inv)
+                case = (pattern, rows, n_envs)
+                np.testing.assert_array_equal(got1.numpy(), ref1, err_msg=str(case))
+                np.testing.assert_array_equal(got2.numpy(), ref2, err_msg=str(case))
+                if pattern != "script" and rows and n_envs > 1:
+                    sums = inv.sum(0)
+                    assert (sums > 7).any() and (sums < 0).any(), case
+
+
+def test_smoke_sim_refuses_more_agents_than_a_warp():
+    """S3's wrapper refuses, by name, more agents than the kernel's one warp
+    per env has lanes, on either device; it takes any number of inventory
+    rows (nothing in the kernel is sized by them), and its constants are the
+    kernel's."""
+    src = (REPO / "metta_tpu_torch" / "csrc" / "smoke_sim.cu").read_text()
+    const = {m.group(1): int(m.group(2))
+             for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (const["kEnvs"], const["kMaxAgents"]) == (s3.ENVS, s3.MAX_AGENTS)
+    a = s3.MAX_AGENTS + 1
+    with pytest.raises(ValueError, match="at most 32 agents, got 33 agents"):
+        s3.smoke_sim(torch.zeros((a, 4), dtype=torch.int32),
+                     torch.zeros((10, a, 4), dtype=torch.int32))
+    r, inv = smoke_sim_inputs("script", s3.MAX_AGENTS, 37, 5)
+    got = s3.smoke_sim(torch.from_numpy(r), torch.from_numpy(inv))
+    np.testing.assert_array_equal(got[1].numpy(), smoke_sim_kernel.reference(r, inv)[1])
 
 
 @pytest.fixture(scope="module")
@@ -182,6 +226,66 @@ def test_tdiv_plain_is_the_sum_of_truncated_quotients():
     n = (x[..., None] & 7) + 1
     want = (np.sign(a) * (np.abs(a) // n)).sum(-1)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _wrap32(v):
+    """int64 values wrapped to int32's range, as int32 ops wrap."""
+    return (v + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def _tdiv_mirror(x, routes="kernel"):
+    """A numpy mirror of the kernel's tdiv on x (int32 values) -> [..] int64.
+    Each element's route by the kernel's rule (``routes="kernel"``: the
+    reciprocal route where -2^23 < x and x + 255 < 2^23, else the IEEE
+    divide), or the reciprocal route everywhere (``"reciprocal"``); float32
+    steps rounded to nearest, as FMUL, the IEEE divide and the conversions
+    round; the quotient's conversion to int32 saturating, as on the card; the
+    int32 ops (x + i, |a|, the correction, -q, the sum) wrapping."""
+    x = x.astype(np.int64)[..., None]
+    a = _wrap32(x + np.arange(s2.TDIV_REPS))
+    n = (x & 7) + 1
+    aa = _wrap32(np.abs(a))
+    fa, fn = aa.astype(np.float32), n.astype(np.float32)
+    fast = (x > -s2.TDIV_LIMIT) & (x < s2.TDIV_LIMIT - (s2.TDIV_REPS - 1))
+    if routes == "reciprocal":
+        fast = np.ones_like(fast)
+    q0 = np.trunc(np.where(fast, fa * (np.float32(1) / fn), fa / fn).astype(np.float64))
+    q0 = np.clip(q0, -2 ** 31, 2 ** 31 - 1).astype(np.int64)
+    r0 = _wrap32(aa - q0 * n)
+    q = _wrap32(q0 + (r0 >= n).astype(np.int64) - (r0 < 0).astype(np.int64))
+    return _wrap32(np.where(a >= 0, q, -q).sum(-1))
+
+
+def test_tdiv_routes_match_plain_across_int32():
+    """The kernel's two tdiv routes and its choice between them, mirrored in
+    numpy, equal the plain version on the CPU for x seeded across all of
+    int32, both edges of the reciprocal route's domain and x whose reps wrap
+    past INT_MAX, each with every n. The mirror's constants are the
+    kernel's. Left out: elements with n = 1 whose reps reach |a| >= 2^31 -
+    64, where float(|a|) rounds to 2^31 and the quotient converts to INT_MAX
+    on the card (the kernel's and the plain version's) and INT_MIN on x86
+    (INT_MIN and INT_MAX - 255 themselves are such). Outside the domain the
+    reciprocal route alone differs from the plain version, so the choice is
+    what keeps the kernel exact."""
+    src = (REPO / "metta_tpu_torch" / "csrc" / "ubench_pairmat.cu").read_text()
+    m = re.search(r"constexpr int kTdivReps = kRep \* (\d+), kTdivLimit = 1 << (\d+);", src)
+    assert (s2.REP * int(m.group(1)), 2 ** int(m.group(2))) == (s2.TDIV_REPS, s2.TDIV_LIMIT)
+    edges = tdiv_edges()
+    x = np.random.default_rng(16).integers(-2 ** 31, 2 ** 31, (s2.A, 64))
+    x.reshape(-1)[:len(edges)] = edges
+    x = x.astype(np.int32)
+    got = s2.plain("tdiv", torch.from_numpy(x)).numpy()
+    mirror = _tdiv_mirror(x)
+    a = _wrap32(x.astype(np.int64)[..., None] + np.arange(s2.TDIV_REPS))
+    band = ((x[..., None] & 7) == 0) & (np.abs(a) >= 2 ** 31 - 64)
+    band = band.any(-1)
+    assert band.sum() < 40 and band[x == -2 ** 31].all()
+    np.testing.assert_array_equal(mirror[~band], got[~band])
+    wrapped = np.isin(x, edges[-16:]) & ~band                  # INT_MIN + k, INT_MAX - 255 + k
+    assert wrapped.sum() == 14
+    fast = (x > -s2.TDIV_LIMIT) & (x < s2.TDIV_LIMIT - (s2.TDIV_REPS - 1))
+    assert 17 <= fast.sum() and (~fast & ~band).sum() > 1000
+    assert (_tdiv_mirror(x, routes="reciprocal") != got)[~band & ~fast].any()
 
 
 # ---- S1: the kernel bodies of scripts/ubench_mosaic.py:main, copied ----
