@@ -103,6 +103,7 @@ def task_set_from_numpy(compiled_list, leaves: dict, template: dict, obs1, weigh
 # ---------------------------------------------------------------------------
 
 _LSTM_GATES = ("i", "f", "g", "o")
+_LSTM_LEAVES = ("core.weight_ih", "core.weight_hh", "core.bias")
 _ATTN_IN = ("query", "key", "value")
 
 
@@ -138,9 +139,15 @@ def flax_to_state_dict(params) -> dict:
     its ``params`` level) or a bundle's flat ``params/...`` names. Layouts:
     ``Dense`` kernels [in, out] become weights [out, in]; the attention
     projections ``DenseGeneral`` (D, H, hd) and (H, hd, D) become [H·hd, D]
-    and [D, H·hd]; the LSTM's input kernels ``ii/if/ig/io`` (no bias) stack
-    into ``weight_ih`` [4H, in] and its hidden kernels ``hi/hf/hg/ho`` with
-    their biases into ``weight_hh`` [4H, H] and ``bias`` [4H]."""
+    and [D, H·hd]; the LSTM's input kernels ``core/lstm/i{i,f,g,o}`` (no
+    bias) stack into ``core.weight_ih`` [4H, in] and its hidden kernels
+    ``core/lstm/h{i,f,g,o}`` with their biases into ``core.weight_hh`` [4H, H]
+    and ``core.bias`` [4H]. Under a cortex core (``core/block_0/...``) every
+    leaf keeps its path (``core.block_0.expert_0.cell.kqvbg_proj.weight``):
+    Dense kernels become weights, and the raw parameters (sLSTM's
+    [NH, 4, DH] ``bias`` and gates, the conv's ``kernel`` [K, H] and
+    ``bias``, the scalars ``alpha_main`` and ``alpha_col``, ...) keep their
+    shape and layout."""
     if not any("/" in k for k in params):
         params = flatten_tree(params)
     flat = {k.removeprefix("params/"): np.asarray(v, dtype=np.float32)
@@ -156,6 +163,9 @@ def flax_to_state_dict(params) -> dict:
             sd["token_embed.embedding"] = v
             continue
         module, leaf = ".".join(parts[:-1]), parts[-1]
+        if parts[0] == "core" and (leaf != "kernel" or parts[-2] == "conv"):
+            sd[f"{module}.{leaf}"] = v                 # cortex raw parameter, as it is
+            continue
         if leaf == "kernel":
             if parts[-2] in _ATTN_IN:                  # (D, H, hd) -> [H*hd, D]
                 v = v.reshape(v.shape[0], -1).T
@@ -186,7 +196,7 @@ def state_dict_to_flax(sd: dict, num_heads: int) -> dict:
     for name, t in sd.items():
         v = t.detach().float().cpu().numpy()
         parts = name.split(".")
-        if parts[0] == "core":
+        if name in _LSTM_LEAVES:
             H = v.shape[0] // 4
             for gi, g in enumerate(_LSTM_GATES):
                 rows = v[gi * H:(gi + 1) * H]
@@ -214,4 +224,5 @@ def state_dict_to_flax(sd: dict, num_heads: int) -> dict:
             flat[f"{module}/bias"] = v.reshape(num_heads, -1)
         else:
             flat[f"{module}/{leaf}"] = v
-    return {"params": unflatten_tree({k: np.ascontiguousarray(v) for k, v in flat.items()})}
+    # np.array, not np.ascontiguousarray, which makes a 0-d leaf (alpha_main) 1-d
+    return {"params": unflatten_tree({k: np.array(v, order="C") for k, v in flat.items()})}

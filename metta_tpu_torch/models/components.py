@@ -2,16 +2,19 @@
 
 Counterpart of ``metta_tpu/models/components.py`` (``TokenEmbed`` :30,
 ``PerceiverLatent`` :80, ``LSTMCore`` :124, ``MLP`` :154) and of the flax
-layers they are made of. Plain torch ops only (matmuls and elementwise
-work); no cuDNN LSTM and no fused attention, so the math and the rounding
-points are the JAX package's:
+layers they are made of (``Dense``, ``LayerNorm`` with or without its bias,
+``RMSNorm``, and the ``orthogonal`` and centered uniform initialisers that
+the cortex cells of ``models/cells.py`` draw from). Plain torch ops only
+(matmuls and elementwise work); no cuDNN LSTM and no fused attention, so the
+math and the rounding points are the JAX package's:
 
 - ``Dense(dtype)`` casts input, kernel and bias to ``dtype`` for each call
   (flax ``promote_dtype``), rounds the product to ``dtype`` and then adds
   the bias (two roundings, as flax; a fused ``F.linear`` with its bias
   rounds once); weights are stored [out, in] as torch's.
 - ``LayerNorm`` takes its statistics in float32 with the fast variance
-  ``E[x²] - E[x]²``, ``epsilon=1e-6``, and casts the result to ``dtype``.
+  ``E[x²] - E[x]²``, ``epsilon=1e-6``, and casts the result to ``dtype``;
+  ``RMSNorm`` is the same with the mean taken as 0 (``E[x²]`` alone).
 - ``Attention`` is flax's ``MultiHeadDotProductAttention``: q scaled by
   ``1/sqrt(head_dim)``, masked logits filled with the dtype's minimum (not
   ``-inf``), softmax in the working dtype with each of its steps (the
@@ -44,6 +47,24 @@ def gelu_tanh(x):
     return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
 
 
+def wide(x):
+    """``x`` in float32, the dtype of the float32 islands (norm statistics, the
+    token features, the core), or as it is where it is float64: a float64
+    reference run (``to_float64``) keeps float64 throughout."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def to_float64(module: nn.Module) -> nn.Module:
+    """``module`` in float64 throughout, in place: its parameters and buffers,
+    and the working ``dtype`` of every layer that has one. The reference that
+    float32 and bf16 runs of the same weights are held to."""
+    module.double()
+    for m in module.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float64
+    return module
+
+
 def lecun_normal_(w, fan_in: int, generator=None):
     """flax's ``lecun_normal``: truncated normal with variance 1/fan_in."""
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
@@ -51,47 +72,110 @@ def lecun_normal_(w, fan_in: int, generator=None):
         return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
-class Dense(nn.Module):
-    """flax ``Dense``: y = x @ kernel + bias, all cast to ``dtype``."""
+def orthogonal_init(scale: float = 1.0):
+    """flax's ``orthogonal(scale)`` for a weight stored [out, in]: the kernel
+    [in, out] has orthonormal columns (in >= out) or rows (in < out), times
+    ``scale``."""
 
-    def __init__(self, in_features: int, out_features: int, dtype=torch.float32):
+    def init(w, generator=None):
+        with torch.no_grad():
+            nn.init.orthogonal_(w, gain=scale, generator=generator)
+    return init
+
+
+def uniform_init(bound: float):
+    """Centered uniform on [-bound, bound] (``cells.py:_unif``)."""
+
+    def init(w, generator=None):
+        with torch.no_grad():
+            w.uniform_(-bound, bound, generator=generator)
+    return init
+
+
+def zeros_init(w, generator=None):
+    with torch.no_grad():
+        w.zero_()
+
+
+class Dense(nn.Module):
+    """flax ``Dense``: y = x @ kernel + bias, all cast to ``dtype``;
+    ``use_bias=False`` keeps no bias. ``init(weight, generator)`` draws the
+    weight (default flax's ``lecun_normal``); a bias starts at zero."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=torch.float32,
+                 use_bias: bool = True, init=None):
         super().__init__()
         self.dtype = dtype
+        self.init = init
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(out_features))
+        else:
+            self.register_parameter("bias", None)
 
     def reset_parameters(self, generator=None):
-        lecun_normal_(self.weight, self.weight.shape[1], generator)
-        with torch.no_grad():
-            self.bias.zero_()
+        if self.init is None:
+            lecun_normal_(self.weight, self.weight.shape[1], generator)
+        else:
+            self.init(self.weight, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
 
     def forward(self, x):
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class LayerNorm(nn.Module):
-    """flax ``LayerNorm``: float32 statistics, epsilon 1e-6, output ``dtype``."""
+    """flax ``LayerNorm``: float32 statistics, epsilon 1e-6, output ``dtype``;
+    ``use_bias=False`` keeps the scale alone."""
 
-    def __init__(self, features: int, dtype=torch.float32, eps: float = 1e-6):
+    def __init__(self, features: int, dtype=torch.float32, eps: float = 1e-6,
+                 use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.register_parameter("bias", None)
 
     def reset_parameters(self, generator=None):
         with torch.no_grad():
             self.scale.fill_(1.0)
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x):
-        xf = x.float()
+        xf = wide(x)
         mu = xf.mean(-1, keepdim=True)
         mu2 = (xf * xf).mean(-1, keepdim=True)
         var = torch.clamp(mu2 - mu * mu, min=0.0)
         y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.scale)
-        return (y + self.bias).to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(self.dtype)
+
+
+class RMSNorm(nn.Module):
+    """flax ``RMSNorm`` in float32: x * rsqrt(E[x²] + 1e-6) * scale."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+
+    def forward(self, x):
+        xf = wide(x)
+        var = (xf * xf).mean(-1, keepdim=True)
+        return xf * (torch.rsqrt(var + self.eps) * self.scale)
 
 
 class Attention(nn.Module):
@@ -160,19 +244,19 @@ class TokenEmbed(nn.Module):
         obs = obs[:, : self.max_tokens]
         loc = obs[..., 0].long()
         feat = obs[..., 1].long()
-        val = obs[..., 2].float()
+        ft = torch.float64 if self.dtype == torch.float64 else torch.float32
+        val = obs[..., 2].to(ft)
         mask = loc != EMPTY_BYTE
-        row = (loc >> 4).float() / 15.0
-        col = (loc & 0x0F).float() / 15.0
-        freqs = 2.0 ** torch.arange(self.num_freqs, dtype=torch.float32,
-                                    device=obs.device) * math.pi
+        row = (loc >> 4).to(ft) / 15.0
+        col = (loc & 0x0F).to(ft) / 15.0
+        freqs = 2.0 ** torch.arange(self.num_freqs, dtype=ft, device=obs.device) * math.pi
         ang_r = row[..., None] * freqs
         ang_c = col[..., None] * freqs
         fourier = torch.cat([torch.sin(ang_r), torch.cos(ang_r),
                              torch.sin(ang_c), torch.cos(ang_c)], dim=-1)
         val_n = (val / self.norms[feat])[..., None]
         attr = self.embedding.to(self.dtype)[feat]
-        x = torch.cat([attr.float(), fourier, val_n], dim=-1).to(self.dtype)
+        x = torch.cat([attr.to(ft), fourier, val_n], dim=-1).to(self.dtype)
         x = torch.where(mask[..., None], x, torch.zeros((), dtype=self.dtype, device=x.device))
         return x, mask
 
@@ -259,7 +343,7 @@ class LSTMCore(nn.Module):
         return new_h, (new_c, new_h)
 
     def forward(self, x, state):
-        xi = F.linear(x.float(), self.weight_ih)
+        xi = F.linear(wide(x), self.weight_ih)
         if x.dim() == 2:
             return self._cell(xi, state)
         outs = []

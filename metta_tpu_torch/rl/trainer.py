@@ -18,15 +18,15 @@ gradient and the optimizer work on one vector. Randomness is explicit: a
 (Gumbel-max, as ``jax.random.categorical``) and each epoch's row
 permutation; the env draws its agent orders from its own generator.
 
-Recurrent state: persistent during rollout (zeroed for the agents of envs
-that ended), zero per BPTT segment in the learner.
+Recurrent state: persistent during rollout (every leaf zeroed for the agents
+of envs that ended), zero per BPTT segment in the learner.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, replace
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 from torch.func import functional_call
@@ -48,7 +48,8 @@ class TrainState:
     opt_state: dict
     vstate: VecEnvState           # an MTVecState over a task set
     obs: torch.Tensor             # [E, A, T_tok, 3] uint8 (current)
-    core: tuple                   # recurrent state (c, h), each [B, H]
+    core: Any                     # recurrent state: the LSTM's (c, h), each [B, H], or
+                                  # the cortex stack's tree of [B, ...] leaves
     prev_reward: torch.Tensor     # [B] f32, reward received with the current obs
     prev_done: torch.Tensor       # [B] f32, done flag of the current obs
     r_bar: torch.Tensor           # [] f32 reward-centering EMA
@@ -63,6 +64,18 @@ class Trajectory:
     value: torch.Tensor     # [T, B] f32
     reward: torch.Tensor    # [T, B] f32, received on arriving at obs_t
     done: torch.Tensor      # [T, B] f32, obs_t begins a new episode
+
+
+def zero_ended(core, ended):
+    """Every leaf of the recurrent state (the LSTM's tuple or the cortex
+    stack's nested dict) with the rows where ``ended`` [B] is set zeroed, the
+    mask shaped to the leaf's rank (``metta_tpu/rl/trainer.py:287-289``)."""
+    if isinstance(core, dict):
+        return {k: zero_ended(v, ended) for k, v in core.items()}
+    if isinstance(core, tuple):
+        return tuple(zero_ended(v, ended) for v in core)
+    mask = ended.reshape((-1,) + (1,) * (core.dim() - 1))
+    return torch.where(mask, torch.zeros_like(core), core)
 
 
 class ParamLayout:
@@ -93,7 +106,7 @@ class Trainer:
     Args:
       env_cfg: the training env's config (None with ``task_cfgs``).
       trainer_cfg: ``TrainerConfig`` (defaults as the JAX package's).
-      policy_cfg: ``ViTConfig``; only the ``"lstm"`` core is ported.
+      policy_cfg: ``ViTConfig`` (default the ``"Ag,A,S"`` cortex core).
       num_envs: env batch; default ``cfg.num_envs`` or batch_size / (T·A).
       device: where the env, the policy and the learner run; "cuda" by default.
       task_cfgs: train over this task set instead (``engine/taskset.py``).
@@ -201,8 +214,7 @@ class Trainer:
             vstate, obs, rew, done, trunc = self.env.step_state(
                 vstate, action.reshape(E, A).to(torch.int32))
             prev_done = (done | trunc).to(torch.float32).repeat_interleave(A)    # [B]
-            ended = prev_done[:, None] > 0
-            core = tuple(torch.where(ended, torch.zeros_like(z), z) for z in core)
+            core = zero_ended(core, prev_done > 0)
             prev_rew = rew.reshape(-1)
         ts = replace(ts, vstate=vstate, obs=obs, core=core, prev_reward=prev_rew,
                      prev_done=prev_done)

@@ -29,7 +29,8 @@ int32; S3 (``csrc/smoke_sim.cu``) at E=1, 31, 32, 33, 256, 257 and 4096 on
 the script's inputs and adversarial ones; the wrappers' input
 checks (M5's, M4's, M3's and M2's alignment, M3's rows, S4's one pass); a
 few whole env steps on the GPU
-against the CPU; and a tiny trainer update through all three kernels.
+against the CPU; a tiny trainer update through all three kernels; and the
+``"Ag,A,S"`` cortex policy at full width on the GPU against the CPU.
 This file imports no JAX, so it runs on a machine with a card and torch
 alone:
 
@@ -662,6 +663,81 @@ def test_trainer_update_on_gpu():
     assert runs == [tr.T, tr.T, 1 + 2 * tr.n_minibatches]
     assert all(torch.isfinite(m) for m in metrics.values())
     assert float((ts.params - p0).abs().max()) > 0
+
+
+def test_cortex_policy_gpu_matches_cpu():
+    """The ``"Ag,A,S"`` ViT at full width in float32, its parameters from a
+    seeded generator and then every leaf moved by N(0, 0.05) (so the leaves
+    that start at zero, the recurrent kernel, the mixer's output, the
+    router, the refiner, the head's output and the biases, are live), on the
+    card (TF32 off) against the CPU on arena observations: a step from a
+    random state tree the cells can reach (AGaLiTe's ``s`` a sum of
+    non-negative features, its ``tick`` a whole number, sLSTM's ``n``
+    positive) and a [4, 12] segment from zero. Each output and state leaf
+    within 1e-4 of its largest magnitude; and both devices against the same
+    weights and state in float64 on the CPU (``components.to_float64``): the
+    card's largest and RMS errors within 4x the CPU's own."""
+    from metta_tpu_torch.convert import flatten_tree, unflatten_tree
+    from metta_tpu_torch.models.components import to_float64
+    from metta_tpu_torch.models.vit import ViTConfig
+
+    dev = _cuda()
+    cfg = make_arena(A)
+    cfg.game.map_builder.seed = 5
+    env = MettaGridEnv(cfg, num_envs=2, seed=0, track_stats=False, step_mode="batched",
+                       device="cpu")
+    env.reset()
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(6):
+        obs, *_ = env.step(torch.randint(0, env.compiled.n_actions, (2, A), generator=gen))
+    obs = obs.reshape(-1, *obs.shape[2:])                                    # [48, T, 3]
+    pol = ViTConfig(compute_dtype="float32").make(
+        env.compiled.n_actions, env.compiled.feature_normalizations,
+        generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        for p in pol.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    B = obs.shape[0]
+    rng = np.random.default_rng(4)
+
+    def leaf(k, shape):
+        if k.endswith("/n"):
+            return rng.uniform(0.5, 1.5, shape)
+        if k.endswith("/s"):
+            return np.abs(rng.normal(size=shape))
+        if k.endswith("/tick"):
+            return rng.integers(0, 20, shape).astype(np.float64)
+        return rng.normal(size=shape)
+    state = {k: torch.from_numpy(leaf(k, v.shape))
+             for k, v in flatten_tree(pol.initial_state(B)).items()}        # float64
+    seq = obs.reshape(4, B // 4, *obs.shape[1:])
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        outs = []
+        for d, p in (("cpu", to_float64(copy.deepcopy(pol))), ("cpu", copy.deepcopy(pol)),
+                     (dev, copy.deepcopy(pol).to(dev))):
+            dt = torch.float64 if p.dtype == torch.float64 else torch.float32
+            st = unflatten_tree({k: v.to(d, dt) for k, v in state.items()})
+            zero = unflatten_tree({k: v.to(dt) for k, v in
+                                   flatten_tree(p.initial_state(seq.shape[1], d)).items()})
+            with torch.no_grad():
+                step = p(obs.to(d), st)
+                segment = p(seq.to(d), zero)
+            outs.append([t.double().cpu() for out in (step, segment)
+                         for t in (*out[:3], *flatten_tree(out[3]).values())])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    ref, cpu, gpu = outs
+    for c, g in zip(cpu, gpu):
+        assert torch.isfinite(g).all()
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
+
+    def errs(out):
+        d = torch.cat([(o - r).flatten() for o, r in zip(out, ref)])
+        return float(d.abs().max()), float(d.pow(2).mean().sqrt())
+    (g_max, g_rms), (c_max, c_rms) = errs(gpu), errs(cpu)
+    assert g_max <= 4 * c_max and g_rms <= 4 * c_rms, (g_max, c_max, g_rms, c_rms)
 
 
 def _seq_env(device, n_envs, renderer="pl", make=make_combat, agents=A, **obs):

@@ -16,6 +16,11 @@
   actions, with the recurrent state zeroed where an episode ended (1e-5
   absolute).
 - What the port does not run is refused with ``NotImplementedError``.
+
+Each learner test also runs with the ``"Ag,A,S"`` cortex core
+(``ARCH_CORTEX``) with every parameter moved off its initial value by a
+seeded draw (the core's zero-initialised paths included); the replay then
+zeroes every leaf of the state tree where an episode ended.
 """
 
 import jax
@@ -36,7 +41,14 @@ from metta_tpu_torch.rl.trainer import Trainer
 
 ARCH = dict(latent_dim=16, actor_hidden=16, critic_hidden=16, max_tokens=16,
             core_num_latents=2, core_num_heads=2, core="lstm", compute_dtype="float32")
+ARCH_CORTEX = dict(ARCH, core="Ag,A,S")
 TRAIN = dict(num_envs=2, bptt_horizon=8, batch_size=2 * 4 * 8, minibatch_size=16)
+
+
+def _perturbed(params, seed):
+    """``params`` [P] with every entry moved by a seeded N(0, 0.2) draw."""
+    gen = torch.Generator().manual_seed(seed)
+    return params + 0.2 * torch.randn(params.shape, generator=gen).to(params.device)
 
 
 def _pair(critic_update, max_steps=None, arch=ARCH):
@@ -103,10 +115,14 @@ def _rel(got, want, name, floor=0.0):
     assert float(np.abs(got - want).max()) <= 1e-4 * scale, (name, got, want)
 
 
-@pytest.mark.parametrize("critic_update", ["gtd_lambda", "mse"])
-def test_minibatch_loss_and_grads_match_jax(critic_update):
-    tr, jtr = _pair(critic_update)
+@pytest.mark.parametrize("critic_update,arch", [("gtd_lambda", ARCH), ("mse", ARCH),
+                                                 ("gtd_lambda", ARCH_CORTEX)],
+                         ids=["gtd_lambda", "mse", "cortex-gtd_lambda"])
+def test_minibatch_loss_and_grads_match_jax(critic_update, arch):
+    tr, jtr = _pair(critic_update, arch=arch)
     ts = tr.init_state(seed=3)
+    if arch is ARCH_CORTEX:
+        ts.params = _perturbed(ts.params, 4)
     mb = _minibatch(tr)
     hp = tr.default_hp()
     assert hp == jtr.default_hp()
@@ -125,9 +141,11 @@ def test_minibatch_loss_and_grads_match_jax(critic_update):
         _rel(got[k].numpy(), want[k].numpy(), f"grad {k}", floor=1e-3 * gmax)
 
 
-def test_update_replays_in_flax():
-    tr, jtr = _pair("gtd_lambda", max_steps=5)         # episodes end inside the rollout
+def _check_update_replays(arch):
+    tr, jtr = _pair("gtd_lambda", max_steps=5, arch=arch)   # episodes end inside the rollout
     ts = tr.init_state(seed=1)
+    if arch is ARCH_CORTEX:
+        ts.params = _perturbed(ts.params, 2)
     p0 = ts.params.clone()
     trajs = []
     rollout = tr._rollout
@@ -146,12 +164,12 @@ def test_update_replays_in_flax():
     assert ts.update_idx == 1 and float((ts.params - p0).abs().max()) > 0
 
     traj = trajs[0]
-    jparams = state_dict_to_flax(tr.state_dict(p0), ARCH["core_num_heads"])
+    jparams = state_dict_to_flax(tr.state_dict(p0), arch["core_num_heads"])
     apply = jax.jit(jtr.policy.apply)
     core = jtr.policy.initial_state(tr.B)
     for t in range(tr.T):
-        keep = (1.0 - traj.done[t].numpy())[:, None]
-        core = tuple(c * keep for c in core)
+        keep = 1.0 - traj.done[t].numpy()
+        core = jax.tree.map(lambda c: c * keep.reshape((-1,) + (1,) * (c.ndim - 1)), core)
         logits, value, _, core = apply(jparams, jnp.asarray(traj.obs[t].numpy()), core)
         logp = jax.nn.log_softmax(logits)[np.arange(tr.B), traj.actions[t].numpy()]
         np.testing.assert_allclose(traj.logprob[t].numpy(), np.asarray(logp), rtol=0,
@@ -159,6 +177,14 @@ def test_update_replays_in_flax():
         np.testing.assert_allclose(traj.value[t].numpy(), np.asarray(value), rtol=0,
                                    atol=1e-5, err_msg=f"value step {t}")
     assert traj.done[1:].sum() > 0
+
+
+def test_update_replays_in_flax():
+    _check_update_replays(ARCH)
+
+
+def test_update_replays_in_flax_cortex():
+    _check_update_replays(ARCH_CORTEX)
 
 
 def test_target_kl_stops_the_phase():
@@ -183,7 +209,7 @@ def test_target_kl_stops_the_phase():
     lambda: LossesConfig(grpo={"enabled": True}),
     lambda: PPOCriticConfig(burn_in_steps=4),
     lambda: SamplingConfig(method="prioritized"),
-    lambda: ViTConfig().make(5, {}),
+    lambda: ViTConfig(core="AXMS").make(5, {}),
     lambda: ViTConfig(core="lstm", num_quantiles=8).make(5, {}),
 ], ids=["scheduler", "autotuner", "chunks", "grpo", "burn_in", "prioritized", "cortex",
         "quantiles"])
