@@ -90,6 +90,19 @@ Phases (each one a hard failure):
    launches, rollout and learn seconds, seconds a minibatch, peak memory,
    agent-steps/s; finite metrics, moved parameters, ``hardware_sanity``; a
    profiled minibatch's CUDA launches;
+10c. the training entry point: ``STABLE_JOBS["arena_100m"].make_tool()``,
+   its fields checked against the job's (run, ``curriculum_interval`` 5,
+   E=170, ``track_env_stats``, the ``"Ag,A,S"`` core at full width), cut to
+   E=10 (``E_TOOL``), 2 updates, checkpoints and curriculum syncs every
+   update and a temporary ``data_dir``: ``invoke()`` returns 0, two finite
+   ``metrics.jsonl`` records with the gate metrics and ``losses/*``, bundles
+   :v1 and :v2, K4 = T and K3 = 1 + 2 x minibatches launches an update and
+   K1 = K2 = 0 over the tool's run; then a second tool resumes it (``resumed
+   from update 2``, every restored leaf and both CUDA generators' states
+   bit for bit the saved ones), runs exactly one update and writes :v3;
+   ``evaluate_acceptance``'s values logged; the :v3 bundle through
+   ``load_policy_bundle`` within 1e-5 of the live policy's logits on 48
+   observations; the phase's seconds and ``overview/sps``;
 11. K5 (``csrc/obs_render.cu``) against its plain torch version
    (``render_obs1_plain``) on every render of the sequential env with
    ``obs_renderer="pl"``: combat at E=1, 10 and 4096 and ``make_arena(30)``
@@ -1383,13 +1396,14 @@ def learner_kernels_vs_plain(tr, vstate, traj, res):
 
 
 def curriculum_sync(curriculum, env, slots, vstate):
-    """The curriculum between two updates, as ``metta_tpu/tools/train.py:
-    225-250`` drives it: each slot's score (the mean per-step reward of the
-    envs' last finished episodes of that task) to ``update_task_performance``,
-    evicted slots refilled by ``set_task``, the weights by ``set_weights``.
-    One task is spawned first, so that the pool overflows and the
-    curriculum's own rule evicts one (its pool never grows by itself).
-    Returns {task id: score}."""
+    """The curriculum between two updates, as the port's ``TrainTool``
+    (``metta_tpu_torch/tools/train.py``, phase 10c) drives it: each slot's
+    score (the mean per-step reward of the envs' last finished episodes of
+    that task) to ``update_task_performance``, evicted slots refilled by
+    ``set_task``, the weights by ``set_weights``. One task is spawned first,
+    which the tool never does, so that the pool overflows and the
+    curriculum's own rule evicts one (its pool never grows by itself) and
+    ``set_task`` runs on the card. Returns {task id: score}."""
     ep_len = vstate.episode_len.cpu().numpy()
     ep_task = vstate.last_episode_task.cpu().numpy()
     ep_rew = vstate.last_episode_reward.mean(1).cpu().numpy()
@@ -1655,6 +1669,203 @@ def phase_cortex_learner(res):
     log(f"[cortex] a minibatch [{tr.T}, {tr.rows_per_mb}] (loss, backward, optimizer): "
         f"{mb_launches} CUDA launches ({time.perf_counter() - t0:.1f} s profiled), "
         f"{1e6 * mb_s / mb_launches:.2f} us of the unprofiled minibatch a launch")
+
+
+E_TOOL = 10       # the tool's cut: 240 rows, 4 minibatches of phase 10's [256, 60]; over
+                  # 8 and no multiple of 8, so K4 renders, as at E=170
+
+
+def run_train_tool():
+    """The training entry point as a user runs it: the ``arena_100m`` job's
+    own tool (``STABLE_JOBS["arena_100m"].make_tool()``), its fields checked
+    against the job's, cut to ``E_TOOL`` envs, 2 updates, checkpoints and
+    curriculum syncs every update and a temporary ``data_dir``; then a
+    second tool that resumes it for a third update. Returns a dict of what
+    it measured; raises on any failed check."""
+    import logging
+    import tempfile
+    from pathlib import Path
+
+    from metta_tpu_torch.devops.stable import STABLE_JOBS, evaluate_acceptance
+    from metta_tpu_torch.ops import discounted_sum as k3
+    from metta_tpu_torch.ops import obs_render2 as k4
+    from metta_tpu_torch.ops import obs_render3 as k1
+    from metta_tpu_torch.ops import sim_fused as k2
+    from metta_tpu_torch.rl import checkpoint as ckpt
+    from metta_tpu_torch.tools import train as train_mod
+
+    job = STABLE_JOBS["arena_100m"]
+    first = job.make_tool()
+    want = dict(run="stable_100m", curriculum_interval=5, evaluate_interval=0, device=None,
+                total_timesteps=None)
+    got = {k: getattr(first, k) for k in want}
+    tr_cfg, pol = first.trainer, first.policy
+    if got != want or (tr_cfg.num_envs, tr_cfg.track_env_stats, tr_cfg.total_timesteps) != \
+            (E_TRAIN, True, 100_000_000) or pol != train_mod.PolicyConfig() or \
+            pol.core != "Ag,A,S" or first._curriculum is None:
+        raise AssertionError(f"arena_100m's tool is not the job's: {got}, {tr_cfg}, {pol}")
+    log(f"[tool] arena_100m's tool: run {first.run}, curriculum_interval "
+        f"{first.curriculum_interval}, E={tr_cfg.num_envs}, track_env_stats "
+        f"{tr_cfg.track_env_stats}, {tr_cfg.total_timesteps} agent-steps, core {pol.core} x "
+        f"{pol.core_layers} layers at latent {pol.latent_dim} (the default PolicyConfig), "
+        f"device {first.device} (cuda)")
+
+    trainers, saved, loaded, messages = [], {}, {}, []
+
+    class Recorded(train_mod.Trainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            trainers.append(self)
+
+    def snapshot(ts, generators):
+        return ({k: v.clone() for k, v in ckpt.flatten_state(ts).items()},
+                {n: g.get_state() for n, g in generators.items()})
+
+    class RecordedCM(ckpt.CheckpointManager):
+        def save_trainer_state(self, ts, epoch, extras=None, generators=None):
+            super().save_trainer_state(ts, epoch, extras, generators)
+            saved.update(epoch=epoch, ts=ts, state=snapshot(ts, generators))
+
+        def load_trainer_state(self, ts_like, generators=None):
+            out = super().load_trainer_state(ts_like, generators)
+            if out[0] is not None:
+                loaded.update(epoch=out[1]["epoch"], state=snapshot(out[0], generators))
+            return out
+
+    class Messages(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+            log(f"[tool]   {record.getMessage()}")
+
+    tmp = tempfile.TemporaryDirectory()
+    run_dir = Path(tmp.name) / first.run
+
+    def cut(tool, updates):
+        tool.trainer.num_envs = E_TOOL
+        tool.checkpoint_interval = tool.curriculum_interval = 1
+        object.__setattr__(tool, "data_dir", tmp.name)
+        tool.total_timesteps = updates * E_TOOL * AGENTS * tool.trainer.bptt_horizon
+        return tool
+
+    def invoke(tool, updates):
+        k1.launches = k2.launches = k3.launches = k4.launches = 0   # the tool's run starts
+        t0 = time.perf_counter()
+        rc = tool.invoke()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"k1": k1.launches, "k2": k2.launches, "k3": k3.launches,
+                    "k4": k4.launches}                 # ... and ends
+        tr = trainers[-1]
+        if rc != 0:
+            raise AssertionError(f"TrainTool.invoke returned {rc}")
+        expect = {"k4": updates * tr.T, "k3": updates * (1 + 2 * tr.n_minibatches), "k1": 0,
+                  "k2": 0}
+        if launches != expect:
+            raise AssertionError(f"launches over the tool's run {launches}, expected {expect}")
+        return wall, launches
+
+    handler = Messages()
+    tool_logger = logging.getLogger(train_mod.__name__)
+    level = tool_logger.level
+    tool_logger.addHandler(handler)
+    tool_logger.setLevel(logging.INFO)
+    originals = train_mod.Trainer, train_mod.CheckpointManager
+    train_mod.Trainer, train_mod.CheckpointManager = Recorded, RecordedCM
+    try:
+        tool = cut(first, 2)
+        log(f"[tool] cuts: trainer.num_envs {E_TRAIN} -> {tool.trainer.num_envs}, "
+            f"total_timesteps -> {tool.total_timesteps} (2 updates), checkpoint_interval 30 "
+            f"-> 1, curriculum_interval 5 -> 1, data_dir -> a temporary directory")
+        wall1, launches1 = invoke(tool, 2)
+        tr = trainers[-1]
+        records = read_records(run_dir)
+        if len(records) != 2:
+            raise AssertionError(f"{len(records)} metrics records after 2 updates")
+        for r in records:
+            keys = [k for k in r if k.startswith("losses/")]
+            bad = [k for k, v in r.items() if not np.isfinite(v)]
+            if "overview/sps" not in r or "overview/reward" not in r or not keys or bad:
+                raise AssertionError(f"metrics record lacks a gate metric or is not finite: {r}")
+        cm = ckpt.CheckpointManager(first.run, tmp.name)
+        if [e for e, _ in cm.list_policies()] != [1, 2]:
+            raise AssertionError(f"bundles {cm.list_policies()}, expected :v1 and :v2")
+        log(f"[tool] 2 updates in {wall1:.2f} s (E={tr.E}, B={tr.B}, T={tr.T}, "
+            f"{tr.n_minibatches} minibatches of {tr.rows_per_mb} rows), launches {launches1}; "
+            f"overview/sps {[round(r['overview/sps'], 1) for r in records]}, reward "
+            f"{[round(r['overview/reward'], 6) for r in records]}; bundles :v1 :v2")
+        first_saved = saved["state"]
+
+        second = cut(job.make_tool(), 3)
+        wall2, launches2 = invoke(second, 1)
+        tr = trainers[-1]
+        if "resumed from update 2" not in messages or loaded.get("epoch") != 2:
+            raise AssertionError("the second tool did not resume from update 2")
+        (got_leaves, got_gens), (want_leaves, want_gens) = loaded["state"], first_saved
+        if sorted(got_leaves) != sorted(want_leaves) or sorted(got_gens) != sorted(want_gens):
+            raise AssertionError("the restored state has other leaves than the saved one")
+        diff = [k for k, v in want_leaves.items()
+                if v.dtype != got_leaves[k].dtype or v.device != got_leaves[k].device
+                or not torch.equal(v, got_leaves[k])]
+        diff += [n for n, g in want_gens.items() if not torch.equal(g, got_gens[n])]
+        if diff:
+            raise AssertionError(f"restored leaves differ from the saved ones: {diff[:8]}")
+        records = read_records(run_dir)
+        if len(records) != 3 or records[-1]["agent_step"] != 3 * tr.B * tr.T or \
+                [e for e, _ in cm.list_policies()] != [1, 2, 3]:
+            raise AssertionError(f"the resumed tool did not run exactly one update: "
+                                 f"{len(records)} records, bundles {cm.list_policies()}")
+        log(f"[tool] resumed: {len(want_leaves)} leaves and the generators "
+            f"{sorted(want_gens)} restored bit for bit on the card; one update in "
+            f"{wall2:.2f} s (construction and restore included), launches {launches2}; "
+            f"overview/sps {records[-1]['overview/sps']:.1f}; bundle :v3")
+
+        result = evaluate_acceptance(job, run_dir)
+        log("[tool] evaluate_acceptance at 3 updates (passing not required): " + json.dumps(
+            {c["metric"]: {"value": c["value"], "passed": c["passed"]}
+             for c in result["criteria"]}))
+
+        # a bundle the tool wrote gives the live policy's logits
+        ts = saved["ts"]
+        sd, pcfg, spec = ckpt.load_policy_bundle(cm.latest_policy_uri())
+        c = tr.env.compiled
+        bundle_pol = pcfg.make(c.n_actions, c.feature_normalizations).to("cuda")
+        bundle_pol.load_state_dict(sd)
+        obs = ts.obs.reshape(-1, *ts.obs.shape[2:])[:48]
+        with torch.no_grad():
+            live = tr.apply(ts.params, obs, tr.policy.initial_state(48, "cuda"))[0]
+            again = bundle_pol(obs, bundle_pol.initial_state(48, "cuda"))[0]
+        err = float((live.float() - again.float()).abs().max())
+        if spec["epoch"] != 3 or not err <= 1e-5:
+            raise AssertionError(f"the :v3 bundle's logits differ from the live policy's by {err}")
+        log(f"[tool] the :v3 bundle (load_policy_bundle) on 48 observations: logits within "
+            f"{err:.3e} of the live policy's (tolerance 1e-5)")
+    finally:
+        train_mod.Trainer, train_mod.CheckpointManager = originals
+        tool_logger.removeHandler(handler)
+        tool_logger.setLevel(level)
+        tmp.cleanup()
+    return dict(wall=(wall1, wall2), sps=[r["overview/sps"] for r in records],
+                launches=(launches1, launches2), acceptance=result, logits_err=err)
+
+
+def read_records(run_dir):
+    return [json.loads(s) for s in (run_dir / "metrics.jsonl").read_text().splitlines()]
+
+
+def phase_train_tool(res):
+    """Phase 10c: the training entry point on the card (``run_train_tool``):
+    the ``arena_100m`` job's own ``TrainTool`` cut to ``E_TOOL`` envs and 2
+    updates, then resumed from its own checkpoint for a third; K4 = T and K3
+    = 1 + 2 x minibatches launches an update, K1 = K2 = 0, over each tool's
+    run; two finite metrics records, bundles :v1-:v3, the restored state bit
+    for bit the saved one (both generators included), one update after the
+    resume, ``evaluate_acceptance``'s values, and the :v3 bundle's logits
+    within 1e-5 of the live policy's."""
+    t0 = time.perf_counter()
+    out = run_train_tool()
+    log(f"[tool] phase 10c {time.perf_counter() - t0:.1f} s; overview/sps "
+        f"{[round(v, 1) for v in out['sps']]} on {card_line()}")
+    res["train_tool"] = out
 
 
 # ---------------------------------------------------------------------------
@@ -3049,7 +3260,8 @@ def main() -> int:
     t_start = time.time()
     for phase in (phase_build, phase_k1_vs_plain, phase_k2_vs_plain, phase_k4_vs_plain,
                   phase_gpu_vs_cpu, phase_throughput, phase_k3_vs_plain, phase_policy,
-                  phase_train, phase_curriculum, phase_cortex_learner, phase_k5_vs_plain,
+                  phase_train, phase_curriculum, phase_cortex_learner, phase_train_tool,
+                  phase_k5_vs_plain,
                   phase_sequential,
                   phase_analysis, phase_k2_chests, phase_cvc_clipped, phase_cvc_sequential):
         t0 = time.time()

@@ -37,6 +37,7 @@ from metta_tpu_torch.convert import state_from_numpy, tables_from_compiled
 from metta_tpu_torch.ops import ablate_obs as ab
 from metta_tpu_torch.ops import obs_render2 as k4
 from metta_tpu_torch.ops import obs_render3 as k1
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 A, E = 24, 8

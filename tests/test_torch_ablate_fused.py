@@ -31,6 +31,7 @@ from metta_tpu.engine.tables import Tables
 from metta_tpu_torch.convert import state_from_numpy, state_to_numpy, tables_from_compiled
 from metta_tpu_torch.ops.sim_fused import fused_step_full
 from metta_tpu_torch.scripts import ablate_fused
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 E, STEPS = 4, 6

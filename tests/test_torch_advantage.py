@@ -21,6 +21,7 @@ from metta_tpu.ops.discounted_sum import discounted_sum_reverse
 from metta_tpu.rl import advantage as jadv
 from metta_tpu_torch.ops.discounted_sum import discounted_sum, discounted_sum_plain
 from metta_tpu_torch.rl import advantage as tadv
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = 16
 

@@ -46,6 +46,7 @@ from metta_tpu_torch.models.vit import ViTConfig
 from metta_tpu_torch.rl import checkpoint as tck
 
 import test_torch_trainer as tt
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BUNDLE = Path(__file__).resolve().parents[1] / "devops_runs/stable_100m/checkpoints/stable_100m:v48"
 

@@ -25,6 +25,7 @@ from metta_tpu.models import cells as jcells
 from metta_tpu_torch.convert import flatten_tree, flax_to_state_dict, unflatten_tree
 from metta_tpu_torch.models import cells
 from metta_tpu_torch.rl.trainer import zero_ended
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, B, T = 16, 3, 6
 PATTERN = "Ag,A,S"

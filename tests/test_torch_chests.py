@@ -39,6 +39,7 @@ from metta_tpu.engine.state import KIND_CHEST, KIND_EMPTY
 from metta_tpu.engine.tables import Tables
 from metta_tpu_torch.convert import state_from_numpy, state_to_numpy, tables_from_compiled
 from metta_tpu_torch.engine.clipper import ClipDraws
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 E = 6
 

@@ -39,6 +39,7 @@ from metta_tpu_torch.cogames import missions as pmissions
 from metta_tpu_torch.convert import state_to_numpy
 from metta_tpu_torch.engine.clipper import ClipDraws
 from metta_tpu_torch.engine.compiler import compile_game as pcompile
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 UNPORTED_SITES = ("hello_world", "machina_1")
 PORTED = [m.full_name() for m in jcatalog.get_missions() if m.site.name not in UNPORTED_SITES]

@@ -17,6 +17,7 @@ from metta_tpu.engine.tables import Tables as JTables
 from metta_tpu_torch.builder import envs as penvs
 from metta_tpu_torch.engine.compiler import compile_game as pcompile
 from metta_tpu_torch.engine.tables import Tables as PTables
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CONFIGS = {
     "combat": lambda m: m.make_combat(24),

@@ -30,8 +30,10 @@ the script's inputs and adversarial ones; the wrappers' input
 checks (M5's, M4's, M3's and M2's alignment, M3's rows, S4's one pass); a
 few whole env steps on the GPU
 against the CPU; a tiny trainer update through all three kernels; and the
-``"Ag,A,S"`` cortex policy at full width on the GPU against the CPU.
-This file imports no JAX, so it runs on a machine with a card and torch
+``"Ag,A,S"`` cortex policy at full width on the GPU against the CPU; the
+trainer state's checkpoint on the card (every leaf and both CUDA generators
+restored bit for bit, and the update after a restore against the
+uninterrupted one). This file imports no JAX, so it runs on a machine with a card and torch
 alone:
 
     python3 -m pytest -m cuda --noconftest tests/test_torch_cuda.py
@@ -1567,3 +1569,67 @@ def test_gemm_wrapper_checks_inputs(monkeypatch):
     assert s1.launches_gemm == before
     s1.run("M6c", (_bf16(rng, 2, 384, 144), _bf16(rng, 2, 144, 128)), 1)
     assert s1.launches_gemm == before + 1
+
+
+@pytest.mark.parametrize("core", ["lstm", "Ag,A,S"])
+def test_trainer_state_resumes_on_card(core, tmp_path):
+    """Save a tiny trainer's state after one update on the card, restore it
+    into a second trainer whose CUDA generators were moved: every leaf, on
+    the card, and both generators' Philox states bit for bit. Then one
+    update from each: the rollout (env states, observations, recurrent
+    state, rewards) is bit-equal, and so are the generators after it; the
+    parameters within 1e-4 of each other, since the learner's backward may
+    sum by atomics (the embedding gather's backward) in any order, and an
+    Adam-normalised step of lr 7.4e-3 carries that order's rounding; the
+    difference found is printed."""
+    from metta_tpu_torch.rl.checkpoint import CheckpointManager, flatten_state
+    from metta_tpu_torch.rl.config import TrainerConfig
+    from metta_tpu_torch.rl.trainer import Trainer
+    from metta_tpu_torch.tools.train import PolicyConfig
+
+    dev = _cuda()
+
+    def trainer():
+        env = make_navigation(num_agents=2, width=8, height=8)
+        env.game.map_builder.seed = 5
+        env.game.max_steps = 12
+        arch = PolicyConfig(core=core, latent_dim=16, actor_hidden=16, critic_hidden=16,
+                            max_tokens=16, core_num_latents=2, core_num_heads=2).to_arch()
+        return Trainer(env, TrainerConfig(batch_size=64, minibatch_size=16, bptt_horizon=8,
+                                          num_envs=4), arch, device=dev)
+
+    def gens(tr):
+        return {"trainer": tr.generator, "env": tr.env.generator}
+
+    tr = trainer()
+    ts, _ = tr.update(tr.init_state())
+    cm = CheckpointManager("card", tmp_path)
+    cm.save_trainer_state(ts, 1, generators=gens(tr))
+    tr2 = trainer()
+    like = tr2.init_state()
+    tr2.generator.manual_seed(99)
+    tr2.env.generator.manual_seed(98)
+    got, meta = cm.load_trainer_state(like, generators=gens(tr2))
+    assert meta["epoch"] == 1
+    want = flatten_state(ts)
+    have = flatten_state(got)
+    assert sorted(want) == sorted(have)
+    for k, v in want.items():
+        assert have[k].device == v.device and have[k].dtype == v.dtype, k
+        assert torch.equal(have[k], v), k
+    for name in ("trainer", "env"):
+        assert torch.equal(gens(tr)[name].get_state(), gens(tr2)[name].get_state()), name
+
+    a, _ = tr.update(ts)
+    b, _ = tr2.update(got)
+    fa, fb = flatten_state(a), flatten_state(b)
+    rollout = [k for k in fa if k.split("/")[0] in ("vstate", "obs", "core", "prev_reward",
+                                                    "prev_done", "r_bar", "update_idx")]
+    for k in rollout:
+        assert torch.equal(fa[k], fb[k]), k
+    for name in ("trainer", "env"):
+        assert torch.equal(gens(tr)[name].get_state(), gens(tr2)[name].get_state()), name
+    diff = float((a.params - b.params).abs().max())
+    print(f"[{core}] resumed update's parameters vs the uninterrupted: max abs diff {diff:.3e}"
+          f" ({'bit-equal' if diff == 0 else 'not bit-equal'})")
+    assert diff <= 1e-4

@@ -16,6 +16,7 @@ from metta_tpu_torch.builder.envs import make_arena_basic_easy_shaped, make_curr
 from metta_tpu_torch.cogworks import curriculum as cur
 from recipes.arena_basic_easy_shaped import make_curriculum as jax_make_curriculum
 from recipes.arena_basic_easy_shaped import mettagrid as jax_shaped_arena
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _dump(cfg):

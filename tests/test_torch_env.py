@@ -31,6 +31,7 @@ from metta_tpu_torch.builder.envs import make_arena, make_combat
 from metta_tpu_torch.config.mettagrid_config import ResourceLimitsConfig
 from metta_tpu_torch.convert import state_to_numpy
 from metta_tpu_torch.engine.env import MettaGridEnv
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 E, A, STEPS = 4, 24, 25
 

@@ -37,6 +37,7 @@ from metta_tpu_torch.ops import obs_render2 as k4
 from metta_tpu_torch.ops import obs_render3 as k1
 from metta_tpu_torch.ops import sim_fused as k2
 from metta_tpu_torch.ops import ubench_mosaic as s1
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SMS = 132                                          # an H100 SXM's SMs
 SM_SMEM = 233_472                                  # shared memory an H100 SM holds (228 KB)

@@ -29,6 +29,7 @@ from metta_tpu_torch.convert import state_from_numpy, tables_from_compiled
 from metta_tpu_torch.engine.obs import render_observations
 from metta_tpu_torch.ops import obs_render as k5
 from metta_tpu_torch.ops.obs_render3 import render_obs3_plain
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 E, STEPS = 2, 3
 

@@ -29,6 +29,7 @@ from metta_tpu.engine.tables import Tables, attach_static_block_grid
 from metta_tpu.ops.obs_render3 import supports_v3
 from metta_tpu_torch.convert import state_from_numpy, tables_from_compiled
 from metta_tpu_torch.ops import obs_render3 as pk
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 E, A = 4, 24
 

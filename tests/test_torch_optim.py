@@ -20,6 +20,7 @@ from metta_tpu.rl.config import TrainerConfig as JTrainerConfig
 from metta_tpu.rl.trainer import make_optimizer as jmake
 from metta_tpu_torch.rl.config import TrainerConfig
 from metta_tpu_torch.rl.optim import make_optimizer
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = {"a": (7, 5), "b": (11,), "c": (3, 2, 4)}
 

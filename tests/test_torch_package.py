@@ -3,7 +3,9 @@
 ``metta_tpu_torch`` imports ``torch``, numpy, pydantic and the standard
 library only: never ``jax``, ``flax``, ``optax``, ``safetensors`` (the port
 parses bundles itself) or anything of the JAX package ``metta_tpu``, not
-even its numpy-only modules. ``chip_smoke.py``
+even its numpy-only modules, nor the repository's top-level ``recipes``,
+``tools`` and ``scripts`` (the JAX package's entry points; the port has its
+own under ``metta_tpu_torch``). ``chip_smoke.py``
 drives the port on a GPU and must refuse to run (nonzero exit, no result
 line) where there is none.
 """
@@ -13,9 +15,11 @@ import json
 import pathlib
 import subprocess
 import sys
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "safetensors", "metta_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "safetensors", "metta_tpu", "recipes",
+             "tools", "scripts", "bench")
 
 
 def _forbidden(name: str) -> bool:
@@ -44,7 +48,9 @@ def test_port_imports_nothing_of_jax():
                  "ops.timing", "ops.ablate_obs", "ops.smoke_sim", "ops.ubench_pairmat",
                  "ops.ubench_mosaic", "scripts.ablate_obs3", "scripts.ablate_obs",
                  "scripts.smoke_sim_kernel", "scripts.ubench_pairmat", "scripts.ubench_mosaic",
-                 "scripts.ablate_fused"):
+                 "scripts.ablate_fused", "scripts.run_arena_100m", "utils.logging",
+                 "tools.tool", "tools.train", "tools.run", "recipes.arena_basic_easy_shaped",
+                 "recipes.navigation", "devops.stable"):
         assert f"metta_tpu_torch.{name}" in res["modules"], name
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, bad

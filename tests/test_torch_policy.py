@@ -36,6 +36,7 @@ from metta_tpu_torch.convert import (
 from metta_tpu_torch.engine.env import MettaGridEnv
 from metta_tpu_torch.models.vit import ViTConfig
 from metta_tpu_torch.rl import checkpoint as tck
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BUNDLE = Path(__file__).resolve().parents[1] / "devops_runs/stable_100m/checkpoints/stable_100m:v48"
 ATOL = 1e-5

@@ -25,6 +25,7 @@ from metta_tpu.engine.step_batched import step_env_batched as jstep
 from metta_tpu.engine.tables import Tables
 from metta_tpu_torch.convert import state_from_numpy, state_to_numpy, tables_from_compiled
 from metta_tpu_torch.ops.sim_fused import fused_step_full, supports_fused
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 20
 # name: (builder, map seed, envs, force track_gained)

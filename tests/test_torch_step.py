@@ -33,6 +33,7 @@ from metta_tpu.engine.step import step_env as jstep
 from metta_tpu.engine.tables import Tables
 from metta_tpu_torch.convert import state_from_numpy, state_to_numpy, tables_from_compiled
 from metta_tpu_torch.engine.step import step_env
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 E, STEPS = 3, 10
 

@@ -21,6 +21,7 @@ from metta_tpu.engine.env import MettaGridEnv
 from metta_tpu.engine.step_batched import step_env_batched as jstep
 from metta_tpu_torch.convert import state_from_numpy, state_to_numpy, tables_from_compiled
 from metta_tpu_torch.engine.step_batched import step_env_batched as pstep
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 E, A = 4, 24
 

@@ -44,6 +44,7 @@ from metta_tpu_torch.rl.config import TrainerConfig
 from metta_tpu_torch.rl.trainer import Trainer
 from recipes.arena_basic_easy_shaped import make_curriculum as jax_make_curriculum
 from recipes.arena_basic_easy_shaped import mettagrid as jax_shaped_arena
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 E, A, STEPS, MAX_STEPS = 5, 6, 24, 9
 LASER = "game.actions.attack.consumed_resources.laser"

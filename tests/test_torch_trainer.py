@@ -38,6 +38,7 @@ from metta_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from metta_tpu_torch.models.vit import ViTConfig
 from metta_tpu_torch.rl.config import LossesConfig, PPOCriticConfig, SamplingConfig, TrainerConfig
 from metta_tpu_torch.rl.trainer import Trainer
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = dict(latent_dim=16, actor_hidden=16, critic_hidden=16, max_tokens=16,
             core_num_latents=2, core_num_heads=2, core="lstm", compute_dtype="float32")

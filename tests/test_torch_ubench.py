@@ -49,6 +49,7 @@ from metta_tpu_torch.ops import ubench_mosaic as s1
 from metta_tpu_torch.ops import ubench_pairmat as s2
 from metta_tpu_torch.scripts import smoke_sim_kernel
 from test_torch_cuda import SMOKE_SIM_PATTERNS, smoke_sim_inputs, tdiv_edges
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 VMEM = pltpu.VMEM
