@@ -75,8 +75,8 @@ Phases (each one a hard failure):
    to its plain version;
 10. this slice's main path, the arena curriculum learner at ``arena_100m``'s
    shape: ``Trainer`` over the curriculum's 16 tasks (``MultiTaskEnv``,
-   E=170, ``track_env_stats=True``), the v48 ViT; one warm-up update, two
-   timed updates with a curriculum sync between them (per-task scores,
+   E=170, ``track_env_stats=True``), the v48 ViT; two timed updates with a
+   curriculum sync between them, the rate from the second (per-task scores,
    ``update_task_performance``, ``set_task`` on an evicted slot,
    ``set_weights``); K4 = 256, K3 = 137, K1 = K2 = 0 launches an update,
    agent-steps/s, the rollout/learn split, peak memory, each task's score,
@@ -103,6 +103,26 @@ Phases (each one a hard failure):
    ``evaluate_acceptance``'s values logged; the :v3 bundle through
    ``load_policy_bundle`` within 1e-5 of the live policy's logits on 48
    observations; the phase's seconds and ``overview/sps``;
+10d. the evaluation surface (``phase_eval``): the arena recipe's
+   ``evaluate()`` through ``EvaluateTool`` with ``device`` left to its
+   default, on the v48 bundle, both simulations at full width (4 episodes x
+   24 agents, the batched step with ``track_stats``), each cut to 200 steps:
+   each one's mean reward and heart.gained, K1 or K4 exactly once a rollout
+   step over the tool's run and K5 never, K2's count; ms and launches a
+   rollout step (from the difference of two rollouts), a profiled 40-step
+   rollout (where the device time goes, its busy share) and the projected
+   time of the full 10,000-step eval; the basic simulation (map seeded) at
+   E=4 and 50 steps on the card against the CPU, each rollout's
+   observations byte-identical at every step and rendered once a step by K1
+   or K4: ``RandomPolicy`` (the episodes byte-identical, ``ReplayTool``'s
+   replays equal JSON), the v48 weights in a greedy float32
+   ``NetworkPolicy`` (logits within 1e-5 every step, the smallest top-2
+   margin above that, the episodes byte-identical), and the bundle as
+   ``EvaluateTool`` loads it (bf16) on the card, the CPU's logits on the
+   card's observations within 5e-2 of each step's largest; the navigation recipe's ``TrainTool`` cut to E=4
+   and one update with ``evaluate_interval=1`` (one simulation cut to 20
+   steps), its ``eval`` line; the arena recipe's ``PlayTool`` with v48, 10
+   steps at E=1 rendered into a string buffer;
 11. K5 (``csrc/obs_render.cu``) against its plain torch version
    (``render_obs1_plain``) on every render of the sequential env with
    ``obs_renderer="pl"``: combat at E=1, 10 and 4096 and ``make_arena(30)``
@@ -1434,9 +1454,11 @@ def phase_curriculum(res):
     (``MultiTaskEnv``, E=170, 24 agents, ``track_env_stats=True``, the
     default ``TrainerConfig``: bptt 256, minibatch 16,384, GTD(λ),
     schedule-free AdamW), the v48 ViT (``"lstm"`` core, bf16) from its
-    weights; one warm-up update, then two timed updates with a curriculum
-    sync between them. K4 = 256 and K3 = 137 launches an update, K1 = K2 = 0;
-    agent-steps/s, the rollout/learn split, peak memory, each task's score;
+    weights; two timed updates with a curriculum sync between them (no
+    warm-up update: the first is logged, with the first call's set-up in
+    it; the rate and the rollout's ms a step are the second's). K4 = 256
+    and K3 = 137 launches an update, K1 = K2 = 0; agent-steps/s, the
+    rollout/learn split, peak memory, each task's score;
     finite metrics, moved parameters; the env step alone and its profile."""
     from metta_tpu_torch.engine.taskset import MultiTaskEnv
     from metta_tpu_torch.ops import discounted_sum as k3
@@ -1459,10 +1481,6 @@ def phase_curriculum(res):
         f"{tr.n_minibatches} minibatches of {tr.rows_per_mb} rows")
     ts = tr.init_state(params=sd)
     p0 = ts.params.clone()
-    t0 = time.perf_counter()
-    ts, _ = tr.update(ts)
-    torch.cuda.synchronize()
-    log(f"[curriculum] warm-up update {time.perf_counter() - t0:.2f} s")
 
     split = {"rollout": [], "learn": []}
     rollout, learn = tr._rollout, tr._learn_phase
@@ -1500,9 +1518,10 @@ def phase_curriculum(res):
         if launches[k] != want:
             raise AssertionError(f"{k.upper()} launched {launches[k]} times in two updates, "
                                  f"expected {want}")
-    sps = 2 * tr.B * tr.T / sum(walls)
-    log(f"[curriculum] two updates in {sum(walls):.2f} s ({[round(w, 3) for w in walls]}): "
-        f"{sps:.1f} agent-steps/s; rollout s {[round(r, 3) for r in split['rollout']]}, "
+    sps = tr.B * tr.T / walls[1]
+    log(f"[curriculum] two updates in {sum(walls):.2f} s ({[round(w, 3) for w in walls]}, "
+        f"the first with the first call's set-up): {sps:.1f} agent-steps/s (the second); "
+        f"rollout s {[round(r, 3) for r in split['rollout']]}, "
         f"learn s {[round(r, 3) for r in split['learn']]}; curriculum sync {sync_s:.3f} s; "
         f"peak memory {peak / 2**30:.2f} GiB; launches per update K4 {launches['k4'] / 2:.0f}, "
         f"K3 {launches['k3'] / 2:.0f}, K1 {launches['k1']}, K2 {launches['k2']}")
@@ -1520,7 +1539,7 @@ def phase_curriculum(res):
     moved = float((ts.params - p0).abs().max())
     if not moved > 0:
         raise AssertionError("parameters did not change")
-    log(f"[curriculum] parameters moved by up to {moved:.3e} over three updates")
+    log(f"[curriculum] parameters moved by up to {moved:.3e} over two updates")
     res["curriculum_sps"] = sps
 
     # where the time goes: the multi-task env step alone, and its profile
@@ -1534,7 +1553,7 @@ def phase_curriculum(res):
                                  device="cuda", dtype=torch.int32)
             vstate = env.step_state(vstate, acts)[0]
     env_ms = 1e3 * statistics.median(timed_windows(env_steps, 3, 20)) / 20
-    rollout_ms = 1e3 * statistics.median(split["rollout"]) / tr.T
+    rollout_ms = 1e3 * split["rollout"][1] / tr.T
     log(f"[curriculum] rollout {rollout_ms:.3f} ms a step, of which the env step alone "
         f"{env_ms:.3f} ms (median of 3 windows of 20 steps) and the policy step, "
         f"sampling and trajectory writes about {rollout_ms - env_ms:.3f} ms")
@@ -1866,6 +1885,420 @@ def phase_train_tool(res):
     log(f"[tool] phase 10c {time.perf_counter() - t0:.1f} s; overview/sps "
         f"{[round(v, 1) for v in out['sps']]} on {card_line()}")
     res["train_tool"] = out
+
+
+# ---------------------------------------------------------------------------
+# the evaluation surface: EvaluateTool, the rollout GPU against CPU, the
+# train tool's evaluator, PlayTool
+# ---------------------------------------------------------------------------
+
+EVAL_MAX_STEPS = 200      # the cut of each arena simulation (the config runs 10,000)
+EVAL_GPU_CPU_STEPS = 50   # the GPU-against-CPU rollout, E=4
+
+
+def kernel_counts():
+    from metta_tpu_torch.ops import obs_render as k5
+    from metta_tpu_torch.ops import obs_render2 as k4
+    from metta_tpu_torch.ops import obs_render3 as k1
+    from metta_tpu_torch.ops import sim_fused as k2
+
+    mods = {"K1": k1, "K2": k2, "K4": k4, "K5": k5}
+
+    def reset():
+        for m in mods.values():
+            m.launches = 0
+
+    def read():
+        return {k: m.launches for k, m in mods.items()}
+    return reset, read
+
+
+def log_messages(module_name):
+    """A context that keeps the INFO messages of ``module_name``'s logger."""
+    import contextlib
+    import logging
+
+    @contextlib.contextmanager
+    def keep():
+        messages = []
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                messages.append(record.getMessage())
+
+        handler, logger = Keep(), logging.getLogger(module_name)
+        level = logger.level
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+        try:
+            yield messages
+        finally:
+            logger.removeHandler(handler)
+            logger.setLevel(level)
+    return keep()
+
+
+def eval_log(text):
+    """An ``[eval]`` line with the card's name and power limit beside its
+    figures."""
+    log(f"[eval] {text} [{card_line()}]")
+
+
+def eval_arena_tool(bundle_uri):
+    """The arena recipe's ``evaluate()`` through ``EvaluateTool`` on the card
+    (``device`` left to its default), both simulations at full width, each
+    cut to ``EVAL_MAX_STEPS``; the kernels' launches over the tool's run."""
+    import tempfile
+    from pathlib import Path
+
+    from metta_tpu_torch.recipes import arena_basic_easy_shaped as arena
+    from metta_tpu_torch.tools import evaluate as evaluate_mod
+
+    tool = arena.evaluate(bundle_uri)
+    sims = tool._simulations
+    if tool.device is not None or [(s.suite, s.name, s.episodes, s.env.game.num_agents)
+                                   for s in sims] != [("arena", "basic", 4, AGENTS),
+                                                      ("arena", "combat", 4, AGENTS)]:
+        raise AssertionError(f"the recipe's evaluate() is not the arena pair: {sims}")
+    full = [s.env.game.max_steps for s in sims]
+    for s in sims:
+        s.max_steps = EVAL_MAX_STEPS
+    eval_log(f"the arena recipe's evaluate() on {bundle_uri.rsplit('/', 1)[-1]}: "
+        f"{[s.name for s in sims]}, {sims[0].episodes} episodes x {AGENTS} agents each, "
+        f"device {tool.device} (cuda); cut: SimulationConfig.max_steps {full} -> "
+        f"{EVAL_MAX_STEPS}")
+    reset, read = kernel_counts()
+    with tempfile.TemporaryDirectory() as tmp, log_messages(evaluate_mod.__name__) as msgs:
+        tool.output_json = str(Path(tmp) / "eval.json")
+        reset()
+        t0 = time.perf_counter()
+        rc = tool.invoke()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read()
+        payload = json.loads(Path(tool.output_json).read_text())
+    steps = EVAL_MAX_STEPS * len(sims)
+    if rc != 0 or [r["name"] for r in payload] != ["basic", "combat"] or \
+            not all(np.isfinite(r["mean_reward"]) for r in payload):
+        raise AssertionError(f"EvaluateTool returned {rc}, {payload}")
+    renders = counts["K1"] + counts["K4"]
+    if renders != steps or counts["K5"]:
+        raise AssertionError(f"launches over the eval {counts}: expected one K1 or K4 render a "
+                             f"step ({steps} steps) and no K5")
+    for r in payload:
+        eval_log(f"arena/{r['name']}: mean_reward {r['mean_reward']:.6f}, heart.gained "
+            f"{r['mean_stats'].get('heart.gained', 0.0):.6f} (agent mean over "
+            f"{sims[0].episodes} episodes of {EVAL_MAX_STEPS} steps)")
+    eval_log(f"the tool's run: {wall:.2f} s for {steps} rollout steps (bundle, envs and "
+        f"both rollouts); launches {counts} (K1 or K4 once a step: "
+        f"{'K1' if counts['K1'] else 'K4'}; K2 {'ran' if counts['K2'] else 'did not run'})")
+    eval_log(f"the tool's log: {msgs}")
+    return sims, payload, counts, wall
+
+
+def eval_step_cost(sim, bundle_uri):
+    """ms and launches a rollout step of one simulation at E=episodes, from
+    the difference of two rollouts (so the env's build and reset drop out),
+    and a profiled rollout of 40 steps."""
+    from metta_tpu_torch.engine.compiler import compile_config
+    from metta_tpu_torch.policy.policy import NetworkPolicy
+    from metta_tpu_torch.sim.rollout import multi_episode_rollout
+
+    pol = NetworkPolicy.from_bundle(bundle_uri, compile_config(sim.env), n_slots=1)
+
+    def run(n):
+        multi_episode_rollout(sim.env, [pol], episodes=sim.episodes, seed=0,
+                              max_steps_override=n, device="cuda")
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    run(10)                                                   # warm-up
+    short, long = timed(50), timed(150)
+    ms = 1e3 * (long - short) / 100
+    launches = (count_launches(lambda: run(40)) - count_launches(lambda: run(20))) / 20
+    profile_steps(run, ms, n=40, what="rollout step")       # a rollout of 40 steps
+    return ms, launches
+
+
+EVAL_GREEDY_TOL = 1e-5    # f32 logits, GPU vs CPU: tests/test_torch_policy.py's ATOL
+
+
+def same_episodes(got, want, what):
+    """Raise unless two rollouts' episodes are byte-identical: assignments,
+    rewards (dtype and bytes), steps and stats."""
+    got, want = got.episodes, want.episodes
+    diff = [e for e, (g, w) in enumerate(zip(got, want))
+            if not (np.array_equal(g.assignments, w.assignments) and g.rewards.dtype ==
+                    w.rewards.dtype and g.rewards.tobytes() == w.rewards.tobytes()
+                    and (g.steps, g.stats) == (w.steps, w.stats))]
+    if diff or len(got) != len(want):
+        raise AssertionError(f"{what}: episodes {diff} of {len(want)} differ between the card "
+                             f"and the CPU ({len(got)} on the card)")
+
+
+def same_observations(seen, steps, counts, what):
+    """Raise unless each device recorded ``steps`` steps' observations, the
+    card's byte-identical to the CPU's at every step, and the card rendered
+    each of those steps through K1 or K4 (``counts``, the card's run)."""
+    got, want = seen["cuda"], seen["cpu"]
+    diff = [t for t, (g, w) in enumerate(zip(got, want)) if not torch.equal(g.cpu(), w)]
+    if diff or len(got) != steps or len(want) != steps:
+        raise AssertionError(f"{what}: the observations differ between the card and the CPU "
+                             f"at steps {diff[:10]} ({len(got)} and {len(want)} steps recorded)")
+    if counts["K1"] + counts["K4"] != steps or counts["K5"]:
+        raise AssertionError(f"{what}: launches on the card {counts}, expected one K1 or K4 "
+                             f"render a step ({steps} steps) and no K5")
+
+
+def eval_gpu_vs_cpu(sim, bundle_uri, tmp):
+    """The eval's rollout on the card against the CPU, on ``sim`` (the map
+    seeded) at E=``sim.episodes``, cut to ``EVAL_GPU_CPU_STEPS``, at the
+    eval's own shapes. Each rollout records the observations its policy is
+    given; the card's must be byte-identical to the CPU's at every step,
+    rendered once a step by K1 or K4.
+
+    1. ``RandomPolicy``: the episodes byte-identical, and ``ReplayTool``'s
+       replays equal JSON.
+    2. The v48 weights in a greedy float32 ``NetworkPolicy`` (its slots'
+       state, ``step_batch`` and the rollout's masking) on each device: the
+       logits within ``EVAL_GREEDY_TOL`` every step, the smallest top-2
+       margin above it, and the episodes byte-identical.
+    3. ``NetworkPolicy.from_bundle`` as ``EvaluateTool`` loads it (bfloat16,
+       sampling) on the card; the CPU's bfloat16 policy on the card's
+       observations, state carried, within 5e-2 of each step's largest
+       magnitude (phase 8's bf16 tolerance) of the card's logits."""
+    import dataclasses
+    import zlib
+    from pathlib import Path
+
+    from metta_tpu_torch.engine.compiler import compile_config
+    from metta_tpu_torch.policy.policy import NetworkPolicy, RandomPolicy
+    from metta_tpu_torch.rl.checkpoint import load_policy_bundle
+    from metta_tpu_torch.sim.rollout import multi_episode_rollout
+    from metta_tpu_torch.sim.runner import SimulationConfig, run_simulations
+    from metta_tpu_torch.tools.play import ReplayTool
+
+    cfg = sim.env.model_copy(deep=True)
+    cfg.game.map_builder.seed = SEED
+    steps, E = EVAL_GPU_CPU_STEPS, sim.episodes
+    cut = SimulationConfig(suite=sim.suite, name=sim.name, env=cfg, episodes=E, max_steps=steps)
+    compiled = compile_config(cfg)
+    reset, read = kernel_counts()
+
+    def record(cls, seen):
+        class Recording(cls):
+            def step_batch(self, obs):
+                seen[obs.device.type].append(obs.clone())
+                return super().step_batch(obs)
+
+            def logits(self, obs):
+                out = super().logits(obs)
+                seen["logits"].append(out.float().cpu())
+                return out
+        return Recording
+
+    def on_each_device(run):
+        """{device: run(device, seen)}, the observations (and logits) each
+        run's policy was given, and the kernels' launches of the card's."""
+        seen = {"cpu": [], "cuda": []}
+        out, logits = {}, {}
+        for d in ("cpu", "cuda"):
+            seen["logits"] = []
+            reset()
+            out[d] = run(d, seen)
+            torch.cuda.synchronize()
+            logits[d] = seen.pop("logits")
+        return out, seen, logits, read()
+
+    # 1. RandomPolicy
+    runs, seen, _, counts = on_each_device(lambda d, seen: run_simulations(
+        [record(RandomPolicy, seen)(compiled.n_actions, seed=0)], [cut], seed=3, device=d)[0])
+    what = f"RandomPolicy on arena/{sim.name} E={E}"
+    same_observations(seen, steps, counts, what)
+    same_episodes(runs["cuda"].rollout, runs["cpu"].rollout, what)
+    if runs["cuda"].mean_stats != runs["cpu"].mean_stats:
+        raise AssertionError(f"{what}: mean_stats differ between the card and the CPU")
+    replay_cfg = cfg.model_copy(deep=True)
+    replay_cfg.game.max_steps = steps
+    replays = {}
+    for d in ("cpu", "cuda"):
+        out = Path(tmp) / f"replays_{d}"
+        rc = ReplayTool(env=replay_cfg, episodes=E, seed=3, replay_dir=str(out),
+                        device=d).invoke()
+        paths = sorted(out.glob("*.json.z"))
+        if rc != 0 or len(paths) != 1:
+            raise AssertionError(f"ReplayTool on {d}: rc {rc}, {paths}")
+        replays[d] = json.loads(zlib.decompress(paths[0].read_bytes()))
+    if replays["cuda"] != replays["cpu"]:
+        raise AssertionError("ReplayTool's replays differ between the card and the CPU")
+    got = runs["cuda"].rollout.episodes
+    eval_log(f"GPU vs CPU, {what} (map seeded), {steps} steps: observations byte-identical "
+        f"every step ({tuple(seen['cpu'][0].shape)} uint8), the card's renders {counts}; "
+        f"episodes byte-identical (rewards {got[0].rewards.dtype}, steps "
+        f"{[e.steps for e in got]}, mean_reward {runs['cuda'].mean_reward:.6f}); "
+        f"ReplayTool's replays equal JSON ({len(replays['cuda']['objects'])} objects, "
+        f"{replays['cuda']['max_steps']} steps)")
+
+    # 2. the v48 weights, greedy, float32
+    sd, pcfg, _ = load_policy_bundle(bundle_uri)
+
+    def greedy(d, seen):
+        net = dataclasses.replace(pcfg, compute_dtype="float32").make(
+            compiled.n_actions, compiled.feature_normalizations)
+        net.load_state_dict(sd)
+        pol = record(NetworkPolicy, seen)(net, 1, sample=False, device=d)
+        return multi_episode_rollout(cfg, [pol], episodes=E, seed=3, max_steps_override=steps,
+                                     device=d)
+    runs, seen, logits, counts = on_each_device(greedy)
+    what = f"greedy float32 v48 NetworkPolicy on arena/{sim.name} E={E}"
+    want = torch.stack(logits["cpu"])
+    err = float((torch.stack(logits["cuda"]) - want).abs().max()) \
+        if len(logits["cuda"]) == len(logits["cpu"]) == steps else float("inf")
+    top2 = want.topk(2, dim=-1).values
+    margin = float((top2[..., 0] - top2[..., 1]).min())
+    if not (err <= EVAL_GREEDY_TOL < margin) or not torch.isfinite(want).all():
+        raise AssertionError(f"{what}: logits GPU vs CPU max abs diff {err:.3e}, smallest top-2 "
+                             f"margin {margin:.3e} (tolerance {EVAL_GREEDY_TOL})")
+    same_observations(seen, steps, counts, what)
+    same_episodes(runs["cuda"], runs["cpu"], what)
+    eval_log(f"GPU vs CPU, {what} ({E * AGENTS} slots), {steps} steps through "
+        f"multi_episode_rollout: logits max abs diff {err:.3e} (tolerance {EVAL_GREEDY_TOL}, "
+        f"TF32 off), smallest top-2 margin {margin:.3e}, largest |logit| "
+        f"{float(want.abs().max()):.3e}; observations byte-identical every step, the card's "
+        f"renders {counts}; episodes byte-identical (rewards "
+        f"{[float(e.rewards.sum()) for e in runs['cuda'].episodes]})")
+    errs = {"float32": err, "float32_margin": margin}
+
+    # 3. the bundle as EvaluateTool loads it (bfloat16, sampling), on the card
+    seen = {"cpu": [], "cuda": [], "logits": []}
+    pol = record(NetworkPolicy, seen).from_bundle(bundle_uri, compiled, n_slots=1)
+    reset()
+    multi_episode_rollout(cfg, [pol], episodes=E, seed=3, max_steps_override=steps)
+    torch.cuda.synchronize()
+    counts = read()
+    ref = NetworkPolicy.from_bundle(bundle_uri, compiled, n_slots=E * AGENTS, device="cpu")
+    if pcfg.compute_dtype != "bfloat16" or len(seen["cuda"]) != steps or \
+            counts["K1"] + counts["K4"] != steps or counts["K5"]:
+        raise AssertionError(f"the bundle's policy on the card: dtype {pcfg.compute_dtype}, "
+                             f"{len(seen['cuda'])} steps, launches {counts}")
+    rel = 0.0
+    for obs, got in zip(seen["cuda"], seen["logits"]):
+        want = ref.logits(obs.cpu()).float()
+        rel = max(rel, float((got - want).abs().max() / want.abs().max()))
+        if not torch.isfinite(got).all() or not rel <= 5e-2:
+            raise AssertionError(f"the bundle's bf16 logits on the card differ from the CPU's "
+                                 f"on the card's observations: {rel} (tolerance 5e-2)")
+    eval_log(f"the bundle as EvaluateTool loads it (bf16, sampling) through "
+        f"multi_episode_rollout on the card, {steps} steps: the CPU's bf16 policy on the "
+        f"card's observations, state carried, within {rel:.3e} of each step's largest "
+        f"|logit| (tolerance 5e-2); the card's renders {counts}")
+    errs["bfloat16"] = rel
+    return errs
+
+
+def eval_train_tool():
+    """The navigation recipe's ``TrainTool`` cut to E=4 and one update, with
+    ``evaluate_interval=1`` and one simulation cut to 20 steps: the
+    evaluator saves a bundle and logs its ``eval`` line."""
+    import tempfile
+
+    from metta_tpu_torch.builder.envs import make_navigation
+    from metta_tpu_torch.recipes import navigation
+    from metta_tpu_torch.sim.runner import SimulationConfig
+    from metta_tpu_torch.tools import train as train_mod
+
+    tool = navigation.train()
+    tool.trainer.num_envs = 4
+    tool.total_timesteps = 4 * 4 * tool.trainer.bptt_horizon          # one update
+    tool.evaluate_interval, tool.checkpoint_interval = 1, 0
+    sim = SimulationConfig(suite="navigation", name="nav16",
+                           env=make_navigation(num_agents=4, width=16, height=16),
+                           episodes=4, max_steps=20)
+    tool.with_simulations([sim])
+    reset, read = kernel_counts()
+    with tempfile.TemporaryDirectory() as tmp, log_messages(train_mod.__name__) as msgs:
+        object.__setattr__(tool, "data_dir", tmp)
+        reset()
+        t0 = time.perf_counter()
+        rc = tool.invoke()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read()
+    evals = [m for m in msgs if m.startswith("eval ")]
+    if rc != 0 or len(evals) != 1 or not evals[0].startswith("eval navigation/nav16: "
+                                                             "mean_reward "):
+        raise AssertionError(f"the train tool's evaluator: rc {rc}, {evals}")
+    eval_log(f"the navigation recipe's TrainTool (E=4, core {tool.policy.core}, one "
+        f"update of {tool.total_timesteps} agent-steps, evaluate_interval 1): {evals[0]}; "
+        f"{wall:.2f} s; launches over the tool's run {counts}")
+    return evals[0], counts
+
+
+def eval_play_tool(bundle_uri):
+    """The arena recipe's ``play()`` with the v48 bundle, 10 steps at E=1 on
+    the card (the sequential step), rendered into a string buffer."""
+    import contextlib
+    import io
+
+    from metta_tpu_torch.recipes import arena_basic_easy_shaped as arena
+
+    tool = arena.play()
+    tool.env.game.map_builder.seed = SEED
+    tool.policy_uri, tool.steps, tool.fps = bundle_uri, 10, 1e6
+    reset, read = kernel_counts()
+    buf = io.StringIO()
+    reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.invoke()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, text = read(), buf.getvalue()
+    frames = text.split("\x1b[2J\x1b[H")[1:]
+    if rc != 0 or len(frames) != 10 or "step 10" not in frames[-1] or \
+            "agent 0" not in frames[-1]:
+        raise AssertionError(f"PlayTool: rc {rc}, {len(frames)} frames")
+    eval_log(f"the arena recipe's PlayTool with v48, E=1, 10 steps into a string buffer: "
+        f"{len(frames)} frames of {len(frames[-1].splitlines())} lines, {wall:.2f} s "
+        f"(the env's build included); launches {counts} (the sequential step renders 'mm')")
+    return wall, counts
+
+
+def phase_eval(res):
+    """Phase 10d: the evaluation surface on the card. The arena recipe's
+    ``evaluate()`` through ``EvaluateTool`` on the v48 bundle (both
+    simulations, 4 episodes x 24 agents, cut to ``EVAL_MAX_STEPS``): each
+    simulation's mean reward and heart.gained, K1 or K4 once a step over
+    the tool's run, ms and launches a rollout step, a profiled rollout and
+    the projected time of a full 10,000-step eval; the rollout GPU against
+    CPU at the eval's shapes (``eval_gpu_vs_cpu``); the navigation recipe's ``TrainTool``
+    with its evaluator; ``PlayTool`` 10 steps at E=1."""
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    bundle_uri = f"file://{Path(__file__).resolve().parent / BUNDLE}"
+    sims, payload, counts, wall = eval_arena_tool(bundle_uri)
+    ms, launches = eval_step_cost(sims[0], bundle_uri)
+    full = sims[0].env.game.max_steps
+    eval_log(f"a rollout step of arena/{sims[0].name} (E={sims[0].episodes}, A={AGENTS}, "
+        f"the v48 policy on {sims[0].episodes * AGENTS} slots): {ms:.3f} ms, "
+        f"{launches:.1f} launches (from rollouts of 150 less 50 steps, 40 less 20); "
+        f"{1e3 * sims[0].episodes / ms:.1f} env-steps/s; a full eval of {len(sims)} x "
+        f"{full} steps projected at {len(sims) * full * ms / 1e3:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        errs = eval_gpu_vs_cpu(sims[0], bundle_uri, tmp)
+    train_eval, train_counts = eval_train_tool()
+    play_wall, play_counts = eval_play_tool(bundle_uri)
+    eval_log(f"phase 10d {time.perf_counter() - t0:.1f} s")
+    res["eval"] = dict(payload=payload, launches=counts, tool_wall=wall, ms_per_step=ms,
+                       launches_per_step=launches, logits_err=errs, train_eval=train_eval,
+                       train_launches=train_counts, play_wall=play_wall,
+                       play_launches=play_counts)
 
 
 # ---------------------------------------------------------------------------
@@ -3261,7 +3694,7 @@ def main() -> int:
     for phase in (phase_build, phase_k1_vs_plain, phase_k2_vs_plain, phase_k4_vs_plain,
                   phase_gpu_vs_cpu, phase_throughput, phase_k3_vs_plain, phase_policy,
                   phase_train, phase_curriculum, phase_cortex_learner, phase_train_tool,
-                  phase_k5_vs_plain,
+                  phase_eval, phase_k5_vs_plain,
                   phase_sequential,
                   phase_analysis, phase_k2_chests, phase_cvc_clipped, phase_cvc_sequential):
         t0 = time.time()

@@ -420,6 +420,13 @@ def _parse_stat_key(key: str, name_to_id: dict[str, int],
 # ---------------------------------------------------------------------------
 
 
+def compile_config(cfg) -> CompiledConfig:
+    """The compiled config of a ``MettaGridConfig``'s game on its built map,
+    on the host: what a policy needs of an env (its action count and feature
+    normalizations) without the env's device tables and state."""
+    return compile_game(cfg.game, cfg.game.map_builder.create().build())[0]
+
+
 def compile_game(game: GameConfig, game_map: GameMap) -> tuple[CompiledConfig, dict[str, Any]]:
     """Compile a GameConfig + built map into dense tables + raw init arrays.
 

@@ -2,12 +2,10 @@
 
 Counterpart of ``recipes/arena_basic_easy_shaped.py`` (reference
 ``recipes/prod/arena_basic_easy_shaped.py``): the stable CI-validated arena
-training recipe, the shaped inventory rewards and the reward-weight
-curriculum buckets. The env and the curriculum are the port's builders
+training and eval recipe, the shaped inventory rewards, the reward-weight
+curriculum buckets and the basic/combat eval pair. The env and the
+curriculum are the port's builders
 (``builder/envs.py:make_arena_basic_easy_shaped``, ``make_curriculum``).
-``with_simulations`` and the eval, play and replay tools are not here: the
-evaluator and the sequential product surface are not ported, and
-``evaluate_interval`` is 0, so the simulations are never read.
 """
 
 from __future__ import annotations
@@ -16,6 +14,9 @@ from typing import Optional
 
 from metta_tpu_torch.builder import envs
 from metta_tpu_torch.config.mettagrid_config import MettaGridConfig
+from metta_tpu_torch.sim.runner import SimulationConfig
+from metta_tpu_torch.tools.evaluate import EvaluateTool
+from metta_tpu_torch.tools.play import PlayTool, ReplayTool
 from metta_tpu_torch.tools.train import TrainTool
 
 
@@ -27,9 +28,35 @@ def make_curriculum(arena_env: Optional[MettaGridConfig] = None):
     return envs.make_curriculum(arena_env or mettagrid())
 
 
+def simulations(env: Optional[MettaGridConfig] = None) -> list[SimulationConfig]:
+    basic_env = env or mettagrid()
+    basic_env.game.actions.attack.consumed_resources["laser"] = 100
+    combat_env = basic_env.model_copy(deep=True)
+    combat_env.game.actions.attack.consumed_resources["laser"] = 1
+    return [
+        SimulationConfig(suite="arena", name="basic", env=basic_env, episodes=4),
+        SimulationConfig(suite="arena", name="combat", env=combat_env, episodes=4),
+    ]
+
+
 def train() -> TrainTool:
-    return TrainTool(run="arena").with_curriculum(make_curriculum())
+    tool = TrainTool(run="arena")
+    tool.with_curriculum(make_curriculum())
+    tool.with_simulations(simulations())
+    return tool
 
 
 def train_single_task() -> TrainTool:
     return TrainTool(run="arena_single", env=mettagrid())
+
+
+def evaluate(policy_uri: str = "") -> EvaluateTool:
+    return EvaluateTool(policy_uri=policy_uri).with_simulations(simulations())
+
+
+def play() -> PlayTool:
+    return PlayTool(env=mettagrid())
+
+
+def replay() -> ReplayTool:
+    return ReplayTool(env=mettagrid())

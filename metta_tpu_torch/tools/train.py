@@ -7,11 +7,12 @@ reference's component callbacks (Checkpointer every 30 epochs, ProgressLogger
 SPS lines, Heartbeat) are in-lined into the update loop; one update = one
 train batch (rollout + PPO).
 
-Three behaviours follow the port's own choices:
+The evaluator (``evaluate_interval`` > 0, with ``with_simulations``) saves
+a bundle and runs the simulations on it through ``sim/runner.py`` on the
+tool's device, seeded with the update's index, as the JAX tool does.
 
-- the evaluator (``evaluate_interval`` > 0) needs ``sim/runner.py`` and
-  ``policy/policy.py``, which are not ported: the tool refuses it before the
-  first update;
+Two behaviours follow the port's own choices:
+
 - the curriculum's own rules. The tool spawns no task: the curriculum never
   evicts by itself, and the tool only follows its pool. A replaced slot is
   compiled with the set's own ``track_stats`` (``MultiTaskEnv.set_task``),
@@ -46,10 +47,13 @@ from pydantic import Field
 
 from metta_tpu_torch.config.base import Config
 from metta_tpu_torch.config.mettagrid_config import MettaGridConfig
+from metta_tpu_torch.engine.compiler import compile_config
 from metta_tpu_torch.models.vit import ViTConfig
+from metta_tpu_torch.policy.policy import NetworkPolicy
 from metta_tpu_torch.rl.checkpoint import CheckpointManager
 from metta_tpu_torch.rl.config import TrainerConfig
 from metta_tpu_torch.rl.trainer import Trainer
+from metta_tpu_torch.sim.runner import run_simulations
 from metta_tpu_torch.tools.tool import Tool
 from metta_tpu_torch.utils.logging import MetricsLogger
 
@@ -106,7 +110,7 @@ class TrainTool(Tool):
     policy: PolicyConfig = Field(default_factory=PolicyConfig)
     total_timesteps: Optional[int] = None
     checkpoint_interval: int = 30      # updates between policy bundles
-    evaluate_interval: int = 0         # updates between local evals (0=off; >0 not ported)
+    evaluate_interval: int = 0         # updates between local evals (0=off)
     curriculum_interval: int = 50      # updates between curriculum task swaps
     eval_episodes: int = 4
     log_interval: int = 1
@@ -119,16 +123,17 @@ class TrainTool(Tool):
 
     # populated programmatically by recipes (not via CLI)
     _curriculum: Any = None
+    _simulations: Any = None
 
     def with_curriculum(self, curriculum) -> "TrainTool":
         object.__setattr__(self, "_curriculum", curriculum)
         return self
 
+    def with_simulations(self, sims) -> "TrainTool":
+        object.__setattr__(self, "_simulations", sims)
+        return self
+
     def invoke(self) -> int:
-        if self.evaluate_interval:
-            raise NotImplementedError(
-                "evaluate_interval > 0 needs the evaluator, which is not ported: "
-                "metta_tpu/sim/runner.py and metta_tpu/policy/policy.py")
         device = self._apply_device()
         cm = CheckpointManager(self.run, self.data_dir)
         total = self.total_timesteps or self.trainer.total_timesteps
@@ -291,6 +296,16 @@ class TrainTool(Tool):
                         ts = dataclasses.replace(fresh, params=ts.params,
                                                  opt_state=ts.opt_state, r_bar=ts.r_bar,
                                                  update_idx=ts.update_idx)
+
+            if self.evaluate_interval and update_idx % self.evaluate_interval == 0 \
+                    and self._simulations:
+                uri = cm.save_policy(trainer.state_dict(ts.params), arch, epoch=update_idx)
+                pol = NetworkPolicy.from_bundle(uri, compile_config(self._simulations[0].env),
+                                                n_slots=1, device=device)
+                results = run_simulations([pol], self._simulations, seed=update_idx,
+                                          device=device)
+                for r in results:
+                    logger.info("eval %s: mean_reward %.4f", r.key, r.mean_reward)
 
         cm.save_policy(trainer.state_dict(ts.params), arch, epoch=update_idx)
         cm.save_trainer_state(ts, update_idx, extras={"agent_steps": agent_steps},

@@ -1,1 +1,1 @@
-"""Utilities of the port: metrics logging."""
+"""Utilities of the port: metrics logging, host-device copies."""

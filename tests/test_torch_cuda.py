@@ -33,7 +33,10 @@ against the CPU; a tiny trainer update through all three kernels; and the
 ``"Ag,A,S"`` cortex policy at full width on the GPU against the CPU; the
 trainer state's checkpoint on the card (every leaf and both CUDA generators
 restored bit for bit, and the update after a restore against the
-uninterrupted one). This file imports no JAX, so it runs on a machine with a card and torch
+uninterrupted one); the evaluation rollout on the card against the CPU
+(``RandomPolicy`` and ``NoopPolicy`` byte-identical with equal replays, a
+greedy ``NetworkPolicy``'s logits within 1e-4) and ``EvaluateTool`` with
+its default device. This file imports no JAX, so it runs on a machine with a card and torch
 alone:
 
     python3 -m pytest -m cuda --noconftest tests/test_torch_cuda.py
@@ -1633,3 +1636,115 @@ def test_trainer_state_resumes_on_card(core, tmp_path):
     print(f"[{core}] resumed update's parameters vs the uninterrupted: max abs diff {diff:.3e}"
           f" ({'bit-equal' if diff == 0 else 'not bit-equal'})")
     assert diff <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the evaluation surface on the card
+# ---------------------------------------------------------------------------
+
+EVAL_TINY = dict(latent_dim=16, actor_hidden=16, critic_hidden=16, max_tokens=16,
+                 core_num_latents=2, core_num_heads=2, core="lstm", compute_dtype="float32")
+
+
+def _eval_cfg(agents=3, max_steps=10):
+    cfg = make_navigation(num_agents=agents, width=8, height=8)
+    cfg.game.map_builder.seed = 3
+    cfg.game.max_steps = max_steps
+    return cfg
+
+
+def _eval_bundle(path, compiled, dominant=None):
+    """A tiny float32 lstm ViT bundle: every leaf moved by a seeded N(0, 0.5),
+    or, with ``dominant``, that action's actor bias raised by 1,000."""
+    from metta_tpu_torch.models.vit import ViTConfig
+    from metta_tpu_torch.rl.checkpoint import save_policy_bundle
+
+    arch = ViTConfig(**EVAL_TINY)
+    pol = arch.make(compiled.n_actions, compiled.feature_normalizations,
+                    generator=torch.Generator().manual_seed(7))
+    sd = pol.state_dict()
+    gen = torch.Generator().manual_seed(8)
+    for k, v in sd.items():
+        if dominant is None:
+            v.add_(0.5 * torch.randn(v.shape, generator=gen))
+    if dominant is not None:
+        sd["actor_head.bias"][compiled.action_names.index(dominant)] += 1000.0
+    save_policy_bundle(path, sd, arch, extra={"epoch": 1})
+    return f"file://{path}"
+
+
+def _same_episodes(got, want):
+    assert len(got.episodes) == len(want.episodes)
+    for g, w in zip(got.episodes, want.episodes):
+        assert np.array_equal(g.assignments, w.assignments)
+        assert g.rewards.dtype == w.rewards.dtype and g.rewards.tobytes() == w.rewards.tobytes()
+        assert (g.steps, g.max_steps, g.stats) == (w.steps, w.max_steps, w.stats)
+
+
+def test_eval_rollout_on_card_matches_cpu(tmp_path):
+    """``multi_episode_rollout`` on the card against the CPU, the rollout's
+    own draws (a CPU generator seeded with its seed): ``RandomPolicy`` and
+    ``NoopPolicy``, episodes byte-identical and the replays equal JSON; then
+    a greedy ``NetworkPolicy`` on each device, its logits within 1e-4 every
+    step, the smallest top-2 margin above that, and the episodes equal."""
+    import json
+    import zlib
+
+    from metta_tpu_torch.policy.policy import NetworkPolicy, NoopPolicy, RandomPolicy
+    from metta_tpu_torch.sim.rollout import multi_episode_rollout
+
+    dev = _cuda()
+    cfg = _eval_cfg()
+    runs = {}
+    for d in ("cpu", dev):
+        runs[d] = multi_episode_rollout(
+            cfg, [RandomPolicy(5, seed=1), NoopPolicy()], episodes=3, seed=5, device=d,
+            save_replay=str(tmp_path / d))
+    _same_episodes(runs[dev], runs["cpu"])
+    replays = [json.loads(zlib.decompress(open(runs[d].episodes[0].replay_path, "rb").read()))
+               for d in ("cpu", dev)]
+    assert replays[0] == replays[1] and replays[0]["max_steps"] == 10
+
+    class Recording(NetworkPolicy):
+        def logits(self, obs):
+            out = super().logits(obs)
+            self.seen.append(out.float().cpu())
+            return out
+
+    compiled = MettaGridEnv(cfg, device="cpu").compiled
+    uri = _eval_bundle(tmp_path / "tiny:v1", compiled)
+    pols, outs = {}, {}
+    for d in ("cpu", dev):
+        pols[d] = Recording.from_bundle(uri, compiled, n_slots=1, sample=False, device=d)
+        pols[d].seen = []
+        outs[d] = multi_episode_rollout(cfg, [pols[d]], episodes=3, seed=5, device=d)
+    _same_episodes(outs[dev], outs["cpu"])
+    err = max(float((a - b).abs().max()) for a, b in zip(pols[dev].seen, pols["cpu"].seen))
+    top2 = torch.stack(pols["cpu"].seen).topk(2, dim=-1).values
+    margin = float((top2[..., 0] - top2[..., 1]).min())
+    print(f"greedy NetworkPolicy on the card vs the CPU: logits max abs diff {err:.3e}, "
+          f"smallest top-2 margin {margin:.3e} (tolerance 1e-4)")
+    assert err <= 1e-4 < margin
+
+
+def test_evaluate_tool_runs_on_the_card_by_default(tmp_path):
+    """``EvaluateTool`` with ``device`` left to its default runs on the card;
+    on a bundle whose ``move_south`` leads by 1,000 its output equals the
+    tool's on the CPU."""
+    import json
+
+    from metta_tpu_torch.sim.runner import SimulationConfig
+    from metta_tpu_torch.tools.evaluate import EvaluateTool
+
+    _cuda()
+    cfg = _eval_cfg(agents=2, max_steps=8)
+    compiled = MettaGridEnv(cfg, device="cpu").compiled
+    uri = _eval_bundle(tmp_path / "dominated:v1", compiled, dominant="move_south")
+    sims = [SimulationConfig(suite="nav", name=n, env=cfg, episodes=2) for n in ("a", "b")]
+    outs = {}
+    for device in (None, "cpu"):
+        out = tmp_path / f"{device}.json"
+        tool = EvaluateTool(policy_uri=uri, output_json=str(out), device=device)
+        assert tool.device == device and tool.with_simulations(sims).invoke() == 0
+        outs[device] = json.loads(out.read_text())
+    assert outs[None] == outs["cpu"] and [r["name"] for r in outs[None]] == ["a", "b"]

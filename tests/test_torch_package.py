@@ -50,7 +50,9 @@ def test_port_imports_nothing_of_jax():
                  "scripts.smoke_sim_kernel", "scripts.ubench_pairmat", "scripts.ubench_mosaic",
                  "scripts.ablate_fused", "scripts.run_arena_100m", "utils.logging",
                  "tools.tool", "tools.train", "tools.run", "recipes.arena_basic_easy_shaped",
-                 "recipes.navigation", "devops.stable"):
+                 "recipes.navigation", "devops.stable", "policy.policy", "sim.grid_objects",
+                 "sim.replay_writer", "sim.rollout", "sim.runner", "tools.evaluate",
+                 "tools.play", "renderer.miniscope", "envs.pettingzoo_env"):
         assert f"metta_tpu_torch.{name}" in res["modules"], name
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, bad

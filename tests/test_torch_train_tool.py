@@ -622,9 +622,10 @@ def test_cli_runs_the_navigation_recipe(tmp_path):
 
 
 def test_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="sim/runner.py.*policy/policy.py"):
-        tiny_tool(tmp_path, "eval", evaluate_interval=1).invoke()
-    assert not (tmp_path / "eval").exists()                  # refused before anything ran
+    from metta_tpu_torch.tools.play import PlayTool
+
+    with pytest.raises(NotImplementedError, match="renderer/live_server.py"):
+        PlayTool(serve=True, device="cpu").invoke()
     if not torch.cuda.is_available():
         tool = tiny_tool(tmp_path, "nocard")
         tool.device = None
