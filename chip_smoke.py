@@ -65,7 +65,7 @@ Phases (each one a hard failure):
 9. the single-task learner: ``Trainer`` on the shaped arena, 170 envs, 24
    agents, the default ``TrainerConfig`` (bptt 256, minibatch 16,384,
    GTD(λ), schedule-free AdamW), the v48 ViT with its ``"lstm"`` core; one
-   warm-up ``update``, one update through ``train`` with K4/K2/K3's launch
+   update through ``train`` (no warm-up update before it) with K4/K2/K3's launch
    counts (E=170 fails ``pick_eps``, so K4 renders, as in the JAX env),
    agent-steps/s, the rollout/learn split and peak memory; finite metrics,
    moved parameters, ``hardware_sanity``; the env step alone and a profiled
@@ -86,21 +86,21 @@ Phases (each one a hard failure):
    default ``TrainerConfig``) with the default ``ViTConfig`` in bf16 from
    the trainer's seed, cut to E=20 (480 rows: 8 minibatches of [256, 60],
    phase 10's minibatch; E=20 is no multiple of 8, so K4 renders); one
-   warm-up update and one timed update: K4 = 256, K3 = 17, K1 = K2 = 0
+   timed update (no warm-up update before it): K4 = 256, K3 = 17, K1 = K2 = 0
    launches, rollout and learn seconds, seconds a minibatch, peak memory,
    agent-steps/s; finite metrics, moved parameters, ``hardware_sanity``; a
    profiled minibatch's CUDA launches;
 10c. the training entry point: ``STABLE_JOBS["arena_100m"].make_tool()``,
    its fields checked against the job's (run, ``curriculum_interval`` 5,
    E=170, ``track_env_stats``, the ``"Ag,A,S"`` core at full width), cut to
-   E=10 (``E_TOOL``), 2 updates, checkpoints and curriculum syncs every
-   update and a temporary ``data_dir``: ``invoke()`` returns 0, two finite
-   ``metrics.jsonl`` records with the gate metrics and ``losses/*``, bundles
-   :v1 and :v2, K4 = T and K3 = 1 + 2 x minibatches launches an update and
-   K1 = K2 = 0 over the tool's run; then a second tool resumes it (``resumed
-   from update 2``, every restored leaf and both CUDA generators' states
-   bit for bit the saved ones), runs exactly one update and writes :v3;
-   ``evaluate_acceptance``'s values logged; the :v3 bundle through
+   E=10 (``E_TOOL``), 1 update, checkpoints and curriculum
+   syncs every update and a temporary ``data_dir``: ``invoke()`` returns 0,
+   a finite ``metrics.jsonl`` record with the gate metrics and
+   ``losses/*``, bundle :v1, K4 = T and K3 = 1 + 2 x minibatches launches
+   an update and K1 = K2 = 0 over the tool's run; then a second tool
+   resumes it (``resumed from update 1``, every restored leaf and both CUDA
+   generators' states bit for bit the saved ones), runs exactly one update
+   and writes :v2; ``evaluate_acceptance``'s values logged; the :v2 bundle through
    ``load_policy_bundle`` within 1e-5 of the live policy's logits on 48
    observations; the phase's seconds and ``overview/sps``;
 10d. the evaluation surface (``phase_eval``): the arena recipe's
@@ -123,6 +123,26 @@ Phases (each one a hard failure):
    and one update with ``evaluate_interval=1`` (one simulation cut to 20
    steps), its ``eval`` line; the arena recipe's ``PlayTool`` with v48, 10
    steps at E=1 rendered into a string buffer;
+10e. Cogs vs Clips on the card (``phase_cvc_train``): the CvC task sets of
+   the CPU tests (``scripts/common.py:cvc_task_set``: regen with
+   ``track_stats`` on and off, chests with the agents below the chests,
+   the clipper with start-clipped stations) on the GPU against the CPU, 64
+   steps at E=8 with auto-reset and every draw from numpy, byte-identical,
+   one render a step (regen ticks, chest uses and clips required); K4 on
+   the chests stack (each env on its own task's tables) against its plain
+   version, its time and bound; ``cogs_v_clips.train()`` through its
+   ``TrainTool`` on the card, cut to E=16 and 2 updates with a curriculum
+   sync every update: the recipe's pool takes the fallback of whole-batch
+   swaps (its ``max_steps`` bucket makes two shape classes), a curriculum
+   over the heart bucket alone the task set, as in the JAX tool; each run's
+   route, agent-steps/s of its second update, K1-K4 launches (K3 and a
+   render or K2 required), its kernels against their plain versions on the
+   trainer's own env and rollout (``learner_kernels_vs_plain``: K1 and K2
+   on the fallback's learner, K1 on the task set, K3 on the rollout's
+   values), and its env step's ms, launches and busy share; ``cogames play``'s path
+   on ``machina_1.open_world`` (4 cogs, the scripted baseline, the
+   sequential step) on the card against the CPU over 100 steps with the
+   same draws, the map builds' times, and the CLI's ``play`` on the card;
 11. K5 (``csrc/obs_render.cu``) against its plain torch version
    (``render_obs1_plain``) on every render of the sequential env with
    ``obs_renderer="pl"``: combat at E=1, 10 and 4096 and ``make_arena(30)``
@@ -684,6 +704,7 @@ def profile_steps(run, step_ms, n=10, what="step"):
     for key, shapes, us, count in sorted(ops, key=lambda r: -r[2])[:12]:
         log(f"[profile]   {us / 1e3:8.3f} ms {100 * us / dev_us:5.1f}% x{count:5d} "
             f"{key} {str(shapes)[:80]}")
+    return dev_step_ms / step_ms, sum(r[2] for r in rows) / n
 
 
 def count_launches(run) -> int:
@@ -1250,10 +1271,12 @@ def cortex_policy(res, obs, seq, compiled):
 def phase_train(res):
     """The single-task learner: ``Trainer`` on the shaped arena, E=170, 24
     agents, default ``TrainerConfig``, the v48 ViT (``"lstm"`` core, bf16)
-    from its weights; one warm-up ``update``, then one update through
-    ``train``; K4 (E=170 fails ``pick_eps``, so K4 renders, as in the JAX
-    env), K2 and K3 launches, agent-steps/s, the rollout/learn split, peak
-    memory; finite metrics, changed parameters, ``hardware_sanity``."""
+    from its weights; one update through ``train`` (with no warm-up update
+    before it, to keep the script inside its time limit: its rate includes
+    the learner's first-call costs); K4 (E=170 fails ``pick_eps``, so K4
+    renders, as in the JAX env), K2 and K3 launches, agent-steps/s, the
+    rollout/learn split, peak memory; finite metrics, changed parameters,
+    ``hardware_sanity``."""
     from metta_tpu_torch.ops import discounted_sum as k3
     from metta_tpu_torch.ops import obs_render2 as k4
     from metta_tpu_torch.ops import obs_render3 as k1
@@ -1268,10 +1291,6 @@ def phase_train(res):
         f"compute {cfg.compute_dtype}, core {cfg.core}")
     ts = tr.init_state(params=sd)
     p0 = ts.params.clone()
-    t0 = time.perf_counter()
-    ts, _ = tr.update(ts)
-    torch.cuda.synchronize()
-    log(f"[train] warm-up update {time.perf_counter() - t0:.2f} s")
 
     split = {"rollout": [], "learn": []}               # seconds of each timed update
 
@@ -1320,7 +1339,7 @@ def phase_train(res):
     moved = float((ts.params - p0).abs().max())
     if not moved > 0:
         raise AssertionError("parameters did not change")
-    log(f"[train] parameters moved by up to {moved:.3e} over two updates")
+    log(f"[train] parameters moved by up to {moved:.3e} over the update")
     res["train_sps"] = sps
 
     # where the time goes: the env alone at E=170, and one learner minibatch
@@ -1350,13 +1369,16 @@ def phase_train(res):
 
 
 
-def learner_kernels_vs_plain(tr, vstate, traj, res):
-    """K4 and K2 on the learner's own env (the shaped arena, E=170,
-    ``track_stats=False``), stepped 20 times from the trainer's last state
-    through ``step_state`` as the rollout steps it, and K3 on the rollout's
-    own values, rewards and done flags (the advantages, [255, 4080], and one
-    minibatch's TD(λ) targets with their gradient, [255, 60]): each kernel
-    against its plain version on the same inputs, bit for bit."""
+def learner_kernels_vs_plain(tr, vstate, traj, res, label="shaped arena", span=True):
+    """The render kernel that the learner's env picks (K1 or K4) and, with
+    ``span``, K2 on that env (phase 9: the shaped arena, E=170,
+    ``track_stats=False``; phase 10e: the CvC recipe's fallback learner, regen
+    after the span, and the heart-only task set, which takes no span), stepped
+    20 times from the trainer's last state through ``step_state`` as the
+    rollout steps it, and K3 on the rollout's own values, rewards and done
+    flags (the advantages, [T-1, B], and one minibatch's TD(λ) targets with
+    their gradient, [T-1, rows]): each kernel against its plain version on
+    the same inputs, bit for bit; the largest differences go into ``res``."""
     from metta_tpu_torch.engine import env as env_mod
     from metta_tpu_torch.engine.step_batched import batched_step
     from metta_tpu_torch.ops import discounted_sum as k3
@@ -1364,26 +1386,41 @@ def learner_kernels_vs_plain(tr, vstate, traj, res):
     from metta_tpu_torch.rl import advantage
 
     env = tr.env
-    if env._sim_step is not fused_step_full or tr.cfg.track_env_stats:
-        raise AssertionError("the learner's env does not step through the fused span")
-    e1, e2 = [0], [0]
-    span = checked_span(e2)
-    render = env_mod.render_obs2
-    env._sim_step = lambda s, a, t, perm=None, generator=None, clip_draws=None: batched_step(
-        s, a.to(torch.int32), t, span, perm, generator, clip_draws)
-    env_mod.render_obs2 = checked_render2(e1)
+    if span and getattr(env, "_sim_step", None) is not fused_step_full:
+        raise AssertionError(f"{label}: the learner's env does not step through the fused span")
+    kerr = {"k1": [0], "k4": [0], "k2": [0]}
+    ran = dict.fromkeys(kerr, 0)
+
+    def counted(name, fn):
+        def run(*args):
+            ran[name] += 1
+            return fn(*args)
+        return run
+
+    renders = env_mod.render_obs3, env_mod.render_obs2
+    env_mod.render_obs3 = counted("k1", checked_render(kerr["k1"]))
+    env_mod.render_obs2 = counted("k4", checked_render2(kerr["k4"]))
+    if span:
+        checked = counted("k2", checked_span(kerr["k2"]))
+        env._sim_step = lambda s, a, t, perm=None, generator=None, clip_draws=None: (
+            batched_step(s, a.to(torch.int32), t, checked, perm, generator, clip_draws))
     gen = torch.Generator(device="cuda").manual_seed(11)
-    ended = 0
+    ended, steps = 0, 20
     try:
-        for _ in range(20):
+        for _ in range(steps):
             acts = torch.randint(0, env.compiled.n_actions, (tr.E, tr.A), generator=gen,
                                  device="cuda", dtype=torch.int32)
             vstate, _, _, done, trunc = env.step_state(vstate, acts)
             ended += int((done | trunc).sum())
     finally:
-        env._sim_step, env_mod.render_obs2 = fused_step_full, render
-    res["k4_max_abs_err"] = max(res.get("k4_max_abs_err", 0), e1[0])
-    res["k2_max_abs_err"] = max(res.get("k2_max_abs_err", 0), e2[0])
+        env_mod.render_obs3, env_mod.render_obs2 = renders
+        if span:
+            env._sim_step = fused_step_full
+    if ran["k1"] + ran["k4"] != steps or ran["k2"] != (steps if span else 0):
+        raise AssertionError(f"{label}: checked calls {ran} in {steps} steps")
+    for k, e in kerr.items():
+        if ran[k]:
+            res[f"{k}_max_abs_err"] = max(res.get(f"{k}_max_abs_err", 0), e[0])
 
     a = tr.cfg.advantage
     cols = torch.arange(tr.rows_per_mb, device="cuda")
@@ -1408,8 +1445,9 @@ def learner_kernels_vs_plain(tr, vstate, traj, res):
     if max(errs) != 0:
         raise AssertionError(f"K3 differs from its plain version on the learner's data: "
                              f"advantages {errs[0]}, TD(λ) targets {errs[1]}, gradient {errs[2]}")
-    log(f"[learner-check] K4 and K2 byte-equal to their plain versions on 20 steps of the "
-        f"learner's env (shaped arena, E={tr.E}, track_stats=False, {ended} episode ends); "
+    names = " and ".join(k.upper() for k in kerr if ran[k])
+    log(f"[learner-check] {names}: byte-equal to the plain version on {steps} steps of "
+        f"the learner's env ({label}, E={tr.E}, {ended} episode ends, checked calls {ran}); "
         f"K3 bit-equal on the rollout's advantages [{tr.T - 1}, {tr.B}] and on a minibatch's "
         f"TD(λ) targets and their gradient [{tr.T - 1}, {tr.rows_per_mb}] "
         f"(|adv| max {float(outs[0][0].abs().max()):.3f})")
@@ -1602,8 +1640,8 @@ E_CORTEX = 20     # 480 rows, 8 minibatches of phase 10's [256, 60]; no multiple
 def phase_cortex_learner(res):
     """Phase 10's curriculum learner with the ``"Ag,A,S"`` core (the default
     ``ViTConfig``, bf16, parameters from the trainer's seed), cut to
-    ``E_CORTEX`` envs: one warm-up update, then one timed update with K4 =
-    256, K3 = 1 + 2 x 8 = 17, K1 = K2 = 0 launches; finite metrics, moved
+    ``E_CORTEX`` envs: one timed update (with no warm-up update before it)
+    with K4 = 256, K3 = 1 + 2 x 8 = 17, K1 = K2 = 0 launches; finite metrics, moved
     parameters, ``hardware_sanity``; rollout and learn seconds, seconds a
     minibatch, peak memory, agent-steps/s; a profiled minibatch's launches."""
     from metta_tpu_torch.engine.taskset import MultiTaskEnv
@@ -1628,10 +1666,6 @@ def phase_cortex_learner(res):
         f"{pcfg.latent_dim}, compute {pcfg.compute_dtype}")
     ts = tr.init_state()
     p0 = ts.params.clone()
-    t0 = time.perf_counter()
-    ts, _ = tr.update(ts)
-    torch.cuda.synchronize()
-    log(f"[cortex] warm-up update {time.perf_counter() - t0:.2f} s")
 
     split = {}
     rollout, learn = tr._rollout, tr._learn_phase
@@ -1677,7 +1711,7 @@ def phase_cortex_learner(res):
         f"{split['learn']:.3f} s = {mb_s:.3f} s a minibatch over {tr.n_minibatches}; peak "
         f"memory {peak / 2**30:.2f} GiB; launches per update K4 {launches['k4']}, K3 "
         f"{launches['k3']}, K1 {launches['k1']}, K2 {launches['k2']}; parameters moved by "
-        f"up to {moved:.3e} over two updates")
+        f"up to {moved:.3e} over the update")
 
     hardware_sanity(ts.vstate.env, tr.env.compiled, "cortex learner env")
 
@@ -1697,9 +1731,9 @@ E_TOOL = 10       # the tool's cut: 240 rows, 4 minibatches of phase 10's [256, 
 def run_train_tool():
     """The training entry point as a user runs it: the ``arena_100m`` job's
     own tool (``STABLE_JOBS["arena_100m"].make_tool()``), its fields checked
-    against the job's, cut to ``E_TOOL`` envs, 2 updates, checkpoints and
+    against the job's, cut to ``E_TOOL`` envs, 1 update, checkpoints and
     curriculum syncs every update and a temporary ``data_dir``; then a
-    second tool that resumes it for a third update. Returns a dict of what
+    second tool that resumes it for a second update. Returns a dict of what
     it measured; raises on any failed check."""
     import logging
     import tempfile
@@ -1791,34 +1825,34 @@ def run_train_tool():
     originals = train_mod.Trainer, train_mod.CheckpointManager
     train_mod.Trainer, train_mod.CheckpointManager = Recorded, RecordedCM
     try:
-        tool = cut(first, 2)
+        tool = cut(first, 1)
         log(f"[tool] cuts: trainer.num_envs {E_TRAIN} -> {tool.trainer.num_envs}, "
-            f"total_timesteps -> {tool.total_timesteps} (2 updates), checkpoint_interval 30 "
+            f"total_timesteps -> {tool.total_timesteps} (1 update), checkpoint_interval 30 "
             f"-> 1, curriculum_interval 5 -> 1, data_dir -> a temporary directory")
-        wall1, launches1 = invoke(tool, 2)
+        wall1, launches1 = invoke(tool, 1)
         tr = trainers[-1]
         records = read_records(run_dir)
-        if len(records) != 2:
-            raise AssertionError(f"{len(records)} metrics records after 2 updates")
+        if len(records) != 1:
+            raise AssertionError(f"{len(records)} metrics records after 1 update")
         for r in records:
             keys = [k for k in r if k.startswith("losses/")]
             bad = [k for k, v in r.items() if not np.isfinite(v)]
             if "overview/sps" not in r or "overview/reward" not in r or not keys or bad:
                 raise AssertionError(f"metrics record lacks a gate metric or is not finite: {r}")
         cm = ckpt.CheckpointManager(first.run, tmp.name)
-        if [e for e, _ in cm.list_policies()] != [1, 2]:
-            raise AssertionError(f"bundles {cm.list_policies()}, expected :v1 and :v2")
-        log(f"[tool] 2 updates in {wall1:.2f} s (E={tr.E}, B={tr.B}, T={tr.T}, "
+        if [e for e, _ in cm.list_policies()] != [1]:
+            raise AssertionError(f"bundles {cm.list_policies()}, expected :v1")
+        log(f"[tool] 1 update in {wall1:.2f} s (E={tr.E}, B={tr.B}, T={tr.T}, "
             f"{tr.n_minibatches} minibatches of {tr.rows_per_mb} rows), launches {launches1}; "
             f"overview/sps {[round(r['overview/sps'], 1) for r in records]}, reward "
-            f"{[round(r['overview/reward'], 6) for r in records]}; bundles :v1 :v2")
+            f"{[round(r['overview/reward'], 6) for r in records]}; bundle :v1")
         first_saved = saved["state"]
 
-        second = cut(job.make_tool(), 3)
+        second = cut(job.make_tool(), 2)
         wall2, launches2 = invoke(second, 1)
         tr = trainers[-1]
-        if "resumed from update 2" not in messages or loaded.get("epoch") != 2:
-            raise AssertionError("the second tool did not resume from update 2")
+        if "resumed from update 1" not in messages or loaded.get("epoch") != 1:
+            raise AssertionError("the second tool did not resume from update 1")
         (got_leaves, got_gens), (want_leaves, want_gens) = loaded["state"], first_saved
         if sorted(got_leaves) != sorted(want_leaves) or sorted(got_gens) != sorted(want_gens):
             raise AssertionError("the restored state has other leaves than the saved one")
@@ -1829,17 +1863,17 @@ def run_train_tool():
         if diff:
             raise AssertionError(f"restored leaves differ from the saved ones: {diff[:8]}")
         records = read_records(run_dir)
-        if len(records) != 3 or records[-1]["agent_step"] != 3 * tr.B * tr.T or \
-                [e for e, _ in cm.list_policies()] != [1, 2, 3]:
+        if len(records) != 2 or records[-1]["agent_step"] != 2 * tr.B * tr.T or \
+                [e for e, _ in cm.list_policies()] != [1, 2]:
             raise AssertionError(f"the resumed tool did not run exactly one update: "
                                  f"{len(records)} records, bundles {cm.list_policies()}")
         log(f"[tool] resumed: {len(want_leaves)} leaves and the generators "
             f"{sorted(want_gens)} restored bit for bit on the card; one update in "
             f"{wall2:.2f} s (construction and restore included), launches {launches2}; "
-            f"overview/sps {records[-1]['overview/sps']:.1f}; bundle :v3")
+            f"overview/sps {records[-1]['overview/sps']:.1f}; bundle :v2")
 
         result = evaluate_acceptance(job, run_dir)
-        log("[tool] evaluate_acceptance at 3 updates (passing not required): " + json.dumps(
+        log("[tool] evaluate_acceptance at 2 updates (passing not required): " + json.dumps(
             {c["metric"]: {"value": c["value"], "passed": c["passed"]}
              for c in result["criteria"]}))
 
@@ -1854,9 +1888,9 @@ def run_train_tool():
             live = tr.apply(ts.params, obs, tr.policy.initial_state(48, "cuda"))[0]
             again = bundle_pol(obs, bundle_pol.initial_state(48, "cuda"))[0]
         err = float((live.float() - again.float()).abs().max())
-        if spec["epoch"] != 3 or not err <= 1e-5:
-            raise AssertionError(f"the :v3 bundle's logits differ from the live policy's by {err}")
-        log(f"[tool] the :v3 bundle (load_policy_bundle) on 48 observations: logits within "
+        if spec["epoch"] != 2 or not err <= 1e-5:
+            raise AssertionError(f"the :v2 bundle's logits differ from the live policy's by {err}")
+        log(f"[tool] the :v2 bundle (load_policy_bundle) on 48 observations: logits within "
             f"{err:.3e} of the live policy's (tolerance 1e-5)")
     finally:
         train_mod.Trainer, train_mod.CheckpointManager = originals
@@ -1873,13 +1907,13 @@ def read_records(run_dir):
 
 def phase_train_tool(res):
     """Phase 10c: the training entry point on the card (``run_train_tool``):
-    the ``arena_100m`` job's own ``TrainTool`` cut to ``E_TOOL`` envs and 2
-    updates, then resumed from its own checkpoint for a third; K4 = T and K3
+    the ``arena_100m`` job's own ``TrainTool`` cut to ``E_TOOL`` envs and 1
+    update, then resumed from its own checkpoint for a second; K4 = T and K3
     = 1 + 2 x minibatches launches an update, K1 = K2 = 0, over each tool's
-    run; two finite metrics records, bundles :v1-:v3, the restored state bit
-    for bit the saved one (both generators included), one update after the
-    resume, ``evaluate_acceptance``'s values, and the :v3 bundle's logits
-    within 1e-5 of the live policy's."""
+    run; a finite metrics record, then two, bundles :v1-:v2, the restored
+    state bit for bit the saved one (both generators included), one update
+    after the resume, ``evaluate_acceptance``'s values, and the :v2 bundle's
+    logits within 1e-5 of the live policy's."""
     t0 = time.perf_counter()
     out = run_train_tool()
     log(f"[tool] phase 10c {time.perf_counter() - t0:.1f} s; overview/sps "
@@ -3308,6 +3342,399 @@ def phase_analysis(res):
 
 
 # ---------------------------------------------------------------------------
+# Cogs vs Clips on the card: the CvC task sets, the recipe's TrainTool, and
+# `cogames play` with the scripted baseline (phase 10e)
+# ---------------------------------------------------------------------------
+
+E_CVC_SET, CVC_SET_STEPS = 8, 64     # the task sets GPU against CPU
+E_CVC_TOOL = 16                      # the recipe's tool cut: 64 rows, one minibatch of [256, 64]
+CVC_PLAY_STEPS = 100
+
+
+def cvc_log(text):
+    """A ``[cvc-train]`` line with the card's name and power limit."""
+    log(f"[cvc-train] {text} [{card_line()}]")
+
+
+def cvc_set_gpu_vs_cpu(kind, track_stats, E=E_CVC_SET, steps=CVC_SET_STEPS, seed=0):
+    """The CvC task set ``kind`` (``scripts/common.py:cvc_task_set``, the
+    tests' sets; episodes of 9 steps, desync on) on the GPU against the CPU:
+    the same task ids, desync steps, template and reset unclip protocols,
+    agent orders, clipper draws and task draws (numpy), agents holding 0-12
+    of each resource; obs, rewards, ends, task ids and the whole state
+    byte-identical every step; in their first episodes the agents hold 0-12
+    of each resource and stand below a chest where the map has one. Returns
+    (GPU env, what fired, render launches)."""
+    from metta_tpu_torch.convert import state_to_numpy
+    from metta_tpu_torch.engine.compiler import compile_config
+    from metta_tpu_torch.engine.state import KIND_CHEST, KIND_EMPTY
+    from metta_tpu_torch.engine.step_batched import agent_grid_from_positions
+    from metta_tpu_torch.engine.taskset import MultiTaskEnv
+    from metta_tpu_torch.ops import obs_render2 as k4
+    from metta_tpu_torch.ops import obs_render3 as k1
+    from metta_tpu_torch.scripts.common import cvc_task_set
+
+    rng = np.random.default_rng(seed)
+    cfgs = cvc_task_set(kind)
+    K = len(cfgs)
+    compiled = compile_config(cfgs[0])
+    NA = compiled.n_assembler_slots
+    template = rng.integers(0, max(compiled.n_unclip_protocols, 1), (K, NA))
+    envs = [MultiTaskEnv(cvc_task_set(kind), num_envs=E, seed=0, desync_episodes=True,
+                         track_stats=track_stats, device=d, template_unclip_proto=template)
+            for d in ("cuda", "cpu")]
+    t = envs[1].tables
+    _, _, protos = cvc_draws(rng, t, E)
+    reset = dict(task_id=rng.integers(0, K, E), desync_step=rng.integers(1, 9, E),
+                 unclip_proto=protos)
+    obs = [env.reset(**reset) for env in envs]
+    if not np.array_equal(*obs):
+        raise AssertionError(f"CvC set {kind}: reset observations differ between GPU and CPU")
+    s = envs[1].state.env
+    placed = dict(agent_inv=s.agent_inv.clone(), agent_r=s.agent_r.clone(),
+                  agent_c=s.agent_c.clone())
+    placed["agent_inv"][..., 1:] = torch.as_tensor(
+        rng.integers(0, 13, tuple(s.agent_inv[..., 1:].shape)))
+    kinds = s.static_kind.numpy()
+    for e in range(E):
+        # each agent just below a chest of its env's map, where that cell is free
+        cells = [(r + 1, c) for r, c in np.argwhere(kinds[e] == KIND_CHEST)
+                 if r + 1 < kinds.shape[1] and kinds[e, r + 1, c] == KIND_EMPTY
+                 and int(s.agent_grid[e, r + 1, c]) == 0]
+        for a, (r, c) in zip(range(t.num_agents), cells):
+            placed["agent_r"][e, a], placed["agent_c"][e, a] = r, c
+    placed.update(agent_prev_r=placed["agent_r"], agent_prev_c=placed["agent_c"],
+                  agent_grid=agent_grid_from_positions(t, placed["agent_r"], placed["agent_c"]))
+    for env in envs:
+        env._state = env.state.replace(env=env.state.env.replace(
+            **{k: v.to(env.device) for k, v in placed.items()}))
+    seen = dict(ends=0, chest_uses=0, clips=0, regen=0, tasks=set(reset["task_id"].tolist()))
+    renders = (k1.launches, k4.launches)
+    energy = envs[1].compiled.resource_names.index("energy")
+    for i in range(steps):
+        acts = cvc_actions(rng, t, E)
+        perm, clip, protos = cvc_draws(rng, t, E)
+        draws = rng.integers(0, K, E)
+        before = envs[1].state.env
+        outs = [env.step(acts, perm=perm, task_draws=draws, clip_draws=clip,
+                         unclip_proto=protos) for env in envs]
+        for field, g, c in zip(("obs", "reward", "done", "truncated"), *outs):
+            if not np.array_equal(g, c):
+                raise AssertionError(f"CvC set {kind} step {i}: {field} differs")
+        sg, sc = (state_to_numpy(env.state.env) for env in envs)
+        for field in sc:
+            if not np.array_equal(sg[field], sc[field]):
+                raise AssertionError(f"CvC set {kind} step {i}: state field {field} differs")
+        for field in ("task_id", "last_episode_task", "episodes_done", "desync_step"):
+            if not torch.equal(getattr(envs[0].state, field).cpu(), getattr(envs[1].state, field)):
+                raise AssertionError(f"CvC set {kind} step {i}: {field} differs")
+        after, live = envs[1].state.env, ~torch.as_tensor(outs[1][2] | outs[1][3])
+        seen["ends"] += int((~live).sum())
+        seen["chest_uses"] += int(((after.chest_inv != before.chest_inv).flatten(1).any(1)
+                                   & live).sum())
+        seen["clips"] += int(((after.asm_clipped & ~before.asm_clipped).any(1) & live).sum())
+        seen["regen"] += int(((after.agent_inv[..., energy] > before.agent_inv[..., energy])
+                              .any(1) & live).sum())
+        seen["tasks"] |= set(envs[1].state.task_id.tolist())
+    launches = {"k1": k1.launches - renders[0], "k4": k4.launches - renders[1]}
+    if launches["k1"] + launches["k4"] != steps:
+        raise AssertionError(f"CvC set {kind}: renders {launches} in {steps} steps")
+    need = {"regen": ("regen",), "chests": ("regen", "chest_uses"),
+            "clipped": ("regen", "clips")}[kind]
+    if seen["ends"] < E or any(seen[k] == 0 for k in need):
+        raise AssertionError(f"CvC set {kind}: too little happened: {seen}")
+    seen["tasks"] = len(seen["tasks"])
+    varying = sorted(envs[0].tsdata.tables.varying)
+    cvc_log(f"task set {kind} ({K} tasks, track_stats={track_stats}, varying leaves "
+            f"{varying}): state and obs byte-identical GPU against CPU over {steps} steps at "
+            f"E={E}; {seen}; renders {launches}")
+    return envs[0], seen, launches
+
+
+def cvc_k4_on_stack(env):
+    """K4 on the CvC stack's render inputs (each env on its own task's
+    tables) against its plain version, byte for byte; its time and bound."""
+    from metta_tpu_torch.engine.tables import tables_at
+    from metta_tpu_torch.ops import obs_render2 as k4
+    from metta_tpu_torch.ops.obs_render3 import prep_env3
+
+    s = env.state.env
+    view = tables_at(env.tsdata.tables, env.state.task_id)
+    if "chest_vibe_delta" not in view.per_env:
+        raise AssertionError("the stack's chest tables do not differ per env")
+    args = prep_env3(s, view, s.executed_action, s.reward)
+    rank = k4.rank_table(view.obs_scan, view.obs_width)
+    shape = (view.num_obs_tokens, view.obs_height, view.obs_width)
+    before = k4.launches
+    got = k4.render_obs2(*args, rank, *shape)
+    want = k4.render_obs2_plain(*args, rank, *shape)
+    if not torch.equal(got, want):
+        raise AssertionError("K4 on the CvC stack differs from its plain version")
+    ms = cuda_time_ms(lambda: k4.render_obs2(*args, rank, *shape), 50)
+    plain = cuda_time_ms(lambda: k4.render_obs2_plain(*args, rank, *shape), 5)
+    k4.launches = before                       # the check's launches do not count
+    nbytes, ops, _ = render_work(args, view.obs_scan, view.num_obs_tokens)
+    bound, by, _ = bound_of(nbytes, ops)
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                shape=f"CvC chests set E={s.step.shape[0]}")
+
+
+def heart_only_curriculum():
+    """The recipe's curriculum over its heart-reward bucket alone (one shape
+    class: a task set)."""
+    from metta_tpu_torch.cogworks.curriculum import LearningProgressConfig, bucketed
+    from metta_tpu_torch.recipes.prod.cogs_v_clips import mettagrid
+
+    tasks = bucketed(mettagrid())
+    tasks.add_bucket("game.agent.rewards.inventory.heart", [0.5, 1.0])
+    return tasks.to_curriculum(algorithm_config=LearningProgressConfig())
+
+
+def run_cvc_tool(label, curriculum=None):
+    """``metta_tpu_torch.recipes.prod.cogs_v_clips.train()`` through its
+    ``TrainTool`` on the card (``device`` left to its default), cut to
+    ``E_CVC_TOOL`` envs and 2 updates, a curriculum sync every update, a
+    temporary ``data_dir``; with ``curriculum`` in place of the recipe's.
+    Each update is timed by the host clock around ``update``; the rate is the
+    second's. Returns (the route, the update times, the rate, the launches,
+    the records' ``overview/sps``) and the trainer of the second update, with
+    its last rollout as ``last_rollout``."""
+    import tempfile
+    from pathlib import Path
+
+    from metta_tpu_torch.engine.taskset import MultiTaskEnv
+    from metta_tpu_torch.ops import discounted_sum as k3
+    from metta_tpu_torch.ops import obs_render2 as k4
+    from metta_tpu_torch.ops import obs_render3 as k1
+    from metta_tpu_torch.ops import sim_fused as k2
+    from metta_tpu_torch.recipes.prod import cogs_v_clips
+    from metta_tpu_torch.tools import train as train_mod
+
+    trainers, updates = [], []          # every trainer built; (trainer, s) of each update
+
+    class Recorded(train_mod.Trainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            trainers.append(self)
+
+        def _rollout(self, ts):
+            self.last_rollout = super()._rollout(ts)
+            return self.last_rollout
+
+        def update(self, ts, hp=None):
+            # host clock around each update, as section 2 of PERF.md times one
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            out = super().update(ts, hp)
+            torch.cuda.synchronize()
+            updates.append((self, time.perf_counter() - a))
+            return out
+
+    tool = cogs_v_clips.train()
+    if curriculum is not None:
+        tool.with_curriculum(curriculum)
+    if tool.device is not None or tool.policy.core != "Ag,A,S":
+        raise AssertionError(f"the recipe's tool: device {tool.device}, core {tool.policy.core}")
+    tmp = tempfile.TemporaryDirectory()
+    tool.trainer.num_envs = E_CVC_TOOL
+    tool.curriculum_interval = 1
+    object.__setattr__(tool, "data_dir", tmp.name)
+    tool.total_timesteps = 2 * E_CVC_TOOL * 4 * tool.trainer.bptt_horizon
+    original = train_mod.Trainer
+    train_mod.Trainer = Recorded
+    try:
+        with log_messages(train_mod.__name__) as messages:
+            k1.launches = k2.launches = k3.launches = k4.launches = 0    # the tool's run starts
+            t0 = time.perf_counter()
+            rc = tool.invoke()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"K1": k1.launches, "K2": k2.launches, "K3": k3.launches,
+                        "K4": k4.launches}                              # ... and ends
+        records = read_records(Path(tmp.name) / tool.run)
+    finally:
+        train_mod.Trainer = original
+        tmp.cleanup()
+    if rc != 0 or len(records) != 2:
+        raise AssertionError(f"{label}: invoke returned {rc}, {len(records)} records")
+    for r in records:
+        if not all(np.isfinite(v) for v in r.values()):
+            raise AssertionError(f"{label}: a record is not finite: {r}")
+    route = "task set" if isinstance(trainers[0].env, MultiTaskEnv) else "fallback"
+    if launches["K3"] == 0 or launches["K1"] + launches["K2"] + launches["K4"] == 0:
+        raise AssertionError(f"{label}: launches {launches}")
+    if len(updates) != 2:
+        raise AssertionError(f"{label}: {len(updates)} updates")
+    tr, second = updates[-1]
+    sps = tr.B * tr.T / second
+    cvc_log(f"{label}: route {route} ({len(trainers)} trainers built; first env "
+            f"{type(trainers[0].env).__name__}, step mode {trainers[0].env.step_mode}); 2 "
+            f"updates of {tr.B * tr.T} agent-steps (E={tr.E}, A={tr.A}, T={tr.T}, "
+            f"{tr.n_minibatches} minibatch): update s {[round(u[1], 3) for u in updates]} "
+            f"(the second on {'a trainer built after the first' if tr is not updates[0][0] else 'the same trainer'}); "
+            f"{sps:.1f} agent-steps/s in the second; the whole invoke() {wall:.2f} s (tool "
+            f"and env builds included); overview/sps {[round(r['overview/sps'], 1) for r in records]}; "
+            f"launches over the tool's run {launches}; messages "
+            f"{[m for m in messages if 'update' not in m][:3]}")
+    return dict(route=route, update_s=[u[1] for u in updates], agent_steps_per_s=sps,
+                invoke_s=wall, launches=launches,
+                sps=[r["overview/sps"] for r in records]), tr
+
+
+def cvc_env_busy(tr, label, n=20):
+    """The route's env step alone at the tool's E (random actions): its ms,
+    launches and the device's busy share a step, from a profiled window."""
+    env = tr.env
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    vstate, _ = env.reset_state()
+    box = [vstate]
+
+    def run(k):
+        for _ in range(k):
+            acts = torch.randint(0, env.compiled.n_actions, (env.num_envs, env.num_agents),
+                                 generator=gen, device="cuda", dtype=torch.int32)
+            box[0], obs, *_ = env.step_state(box[0], acts)
+    run(3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(n)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / n
+    busy, launches = profile_steps(run, step_ms, n=n, what=f"{label} env step")
+    cvc_log(f"{label}: the env step alone at E={env.num_envs}: {step_ms:.3f} ms, "
+            f"{launches:.1f} launches, the device {100 * busy:.1f}% busy")
+    return dict(step_ms=step_ms, busy=busy, launches=launches)
+
+
+def cvc_play_gpu_vs_cpu(steps=CVC_PLAY_STEPS):
+    """``cogames play``'s path on ``machina_1.open_world`` with 4 cogs (map
+    seed 7): the scripted baseline on the port's env (the sequential step)
+    on the card against the CPU, the same agent orders and clipper draws
+    (numpy), actions, obs and state equal every step; the map's build time;
+    then the CLI itself on the card, 100 steps of the mission's default crew."""
+    import contextlib
+    import io
+
+    from metta_tpu_torch.cogames.catalog import get_mission
+    from metta_tpu_torch.cogames.main import main as cogames_main
+    from metta_tpu_torch.cogames.mission import NumCogsVariant
+    from metta_tpu_torch.cogames.scripted import ScriptedBaselineAgent
+    from metta_tpu_torch.convert import state_to_numpy
+    from metta_tpu_torch.engine.env import MettaGridEnv
+
+    builds = {}
+    for name in ("machina_1.open_world", "hello_world.open_world"):
+        cfg = get_mission(name).make_env()
+        cfg.game.map_builder.seed = 7
+        t0 = time.perf_counter()
+        grid = cfg.game.map_builder.create().build().grid
+        builds[name] = dict(ms=1e3 * (time.perf_counter() - t0), shape=grid.shape)
+    cvc_log(f"map builds (host numpy, one each): {builds}")
+
+    def cfg():
+        c = get_mission("machina_1.open_world").with_variants(
+            [NumCogsVariant(num_cogs=4)]).make_env()
+        c.game.map_builder.seed = 7
+        c.desync_episodes = False
+        return c
+    envs = [MettaGridEnv(cfg(), num_envs=1, device=d) for d in ("cuda", "cpu")]
+    if envs[0].step_mode != "sequential":
+        raise AssertionError("machina_1.open_world does not take the sequential step")
+    agents = [ScriptedBaselineAgent(env, seed=0) for env in envs]
+    obs = [env.reset() for env in envs]
+    rng = np.random.default_rng(31)
+    t = envs[1].tables
+    acted, walls = set(), []
+    for i in range(steps):
+        acts = [a.step_batch(o[0]) for a, o in zip(agents, obs)]
+        if not torch.equal(acts[0].cpu(), acts[1]):
+            raise AssertionError(f"play step {i}: the scripted agents' actions differ")
+        perm, clip, _ = cvc_draws(rng, t, 1)
+        acted |= set(acts[1].tolist())
+        outs = []
+        for env, a in zip(envs, acts):
+            t0 = time.perf_counter()
+            outs.append(env.step_no_reset(a[None], perm=perm, clip_draws=clip))
+            if env.device.type == "cuda":
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        obs = [o[0] for o in outs]
+        for field, g, c in zip(("obs", "reward", "done", "truncated"), *outs):
+            if not torch.equal(g.cpu(), c):
+                raise AssertionError(f"play step {i}: {field} differs between GPU and CPU")
+        sg, sc = (state_to_numpy(env.state.env) for env in envs)
+        for field in sc:
+            if not np.array_equal(sg[field], sc[field]):
+                raise AssertionError(f"play step {i}: state field {field} differs")
+    if len(acted) < 3:
+        raise AssertionError(f"the scripted crew took only the actions {acted}")
+    step_ms = 1e3 * statistics.median(walls)
+    cvc_log(f"cogames play's path, machina_1.open_world, 4 cogs, scripted: {steps} steps "
+            f"on the card equal to the CPU's (actions, obs, state); {len(acted)} distinct "
+            f"actions; the card's env step {step_ms:.3f} ms (median, host clock)")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cogames_main(["play", "machina_1.open_world", "--steps", str(steps),
+                           "--map-seed", "7"])
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    if rc != 0 or "episode over" not in text:
+        raise AssertionError(f"cogames play returned {rc}: {text[-400:]}")
+    cvc_log(f"python -m metta_tpu_torch.cogames play machina_1.open_world --steps {steps} on "
+            f"the card: {wall:.2f} s; " + " | ".join(ln for ln in text.splitlines() if ln))
+    return dict(builds=builds, step_ms=step_ms, cli_s=wall)
+
+
+def phase_cvc_train(res):
+    """Phase 10e: Cogs vs Clips on the card. The CvC task sets (regen with
+    ``track_stats`` on and off, chests, clipped) GPU against CPU and K4 on
+    the chests stack against its plain version; the recipe's ``train()``
+    through ``TrainTool`` (the fallback: its ``max_steps`` bucket splits the
+    pool into two shape classes) and the heart-only curriculum (a task set),
+    each cut to E=16 and 2 updates, with the route, agent-steps/s, K1-K4
+    launches, the route's kernels against their plain versions on its
+    trainer's env and rollout, and its env busy share; ``cogames play`` on
+    ``machina_1`` with the scripted baseline, GPU against CPU, and the CLI."""
+    t0 = time.perf_counter()
+    out = {"sets": {}}
+    chests_env = None
+    for kind, track_stats in (("regen", True), ("regen", False), ("chests", True),
+                              ("clipped", False)):
+        env, seen, launches = cvc_set_gpu_vs_cpu(kind, track_stats)
+        out["sets"][f"{kind}-{track_stats}"] = dict(fired=seen, renders=launches)
+        if kind == "chests":
+            chests_env = env
+    k4_entry = cvc_k4_on_stack(chests_env)
+    cvc_log(f"K4 on the CvC chests stack (E={E_CVC_SET}): byte-equal to its plain version; "
+            f"{k4_entry['ms']:.4f} ms per launch, plain {k4_entry['plain_ms']:.4f} ms, bound "
+            f"{k4_entry['bound_ms']:.6f} ms ({k4_entry['bound_by']})")
+    out["k4"] = k4_entry
+    for label, curriculum, want in (("recipe", None, "fallback"),
+                                    ("heart_only", heart_only_curriculum(), "task set")):
+        run, tr = run_cvc_tool(f"cogs_v_clips.train() {label}", curriculum)
+        if run["route"] != want:
+            raise AssertionError(f"{label}: route {run['route']}, the JAX tool takes {want}")
+        state, traj = tr.last_rollout
+        learner_kernels_vs_plain(tr, state.vstate, traj, res, f"cogs_v_clips {label}, {want}",
+                                 span=want == "fallback")
+        run["env_step"] = cvc_env_busy(tr, label)
+        out[label] = run
+        del tr
+    out["play"] = cvc_play_gpu_vs_cpu()
+    cvc_log(f"phase 10e {time.perf_counter() - t0:.1f} s")
+    res["cvc_train"] = out
+    errs = {"obs_render3": "k1", "sim_fused": "k2", "discounted_sum": "k3",
+            "obs_render2": "k4"}
+    for entry in res.get("kernels", []):
+        if entry["name"] in errs:
+            entry["max_abs_err"] = max(entry["max_abs_err"] or 0,
+                                       res.get(f"{errs[entry['name']]}_max_abs_err", 0))
+        if entry["name"] == "obs_render2":
+            entry["cvc"] = dict(k4_entry, launches=out["heart_only"]["launches"]["K4"])
+
+
+# ---------------------------------------------------------------------------
 # Cogs vs Clips: K2's chest phase, the clipped mission batched, the missions
 # in the sequential step
 # ---------------------------------------------------------------------------
@@ -3694,7 +4121,7 @@ def main() -> int:
     for phase in (phase_build, phase_k1_vs_plain, phase_k2_vs_plain, phase_k4_vs_plain,
                   phase_gpu_vs_cpu, phase_throughput, phase_k3_vs_plain, phase_policy,
                   phase_train, phase_curriculum, phase_cortex_learner, phase_train_tool,
-                  phase_eval, phase_k5_vs_plain,
+                  phase_eval, phase_cvc_train, phase_k5_vs_plain,
                   phase_sequential,
                   phase_analysis, phase_k2_chests, phase_cvc_clipped, phase_cvc_sequential):
         t0 = time.time()

@@ -8,3 +8,5 @@ compiler) are its own copies, and the device side (env, policy in
 hand-written CUDA kernels under ``csrc/``. Module names mirror ``metta_tpu``
 so each counterpart is easy to find.
 """
+
+__version__ = "0.1.0"

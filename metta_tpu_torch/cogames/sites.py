@@ -1,33 +1,20 @@
 """Cogs-vs-Clips site definitions.
 
-The port's own copy of ``metta_tpu/cogames/sites.py`` (parity: reference
-``cogames/cogs_vs_clips/sites.py``): the training facility (a BaseHub-centred
-13x13) and the evals arena. The hello-world and machina arenas build their
-maps with ``metta_tpu/mapgen/scenes_arena.py:MachinaArena`` and
-``metta_tpu/mapgen/scenes_terrain.py:BiomeCaves``, which are not ported:
-their sites keep the JAX package's names, sizes and cog counts, and building
-their maps raises ``NotImplementedError`` naming those files.
+Parity: reference ``cogames/cogs_vs_clips/sites.py`` — the training facility
+(BaseHub-centred 13x13), hello-world / machina arenas (procedural extractor
+fields around a base hub), and the evals arena.
+
+The port's own copy of ``metta_tpu/cogames/sites.py``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
 from metta_tpu_torch.cogames.mission import Site
 from metta_tpu_torch.mapgen.mapgen import MapGen
-from metta_tpu_torch.mapgen.scene import Area, Scene, SceneConfig
-from metta_tpu_torch.mapgen.scenes_structures import BaseHub
-
-
-class UnportedScene(Scene):
-    """A scene whose builder is not ported: rendering it raises."""
-
-    class Config(SceneConfig):
-        source: str
-        spawn_count: Optional[int] = None
-
-    def _render(self, area: Area, rng) -> None:
-        raise NotImplementedError(f"not ported yet: {self.config.source}")
+from metta_tpu_torch.mapgen.scene import ChildSpec, SceneConfig
+from metta_tpu_torch.mapgen.scenes import Random
+from metta_tpu_torch.mapgen.scenes_structures import BaseHub, UniformExtractorScene
+from metta_tpu_torch.mapgen.scenes_terrain import BiomeCaves
 
 
 def _hub_scene(spawn_count: int = 4) -> SceneConfig:
@@ -42,13 +29,12 @@ def _hub_scene(spawn_count: int = 4) -> SceneConfig:
 
 
 def machina_arena(spawn_count: int = 20) -> SceneConfig:
-    """The procedural arena of the hello-world and machina sites (JAX
-    ``sites.py:machina_arena``), not ported."""
-    return UnportedScene.Config(
-        source="the procedural arena's map (metta_tpu/mapgen/scenes_arena.py:MachinaArena, "
-               "metta_tpu/mapgen/scenes_terrain.py:BiomeCaves)",
-        spawn_count=spawn_count,
-    )
+    """Procedural arena: base biome + biome/dungeon zones + weighted building
+    scatter + central base hub + connectivity (cogs_vs_clips/procedural.py
+    MachinaArena; see mapgen/scenes_arena.py)."""
+    from metta_tpu_torch.mapgen.scenes_arena import MachinaArena
+
+    return MachinaArena.Config(spawn_count=spawn_count)
 
 
 TRAINING_FACILITY = Site(

@@ -76,8 +76,10 @@ def task_set_from_numpy(compiled_list, leaves: dict, template: dict, obs1, weigh
     table leaves {name: [K, ...]} (each task's tables take their rows, the
     static block grid ``obs_static_bg`` included), the stacked reset
     template {field: [K, ...]}, the initial obs [K, A, T, 3] and the
-    weights [K]. Leaves the JAX package does not keep (the port's derived
-    ones) are derived here; any leaf given must equal what the port derives."""
+    weights [K]; the start-clipped masks are the templates' clipped
+    assemblers, which they are wherever the clipper runs. Leaves the JAX
+    package does not keep (the port's derived ones) are derived here; any
+    leaf given must equal what the port derives."""
     from metta_tpu_torch.engine.taskset import TaskSetData
     from metta_tpu_torch.engine.tables import stack_tables
 
@@ -94,6 +96,8 @@ def task_set_from_numpy(compiled_list, leaves: dict, template: dict, obs1, weigh
         tables=stack_tables(per_task),
         template=_env_from_numpy(template, device),
         obs1=torch.as_tensor(np.array(obs1), device=device),
+        start_clipped=torch.as_tensor(np.array(template["asm_clipped"], bool),
+                                      device=device).reshape(len(compiled_list), -1),
         weights=torch.as_tensor(np.array(weights, np.float32), device=device),
     )
 

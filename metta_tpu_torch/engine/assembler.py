@@ -6,9 +6,10 @@ rotated from the actor's slot), ``:427-453`` (partial-usage scaling),
 ``:125-223`` (afford / receive checks, shared_update consume + distribute).
 
 One call serves one agent per env: ``a`` and ``asm_idx`` are [E], and every
-branch is masked, so each env takes its own path. The chest search of
-``:103-130`` waits for chests (``step_batched.unsupported`` refuses a config
-with ``chest_search_distance > 0``), so the refs are the 8 neighbours.
+branch is masked, so each env takes its own path. The input refs are the 8
+neighbours, then, with the assembler chest search (``:103-130``,
+``metta_tpu/engine/assembler.py:103-130``), the chests within the type's
+Chebyshev distance in row-major window order.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from metta_tpu_torch.engine.protocols import (
     surrounding_agents,
 )
 from metta_tpu_torch.engine.refs import (
+    REF_AGENT,
+    REF_CHEST,
     masked_set,
     ref_amount,
     ref_cap,
@@ -31,21 +34,45 @@ from metta_tpu_torch.engine.refs import (
     ref_update,
 )
 from metta_tpu_torch.engine.refs import rows_at as _at
+from metta_tpu_torch.engine.state import KIND_CHEST
 
 
 def _ceil_div(a, b):
     return torch.div(a + b - 1, b.clamp(min=1), rounding_mode="floor")
 
 
-def _shared_item(state, tables, idx, valid, r: int, delta, ok):
-    """shared_update of item ``r`` over the agents ``idx`` [E, 8]: the
-    slots' amounts, free space and clamps read once, the fixpoint on them,
-    then each valid slot's update. Returns (state, consumed [E])."""
-    cur = ref_amount(state, tables, idx, r)
-    d, consumed = shared_update(cur, ref_cap(state, tables, idx, r),
-                                ref_free(state, tables, idx, r), delta, valid, ok)
-    state, _ = ref_update(state, tables, idx, r, d, ok[:, None] & valid)
+def _shared_item(state, tables, idx, valid, r: int, delta, ok, kind=None):
+    """shared_update of item ``r`` over the refs ``idx`` [E, L] (agents, or
+    by ``kind``): the slots' amounts, free space and clamps read once, the
+    fixpoint on them, then each valid slot's update. Returns (state,
+    consumed [E])."""
+    cur = ref_amount(state, tables, idx, r, kind)
+    d, consumed = shared_update(cur, ref_cap(state, tables, idx, r, kind),
+                                ref_free(state, tables, idx, r, kind), delta, valid, ok)
+    state, _ = ref_update(state, tables, idx, r, d, ok[:, None] & valid, kind)
     return state, consumed
+
+
+def chest_refs(state, tables, t, ar_, ac_):
+    """(chest index, is-chest mask), [E, N] each, of the cells of the search
+    window around assemblers at (``ar_``, ``ac_``) of types ``t`` [E]: every
+    cell within ``chest_search_distance`` but the centre, row-major, a chest
+    there within its type's Chebyshev distance."""
+    d_max = tables.chest_search_distance
+    cells = [(dr, dc) for dr in range(-d_max, d_max + 1) for dc in range(-d_max, d_max + 1)
+             if not (dr == 0 and dc == 0)]
+    offs = torch.tensor(cells, dtype=torch.int64, device=ar_.device)
+    H, W = tables.height, tables.width
+    rr = ar_.long()[:, None] + offs[:, 0]
+    cc = ac_.long()[:, None] + offs[:, 1]
+    inb = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < W)
+    flat = rr.clamp(0, H - 1) * W + cc.clamp(0, W - 1)
+    cheb = torch.maximum(offs[:, 0].abs(), offs[:, 1].abs())
+    within = cheb <= tables.type_chest_search[t][:, None]
+    kind = state.static_kind.flatten(1).gather(1, flat)
+    is_chest = inb & within & (kind == KIND_CHEST)
+    idx = torch.where(is_chest, state.static_idx.flatten(1).gather(1, flat), 0)
+    return idx.to(torch.int32), is_chest
 
 
 def assembler_use(state, tables, a, asm_idx, mask):
@@ -110,11 +137,21 @@ def assembler_use(state, tables, a, asm_idx, mask):
     rot = torch.remainder(rank_inb - start_rank, n_inb.clamp(min=1))
     order_key = torch.where(nb_is_agent, rot, 1000 + torch.arange(8, device=dev))
     order = order_key.argsort(dim=-1, stable=True)
-    ref_idx = nb_agent_idx.gather(-1, order)
-    ref_valid = nb_is_agent.gather(-1, order)
+    agent_idx = nb_agent_idx.gather(-1, order)
+    agent_valid = nb_is_agent.gather(-1, order)
+
+    # --- input refs: the rotated agents, then the chests the search finds ---
+    in_kind = None
+    ref_idx, ref_valid = agent_idx, agent_valid
+    if tables.chest_search_distance > 0:
+        chest_idx, is_chest = chest_refs(state, tables, t, ar_, ac_)
+        ref_idx = torch.cat([agent_idx.to(torch.int32), chest_idx], -1)
+        ref_valid = torch.cat([agent_valid, is_chest], -1)
+        in_kind = torch.cat([torch.full_like(agent_idx, REF_AGENT, dtype=torch.int32),
+                             torch.full_like(chest_idx, REF_CHEST)], -1)
 
     # --- afford check: totals across the input refs ---
-    inv_rows = _at(state.agent_inv, ref_idx)                        # [E, 8, R]
+    inv_rows = ref_rows(state, tables, ref_idx, in_kind)[0]         # [E, L, R]
     totals = torch.where(ref_valid[..., None], inv_rows, torch.zeros_like(inv_rows)).sum(1)
     ok = ok & ((inputs == 0) | (totals >= inputs)).all(-1)
 
@@ -124,16 +161,16 @@ def assembler_use(state, tables, a, asm_idx, mask):
     n_sel = torch.zeros_like(nvibes)
     sel = []
     for s in range(8):
-        v = state.agent_vibe.gather(1, ref_idx[:, s:s + 1])[:, 0]
+        v = state.agent_vibe.gather(1, agent_idx[:, s:s + 1])[:, 0]
         vc = v.long().clamp(0, V - 1)
-        want = ref_valid[:, s] & (v != 0) & (_at(counts, vc) > 0) & (n_sel < nvibes)
+        want = agent_valid[:, s] & (v != 0) & (_at(counts, vc) > 0) & (n_sel < nvibes)
         counts = counts.scatter_add(1, vc[:, None], -want[:, None].to(counts.dtype))
         n_sel = n_sel + want.to(n_sel.dtype)
         sel.append(want)
     sel_valid = torch.stack(sel, -1)
     use_multi = ((nvibes > 1) & (n_sel > 0))[:, None]
     slot0 = torch.arange(8, device=dev) == 0
-    out_idx = torch.where(use_multi, ref_idx, a[:, None].to(ref_idx.dtype))
+    out_idx = torch.where(use_multi, agent_idx, a[:, None].to(agent_idx.dtype))
     out_valid = torch.where(use_multi, sel_valid, slot0)
 
     # --- receive check (assembler.hpp:146-178) ---
@@ -151,14 +188,15 @@ def assembler_use(state, tables, a, asm_idx, mask):
 
     # --- consume inputs, distribute outputs ---
     if tables.inv_vector_ok:
-        state, _ = shared_update_multi(state, tables, ref_idx, ref_valid, -inputs, ok)
+        state, _ = shared_update_multi(state, tables, ref_idx, ref_valid, -inputs, ok,
+                                       in_kind)
         state, created = shared_update_multi(state, tables, out_idx, out_valid, outputs, ok)
         created = created.clamp(min=0)
     else:
         zero = torch.zeros_like(inputs[:, 0])
         for r in range(R):
             state, _ = _shared_item(state, tables, ref_idx, ref_valid, r,
-                                    torch.where(ok, -inputs[:, r], zero), ok)
+                                    torch.where(ok, -inputs[:, r], zero), ok, in_kind)
         created = []
         for r in range(R):
             state, dist = _shared_item(state, tables, out_idx, out_valid, r,

@@ -53,9 +53,9 @@ def clipper_active(tables) -> bool:
 def clipper_step(state, tables, draws: ClipDraws):
     """One clipper tick of every env with ``draws``; returns the new state."""
     NA = state.asm_clipped.shape[1]
-    NT = tables.type_clip_immune.shape[0]
+    NT = tables.type_clip_immune.shape[-1]
     t = state.asm_type.long()
-    immune = ((t >= 0) & (t < NT)) & tables.type_clip_immune[t.clamp(0, NT - 1)]
+    immune = ((t >= 0) & (t < NT)) & tables.take("type_clip_immune", t.clamp(0, NT - 1))
     eligible = state.asm_valid & ~immune
     unclipped = eligible & ~state.asm_clipped
     dev = state.asm_clipped.device
@@ -63,7 +63,7 @@ def clipper_step(state, tables, draws: ClipDraws):
 
     # infection weight of each candidate: the sum over clipped sources
     src = (state.asm_clipped & eligible).to(tables.clipper_infection_w.dtype)
-    w = (src[:, :, None] * tables.clipper_infection_w[None]).sum(1)            # [E, NA]
+    w = (src[:, :, None] * tables.bcast("clipper_infection_w", 3)).sum(1)   # [E, NA]
     border_w = torch.where(unclipped, w, torch.zeros_like(w))
     total = border_w.sum(1, keepdim=True)
     inf = torch.full(border_w.shape, -torch.inf, device=w.device)

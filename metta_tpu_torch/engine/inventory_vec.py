@@ -22,10 +22,10 @@ from metta_tpu_torch.engine.refs import REF_AGENT, add_at, chest_class, rows_at
 
 def row_limits(tables, cls):
     """Per-resource effective limits [..., R] of singleton-group inventories
-    of class ``cls`` [...]."""
-    res_group, group_base, _ = tables.inv_tables
+    of class ``cls`` [...] ([E, ...] where the limit tables are per env)."""
     cls = cls.long()
-    lim = group_base[cls].gather(-1, res_group[cls].long())
+    lim = tables.take("inv_group_base", cls).gather(
+        -1, tables.take("inv_res_group", cls).long())
     return lim.clamp(0, INT16_MAX)
 
 

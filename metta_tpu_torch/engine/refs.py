@@ -126,19 +126,33 @@ def agent_free_space_vec(state, tables, a):
                           rows_at(state.agent_inv, a))
 
 
-def ref_amount(state, tables, idx, r: int):
-    return rows_at(state.agent_inv, idx)[..., r]
+def _by_kind(state, tables, idx, kind, fn):
+    """``fn(rows, cls)`` of the agents ``idx``, or with ``kind`` of each
+    ref's own inventory, an agent's or a chest's (the JAX refs' ``where``
+    on ``kind``)."""
+    if kind is None:
+        return fn(rows_at(state.agent_inv, idx), tables.agent_inv_class[idx.long()])
+    a = idx.clamp(0, tables.num_agents - 1)
+    ch = idx.clamp(0, tables.n_chest_slots - 1)
+    return torch.where(kind == REF_AGENT,
+                       fn(rows_at(state.agent_inv, a), tables.agent_inv_class[a.long()]),
+                       fn(rows_at(state.chest_inv, ch), chest_class(state, tables, ch)))
 
 
-def ref_free(state, tables, idx, r: int):
-    return free_space(tables.inv_tables, tables.agent_inv_class[idx.long()],
-                      rows_at(state.agent_inv, idx), r)
+def ref_amount(state, tables, idx, r: int, kind=None):
+    """Amount of item ``r`` the refs hold (agents, or by ``kind``)."""
+    return _by_kind(state, tables, idx, kind, lambda rows, cls: rows[..., r])
 
 
-def ref_cap(state, tables, idx, r: int):
+def ref_free(state, tables, idx, r: int, kind=None):
+    return _by_kind(state, tables, idx, kind,
+                    lambda rows, cls: free_space(tables.inv_tables, cls, rows, r))
+
+
+def ref_cap(state, tables, idx, r: int, kind=None):
     """The clamp of an update of item ``r`` (``inventory.update_cap``)."""
-    return update_cap(tables.inv_tables, tables.agent_inv_class[idx.long()],
-                      rows_at(state.agent_inv, idx), r)
+    return _by_kind(state, tables, idx, kind,
+                    lambda rows, cls: update_cap(tables.inv_tables, cls, rows, r))
 
 
 def ref_update(state, tables, idx, r: int, delta, do, kind=None):

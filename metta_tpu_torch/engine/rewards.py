@@ -125,8 +125,9 @@ def apply_regen(state, tables):
     E, A, R = state.agent_inv.shape
     tick = (state.step % tables.inventory_regen_interval) == 0            # [E]
     vibes = state.agent_vibe.long().clamp(0, tables.num_vibes - 1)
-    amounts = tables.agent_regen[torch.arange(A, device=vibes.device), vibes]   # [E, A, R]
-    do = tick[:, None] & tables.agent_has_regen                           # [E, A]
+    agents = torch.arange(A, device=vibes.device).expand(E, A)
+    amounts = tables.take("agent_regen", agents, vibes)                   # [E, A, R]
+    do = tick[:, None] & tables.bcast("agent_has_regen", 2)               # [E, A]
     if tables.inv_vector_ok:
         state, _ = all_agents_update_multi(state, tables, amounts,
                                            do[..., None] & (amounts != 0))

@@ -60,8 +60,9 @@ def unsupported(tables, step_mode: str = "batched"):
         (not seq and not tables.inv_vector_ok,
          "shared inventory limit groups in the batched step (metta_tpu/engine/"
          "step_batched.py; the env takes step_mode='sequential' for them)"),
-        (tables.chest_search_distance > 0,
-         "assembler chest search (metta_tpu/engine/assembler.py:103-130)"),
+        (not seq and tables.chest_search_distance > 0,
+         "assembler chest search in the batched step (metta_tpu/engine/assembler.py:"
+         "103-130; the env takes step_mode='sequential' for it)"),
         (tables.has_bump_handlers,
          "bump handlers (metta_tpu/engine/activation_wiring.py:"
          + ("bump_handlers_seq)" if seq else "bump_handlers_batched)")),
@@ -680,7 +681,7 @@ def _chest_phase(state, tables, is_winner, sidx, lims):
     E, A, R = state.agent_inv.shape
     dev = sidx.device
     NC, V = tables.n_chest_slots, tables.num_vibes
-    NTC = tables.chest_type_inv_class.shape[0]
+    NTC = tables.chest_type_inv_class.shape[-1]
     in_range = (sidx >= 0) & (sidx < NC)
     ch = sidx.long().clamp(0, NC - 1)
     # the claimant of each chest (-1: unclaimed); a spare column NC is dropped
@@ -700,9 +701,9 @@ def _chest_phase(state, tables, is_winner, sidx, lims):
     t = state.chest_type.long()
     t_ok = (t >= 0) & (t < NTC)
     tc, vc = t.clamp(0, NTC - 1), a_vibe.long().clamp(0, V - 1)
-    has = t_ok & tables.chest_vibe_has[tc, vc]                              # [E, NC]
-    deltas = torch.where(t_ok[..., None], tables.chest_vibe_delta[tc, vc], 0)  # [E, NC, R]
-    c_lim = row_limits(tables, torch.where(t_ok, tables.chest_type_inv_class[tc], 0))
+    has = t_ok & tables.take("chest_vibe_has", tc, vc)                     # [E, NC]
+    deltas = torch.where(t_ok[..., None], tables.take("chest_vibe_delta", tc, vc), 0)  # [E, NC, R]
+    c_lim = row_limits(tables, torch.where(t_ok, tables.take("chest_type_inv_class", tc), 0))
 
     ok = claimed & state.chest_valid & has
     c_inv = state.chest_inv

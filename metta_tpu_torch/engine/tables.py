@@ -136,14 +136,15 @@ class Tables:
         """(res_group, group_base, group_mod) triple for inventory ops."""
         return (self.inv_res_group, self.inv_group_base, self.inv_group_mod)
 
-    def take(self, name: str, idx):
-        """Rows ``leaf[idx]`` of leaf ``name`` for an index tensor ``idx``
-        [E, ...]; a per-env leaf [E, N, ...] gives each env its own rows."""
+    def take(self, name: str, *idx):
+        """Entries ``leaf[idx]`` of leaf ``name`` for one or more index
+        tensors ``idx`` [E, ...] (one per leading axis they index); a per-env
+        leaf [E, N, ...] gives each env its own rows."""
         x = getattr(self, name)
         if name not in self.per_env:
             return x[idx]
-        e = torch.arange(x.shape[0], device=x.device).view((-1,) + (1,) * (idx.dim() - 1))
-        return x[e, idx]
+        e = torch.arange(x.shape[0], device=x.device).view((-1,) + (1,) * (idx[0].dim() - 1))
+        return x[(e,) + idx]
 
     def bcast(self, name: str, ndim: int):
         """Leaf ``name`` as an elementwise operand of [E, ...] tensors of

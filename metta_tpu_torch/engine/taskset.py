@@ -12,14 +12,23 @@ step reads the leaves that differ across the set at each env's task
 (``tables_at``), and every ended episode resets from its env's newly drawn
 task's template. Weight updates and slot replacement are data.
 
+Regen, chests and the clipper run over the stacked tables as in the
+single-task batched step: every read of their leaves goes through
+``Tables.take`` or ``Tables.bcast``, so each env reads its own task's rows.
+Start-clipped assemblers keep each task's mask (``TaskSetData.start_clipped``,
+[K, NA]); every reset env draws its own unclip protocols for them, while its
+first observation is its task's template's, rendered from the template's
+draw (the JAX package's quirk, mirrored).
+
 Randomness is an explicit input, as the agent orders are: ``reset_state``
-takes the task ids and desync steps and ``step_state`` the task draws
-(tests pass the JAX env's draws); by default they come from the env's
-``torch.Generator``, task ids drawn in proportion to ``max(weight, 1e-9)``
-(the JAX package's ``categorical`` over ``log(max(w, 1e-9))``). The step is
-the torch-ops batched step: as in the JAX package, a task set never takes
-the fused span. The render is K1 or K4 by ``supports_v3``, as in
-:class:`MettaGridEnv`.
+takes the task ids, desync steps and unclip protocols and ``step_state``
+the agent orders, the clipper's draws, the task draws and the reset envs'
+unclip protocols (tests pass the JAX env's draws); by default they come
+from the env's ``torch.Generator``, task ids drawn in proportion to
+``max(weight, 1e-9)`` (the JAX package's ``categorical`` over
+``log(max(w, 1e-9))``). The step is the torch-ops batched step: as in the
+JAX package, a task set never takes the fused span. The render is K1 or K4
+by ``supports_v3``, as in :class:`MettaGridEnv`.
 """
 
 from __future__ import annotations
@@ -34,7 +43,12 @@ from metta_tpu_torch.config.mettagrid_config import MettaGridConfig
 from metta_tpu_torch.engine.compiler import compile_game
 from metta_tpu_torch.engine.env import obs_renderer
 from metta_tpu_torch.engine.state import EnvState, _Tensors
-from metta_tpu_torch.engine.step import make_reset_template
+from metta_tpu_torch.engine.step import (
+    int32_on,
+    make_reset_template,
+    starts_clipped,
+    unclip_proto_draws,
+)
 from metta_tpu_torch.engine.step_batched import check_supported, step_env_batched
 from metta_tpu_torch.engine.tables import (
     Tables,
@@ -47,12 +61,12 @@ from metta_tpu_torch.engine.tables import (
 
 @dataclasses.dataclass
 class TaskSetData(_Tensors):
-    """A task set on the device (start-clipped assemblers need the clipper,
-    which the port lacks, so the JAX ``start_clipped`` leaf is not kept)."""
+    """A task set on the device."""
 
     tables: Tables            # leaves stacked [K, ...]; statics of task 0
     template: EnvState        # reset-target state of each task, [K, ...]
     obs1: torch.Tensor        # [K, A, T, 3] uint8 initial observations
+    start_clipped: torch.Tensor  # [K, NA] bool assemblers that start clipped
     weights: torch.Tensor     # [K] f32 sampling weights (need not be normalized)
 
 
@@ -70,37 +84,45 @@ class MTVecState(_Tensors):
     episodes_done: torch.Tensor        # [E] int32 total finished episodes
 
 
-def _compile_task(cfg: MettaGridConfig, track_stats: bool, device):
-    """(tables with the static block grid, reset template, initial obs)."""
+def _compile_task(cfg: MettaGridConfig, track_stats: bool, device, unclip_proto=None,
+                  generator=None):
+    """(tables with the static block grid, reset template, initial obs,
+    start-clipped mask [1, NA]). Start-clipped assemblers of the template
+    take ``unclip_proto`` [NA], else a draw from ``generator``."""
     game_map = cfg.game.map_builder.create().build()
     compiled, init = compile_game(cfg.game, game_map)
     tables = Tables(compiled, track_stats=track_stats, device=device)
-    check_supported(tables)
-    if tables.has_chests or tables.has_regen or tables.clipper_enabled:
-        # the single-task step has them; over stacked per-task tables they
-        # wait for their port, with TaskSetData.start_clipped
-        raise NotImplementedError(
-            "not ported yet: chests, regen and the clipper in a task set "
-            "(metta_tpu/engine/taskset.py:176-184)")
-    template, obs1 = make_reset_template(tables, init)
+    if starts_clipped(tables, init) and unclip_proto is None:
+        unclip_proto = unclip_proto_draws(tables, 1, generator, tables.device)[0]
+    template, obs1 = make_reset_template(tables, init, unclip_proto)
     attach_static_block_grid(tables, template)
-    return tables, template, obs1
+    start_clipped = torch.as_tensor(np.asarray(init["asm_start_clipped"], bool),
+                                    device=tables.device)[None]
+    return tables, template, obs1, start_clipped
 
 
 def build_task_set(cfgs: Sequence[MettaGridConfig], track_stats: bool = True,
-                   weights=None, device="cpu") -> tuple[TaskSetData, List[Tables]]:
+                   weights=None, device="cpu", template_unclip_proto=None,
+                   generator=None) -> tuple[TaskSetData, List[Tables]]:
     """Compile and stack K task configs; raises ValueError if their statics
-    or shapes differ (``metta_tpu/engine/taskset.py:build_task_set``)."""
-    built = [_compile_task(cfg, track_stats, device) for cfg in cfgs]
+    or shapes differ (``metta_tpu/engine/taskset.py:build_task_set``), and
+    then NotImplementedError for a subsystem no step of the port has.
+    ``template_unclip_proto`` [K, NA] gives the start-clipped assemblers'
+    protocols of each task's template (the JAX templates draw them from a
+    zero key), else they are drawn from ``generator``."""
+    protos = [None] * len(cfgs) if template_unclip_proto is None else template_unclip_proto
+    built = [_compile_task(cfg, track_stats, device, p, generator)
+             for cfg, p in zip(cfgs, protos)]
     tables_list = [b[0] for b in built]
     stacked = stack_tables(tables_list)
+    check_supported(stacked, "sequential")
     template = EnvState(**{f.name: torch.cat([getattr(b[1], f.name) for b in built])
                            for f in dataclasses.fields(EnvState)})
     w = (torch.ones((len(cfgs),), dtype=torch.float32) if weights is None
          else torch.as_tensor(np.asarray(weights, np.float32)))
     return TaskSetData(
-        tables=stacked, template=template,
-        obs1=torch.cat([b[2] for b in built]), weights=w.to(device),
+        tables=stacked, template=template, obs1=torch.cat([b[2] for b in built]),
+        start_clipped=torch.cat([b[3] for b in built]), weights=w.to(device),
     ), tables_list
 
 
@@ -117,18 +139,26 @@ class MultiTaskEnv:
       track_stats: keep the gained/lost/chest stat accumulators.
       step_mode: only "batched" is ported for a task set.
       device: where the state lives and the step runs; "cuda" by default.
+      template_unclip_proto: [K, NA] unclip protocols of the start-clipped
+        assemblers in each task's reset template (its obs show them), else
+        drawn from the generator; tests pass the JAX templates'.
     """
 
     def __init__(self, cfgs: Sequence[MettaGridConfig], num_envs: int = 1, seed: int = 0,
                  desync_episodes: Optional[bool] = None, track_stats: bool = False,
-                 step_mode: str = "batched", device="cuda"):
+                 step_mode: str = "batched", device="cuda", template_unclip_proto=None):
         self.cfgs = list(cfgs)
         self.num_envs = num_envs
         self.track_stats = track_stats
         self.device = torch.device(device)
-        self.tsdata, tables_list = build_task_set(self.cfgs, track_stats, device=self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.tsdata, tables_list = build_task_set(
+            self.cfgs, track_stats, device=self.device,
+            template_unclip_proto=template_unclip_proto, generator=self.generator)
         self.tables = tables_list[0]   # statics view (shared across the set)
-        if step_mode != "batched" or not self.tables.inv_vector_ok:
+        if (step_mode != "batched" or not self.tables.inv_vector_ok
+                or self.tables.chest_search_distance > 0):
             # the JAX task set takes its sequential step here
             raise NotImplementedError(
                 "not ported yet: the sequential step of a task set "
@@ -137,8 +167,6 @@ class MultiTaskEnv:
         self.step_mode = step_mode
         self.compiled = self.tables._cfg
         self.desync = self.cfgs[0].desync_episodes if desync_episodes is None else desync_episodes
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
         self.num_agents = self.compiled.num_agents
         self.single_observation_space_shape = (self.compiled.num_obs_tokens, 3)
         self.action_names = self.compiled.action_names
@@ -161,20 +189,30 @@ class MultiTaskEnv:
         return torch.multinomial(w, self.num_envs, replacement=True,
                                  generator=self.generator).to(torch.int32)
 
-    def _fresh(self, task_id):
-        """Reset-target state and obs of each env from its task's template."""
+    def _fresh(self, task_id, unclip_proto=None):
+        """Reset-target state and obs of each env from its task's template;
+        with the clipper on, the start-clipped assemblers take
+        ``unclip_proto`` [E, NA] (else drawn), every other slot -1
+        (``metta_tpu/engine/taskset.py:_fresh_batch``)."""
         idx = task_id.long()
         ts = self.tsdata
-        return ts.template.map(lambda x: x[idx]), ts.obs1[idx]
+        state = ts.template.map(lambda x: x[idx])
+        if self.tables.clipper_enabled:
+            protos = (unclip_proto_draws(self.tables, self.num_envs, self.generator, self.device)
+                      if unclip_proto is None else int32_on(unclip_proto, self.device))
+            state = state.replace(asm_unclip_proto=torch.where(
+                ts.start_clipped[idx], protos, -1).to(torch.int32))
+        return state, ts.obs1[idx]
 
-    def reset_state(self, task_id=None, desync_step=None):
+    def reset_state(self, task_id=None, desync_step=None, unclip_proto=None):
         """-> (MTVecState, obs [E, A, T, 3] uint8). ``task_id`` and
-        ``desync_step`` [E] override the draws (tests pass the JAX env's);
-        by default both come from the env's generator, tasks first."""
+        ``desync_step`` [E] and ``unclip_proto`` [E, NA] override the draws
+        (tests pass the JAX env's); by default they come from the env's
+        generator, tasks first."""
         E = self.num_envs
         t = self.tables
         task_id = self.draw_tasks() if task_id is None else self._ints(task_id)
-        env, obs = self._fresh(task_id)
+        env, obs = self._fresh(task_id, unclip_proto)
         if desync_step is not None:
             desync = self._ints(desync_step)
         elif self.desync and t.max_steps > 0:
@@ -193,14 +231,17 @@ class MultiTaskEnv:
             episodes_done=zeros.clone(),
         ), obs
 
-    def step_state(self, vstate: MTVecState, actions, perm=None, task_draws=None):
+    def step_state(self, vstate: MTVecState, actions, perm=None, task_draws=None,
+                   clip_draws=None, unclip_proto=None):
         """(MTVecState, actions [E, A]) -> (MTVecState, obs, rew, done, trunc).
 
-        Ended envs draw a new task (``task_draws`` [E] gives every env's
-        draw; the ended ones take it) and reset from its template."""
+        ``perm`` and ``clip_draws`` override the step's agent orders and
+        clipper draws. Ended envs draw a new task (``task_draws`` [E] gives
+        every env's draw; the ended ones take it) and reset from its
+        template, start-clipped assemblers with ``unclip_proto`` [E, NA]."""
         tables = tables_at(self.tsdata.tables, vstate.task_id)
         env, rew_at_obs = step_env_batched(vstate.env, actions, tables, perm=perm,
-                                           generator=self.generator)
+                                           generator=self.generator, clip_draws=clip_draws)
         obs = self._render(env, tables, env.executed_action, rew_at_obs)
         force_trunc = (vstate.desync_step > 0) & (env.step >= vstate.desync_step)
         truncated = env.truncated | force_trunc
@@ -219,7 +260,7 @@ class MultiTaskEnv:
         # the new task's template (its map may differ from the old one's)
         draws = self.draw_tasks() if task_draws is None else self._ints(task_draws)
         task_id = torch.where(ended, draws, vstate.task_id)
-        fresh, fresh_obs = self._fresh(task_id)
+        fresh, fresh_obs = self._fresh(task_id, unclip_proto)
         env = EnvState(**{
             f.name: torch.where(
                 ended.reshape((-1,) + (1,) * (getattr(env, f.name).dim() - 1)),
@@ -245,32 +286,37 @@ class MultiTaskEnv:
         self.tsdata = self.tsdata.replace(weights=torch.as_tensor(
             np.asarray(weights, np.float32), device=self.device))
 
-    def set_task(self, slot: int, cfg: MettaGridConfig):
+    def set_task(self, slot: int, cfg: MettaGridConfig, template_unclip_proto=None):
         """Replace one task slot (curriculum pool eviction). Data only; the
-        new task is compiled with the set's own ``track_stats``."""
-        tables, template, obs1 = _compile_task(cfg, self.track_stats, self.device)
+        new task is compiled with the set's own ``track_stats``, its
+        template's start-clipped assemblers with ``template_unclip_proto``
+        [NA] (else drawn)."""
+        tables, template, obs1, start_clipped = _compile_task(
+            cfg, self.track_stats, self.device, template_unclip_proto, self.generator)
         ts = self.tsdata
         put_task(ts.tables, slot, tables)
         for f in dataclasses.fields(EnvState):
             getattr(ts.template, f.name)[slot] = getattr(template, f.name)[0]
         ts.obs1[slot] = obs1[0]
+        ts.start_clipped[slot] = start_clipped[0]
         self.cfgs[slot] = cfg
 
     # ------------------------------------------------------------------
     # stateful numpy API (tests, eval)
     # ------------------------------------------------------------------
 
-    def reset(self, task_id=None, desync_step=None):
-        self._state, obs = self.reset_state(task_id, desync_step)
+    def reset(self, task_id=None, desync_step=None, unclip_proto=None):
+        self._state, obs = self.reset_state(task_id, desync_step, unclip_proto)
         return obs.cpu().numpy()
 
-    def step(self, actions, perm=None, task_draws=None):
+    def step(self, actions, perm=None, task_draws=None, clip_draws=None, unclip_proto=None):
         if self._state is None:
             raise RuntimeError("call reset() first")
         actions = self._ints(actions)
         if actions.dim() == 1:
             actions = actions[None, :]
-        self._state, *out = self.step_state(self._state, actions, perm, task_draws)
+        self._state, *out = self.step_state(self._state, actions, perm, task_draws,
+                                            clip_draws, unclip_proto)
         return tuple(x.cpu().numpy() for x in out)
 
     @property

@@ -1,7 +1,7 @@
 """What the analysis scripts and ``chip_smoke.py`` share: the device flag,
 the combat inputs of the render ablations, the seeded state of K2's
-ablation, the chest config of K2's chest phase, and the render ablation
-loop itself."""
+ablation, the chest config of K2's chest phase, the Cogs-vs-Clips task sets
+and the render ablation loop itself."""
 
 from __future__ import annotations
 
@@ -72,6 +72,46 @@ def chest_mission(size: int = 32, chests: int = 2, seed=None):
     cfg.game.map_builder.instance.objects["chest"] = chests
     cfg.game.map_builder.seed = seed
     return cfg
+
+
+CVC_SETS = ("regen", "chests", "clipped")
+
+
+def cvc_task_set(kind: str, max_steps: int = 9):
+    """Three task configs of a Cogs-vs-Clips task set whose tasks differ in
+    a leaf that its subsystem reads (map seeds 11, 12, 13), as
+    ``tests/test_torch_cvc.py`` builds them in both packages: ``regen``, the
+    CvC recipe's mission (the heart reward and the energy regen differ);
+    ``chests``, :func:`chest_mission` on 10x10 with six chests (two chest
+    transfers differ); ``clipped``, the clipped mission on 12x12 with a clip
+    trial every 3 steps (which extractors start clipped and which are
+    clip-immune differ)."""
+    from metta_tpu_torch.cogames.missions import make_mission
+    from metta_tpu_torch.recipes.prod.cogs_v_clips import mettagrid
+
+    cfgs = []
+    for k in range(3):
+        if kind == "regen":
+            c = mettagrid()
+            c.game.agent.rewards.inventory["heart"] = (0.5, 1.0, 0.5)[k]
+            c.game.agent.inventory.regen_amounts["default"]["energy"] = (1, 1, 3)[k]
+            c.game.agent.inventory.initial["energy"] = 6
+        elif kind == "chests":
+            c = chest_mission(size=10, chests=6)
+            c.game.objects["chest"].vibe_transfers["carbon_b"] = {"carbon": (10, 2, 10)[k]}
+            c.game.objects["chest"].vibe_transfers["oxygen_a"] = {"oxygen": (-10, -10, -1)[k]}
+        elif kind == "clipped":
+            c = make_mission("clipped", width=12, height=12, with_clipper=True)
+            c.game.clipper.clip_period = 3
+            c.game.objects["carbon_extractor"].start_clipped = k != 1
+            c.game.objects["oxygen_extractor"].start_clipped = k == 2
+            c.game.objects["germanium_extractor"].clip_immune = k == 1
+        else:
+            raise ValueError(f"unknown CvC task set {kind!r}; known: {CVC_SETS}")
+        c.game.max_steps = max_steps
+        c.game.map_builder.seed = 11 + k
+        cfgs.append(c)
+    return cfgs
 
 
 def seeded_span_env(name: str, num_envs: int, agents: int, map_seed: int, seed: int, device,

@@ -8,9 +8,11 @@ missions build (``mapgen/scenes_structures.py``). Held here:
   whose site the port builds, the same config, a byte-equal map and equal
   compiled tables and init arrays; the simple missions of
   ``make_mission`` likewise;
-- what stays unported raises by name: the hello-world and machina sites'
-  maps (``scenes_arena.py``, ``scenes_terrain.py``) and the assembler chest
-  search of ``AssemblerDrawsFromChestsVariant``;
+- the hello-world and machina sites (their maps unseeded here; seeded, they
+  are held map for map in ``tests/test_torch_machina.py``) build maps of
+  their sizes, and the assembler chest search of
+  ``AssemblerDrawsFromChestsVariant`` takes the sequential step, the batched
+  step refusing it by name;
 - the port's ``MettaGridEnv`` on two missions against the JAX env, 24 steps
   of the sequential step (the one the missions' coupled limit groups take)
   with auto-reset (``max_steps=12``, desync on), every step's agent order,
@@ -41,8 +43,8 @@ from metta_tpu_torch.engine.clipper import ClipDraws
 from metta_tpu_torch.engine.compiler import compile_game as pcompile
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
-UNPORTED_SITES = ("hello_world", "machina_1")
-PORTED = [m.full_name() for m in jcatalog.get_missions() if m.site.name not in UNPORTED_SITES]
+ARENA_SITES = ("hello_world", "machina_1")
+PORTED = [m.full_name() for m in jcatalog.get_missions() if m.site.name not in ARENA_SITES]
 
 
 def test_catalog_names_match_jax():
@@ -90,27 +92,33 @@ def test_make_mission_builds_like_jax(name):
     _assert_builds_alike(jcfg, pcfg)
 
 
-@pytest.mark.parametrize("site", UNPORTED_SITES)
+@pytest.mark.parametrize("site", ARENA_SITES)
 def test_unported_sites_raise_by_name(site):
-    """The hello-world and machina sites keep their missions, and building
-    their maps names the unported scene files."""
+    """The hello-world and machina sites, whose maps the port once refused
+    by the names of the scene files, keep their missions and now build
+    their procedural arena maps (``MachinaArena``) at the site's size."""
     names = [m for m in pcatalog.get_missions() if m.site.name == site]
     assert names
     cfg = names[0].make_env()
-    with pytest.raises(NotImplementedError, match="scenes_arena.py.*scenes_terrain.py"):
-        cfg.game.map_builder.create().build()
+    grid = cfg.game.map_builder.create().build().grid
+    size = {"hello_world": 100, "machina_1": 88}[site] + 2       # the border
+    assert grid.shape == (size, size) and (grid == "assembler").any()
 
 
 def test_chest_search_refused_by_name():
-    """``AssemblerDrawsFromChestsVariant`` sets the assembler chest search,
-    which the engine still refuses when the env is built, by name."""
+    """``AssemblerDrawsFromChestsVariant`` sets the assembler chest search:
+    the env takes the sequential step for it (as the JAX env does), and the
+    batched step refuses it by name."""
     from metta_tpu_torch.cogames.variants import AssemblerDrawsFromChestsVariant
     from metta_tpu_torch.engine.env import MettaGridEnv
+    from metta_tpu_torch.engine.step_batched import check_supported
 
     mission = pcatalog.get_mission("training_facility.harvest")
     cfg = mission.with_variants([AssemblerDrawsFromChestsVariant()]).make_env()
+    env = MettaGridEnv(cfg, num_envs=1, step_mode="batched", device="cpu")
+    assert env.step_mode == "sequential" and env.tables.chest_search_distance == 2
     with pytest.raises(NotImplementedError, match="assembler chest search"):
-        MettaGridEnv(cfg, num_envs=1, device="cpu")
+        check_supported(env.tables, "batched")
 
 
 # ---------------------------------------------------------------------------

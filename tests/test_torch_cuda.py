@@ -36,7 +36,9 @@ restored bit for bit, and the update after a restore against the
 uninterrupted one); the evaluation rollout on the card against the CPU
 (``RandomPolicy`` and ``NoopPolicy`` byte-identical with equal replays, a
 greedy ``NetworkPolicy``'s logits within 1e-4) and ``EvaluateTool`` with
-its default device. This file imports no JAX, so it runs on a machine with a card and torch
+its default device; the Cogs-vs-Clips task sets (regen, chests, the
+clipper) and the scripted baseline on ``machina_1`` on the card against the
+CPU. This file imports no JAX, so it runs on a machine with a card and torch
 alone:
 
     python3 -m pytest -m cuda --noconftest tests/test_torch_cuda.py
@@ -1748,3 +1750,89 @@ def test_evaluate_tool_runs_on_the_card_by_default(tmp_path):
         assert tool.device == device and tool.with_simulations(sims).invoke() == 0
         outs[device] = json.loads(out.read_text())
     assert outs[None] == outs["cpu"] and [r["name"] for r in outs[None]] == ["a", "b"]
+
+
+@pytest.mark.parametrize("kind,track_stats", [("regen", True), ("regen", False),
+                                              ("chests", True), ("clipped", False)])
+def test_cvc_task_set_on_card_matches_cpu(kind, track_stats):
+    """A Cogs-vs-Clips task set (``scripts/common.py:cvc_task_set``: regen,
+    chests or the clipper, each varying a leaf its subsystem reads) on the
+    card against the CPU over 40 steps at E=8 with auto-reset, every draw
+    (task ids, desync, agent orders, clipper, task draws, template and reset
+    unclip protocols) from numpy: obs, rewards, ends, task ids and the state
+    byte-identical; one render a step on the card."""
+    from metta_tpu_torch.convert import state_to_numpy
+    from metta_tpu_torch.engine.clipper import ClipDraws
+    from metta_tpu_torch.engine.compiler import compile_config
+    from metta_tpu_torch.engine.taskset import MultiTaskEnv
+    from metta_tpu_torch.scripts.common import cvc_task_set
+
+    n, K = 8, 3
+    rng = np.random.default_rng(2)
+    t = compile_config(cvc_task_set(kind)[0])
+    NA, nup = t.n_assembler_slots, max(t.n_unclip_protocols, 1)
+    template = rng.integers(0, nup, (K, NA))
+    envs = [MultiTaskEnv(cvc_task_set(kind), num_envs=n, seed=0, desync_episodes=True,
+                         track_stats=track_stats, device=d, template_unclip_proto=template)
+            for d in (_cuda(), "cpu")]
+    reset = dict(task_id=rng.integers(0, K, n), desync_step=rng.integers(1, 9, n),
+                 unclip_proto=rng.integers(0, nup, (n, NA)))
+    obs = [env.reset(**reset) for env in envs]
+    np.testing.assert_array_equal(*obs)
+    renders = k1.launches + k4.launches
+    for i in range(40):
+        acts = rng.integers(0, t.n_actions, (n, t.num_agents))
+        perm = torch.as_tensor(np.stack([rng.permutation(t.num_agents) for _ in range(n)]))
+        clip = ClipDraws(torch.as_tensor(rng.random(n) < 1 / max(t.clip_period, 1)),
+                         torch.as_tensor(rng.gumbel(size=(n, NA)).astype(np.float32)),
+                         torch.as_tensor(rng.integers(0, nup, n)))
+        kw = dict(perm=perm, task_draws=rng.integers(0, K, n), clip_draws=clip,
+                  unclip_proto=rng.integers(0, nup, (n, NA)))
+        outs = [env.step(acts, **kw) for env in envs]
+        for g, c in zip(*outs):
+            np.testing.assert_array_equal(g, c, err_msg=f"step {i}")
+        sg, sc = (state_to_numpy(env.state.env) for env in envs)
+        for field in sc:
+            np.testing.assert_array_equal(sg[field], sc[field], err_msg=f"step {i}: {field}")
+        assert torch.equal(envs[0].state.task_id.cpu(), envs[1].state.task_id)
+    assert k1.launches + k4.launches - renders == 40
+
+
+def test_scripted_play_on_card_matches_cpu():
+    """``cogames play``'s path: the scripted baseline on ``machina_1.open_world``
+    with 4 cogs (the sequential step), 40 steps on the card against the CPU
+    with the same agent orders and clipper draws: actions, obs and state
+    equal every step."""
+    from metta_tpu_torch.cogames.catalog import get_mission
+    from metta_tpu_torch.cogames.mission import NumCogsVariant
+    from metta_tpu_torch.cogames.scripted import ScriptedBaselineAgent
+    from metta_tpu_torch.convert import state_to_numpy
+    from metta_tpu_torch.engine.clipper import ClipDraws
+
+    def cfg():
+        c = get_mission("machina_1.open_world").with_variants(
+            [NumCogsVariant(num_cogs=4)]).make_env()
+        c.game.map_builder.seed = 7
+        c.desync_episodes = False
+        return c
+    envs = [MettaGridEnv(cfg(), num_envs=1, device=d) for d in (_cuda(), "cpu")]
+    agents = [ScriptedBaselineAgent(env, seed=0) for env in envs]
+    obs = [env.reset() for env in envs]
+    t = envs[1].tables
+    rng = np.random.default_rng(5)
+    for i in range(40):
+        acts = [a.step_batch(o[0]) for a, o in zip(agents, obs)]
+        assert torch.equal(acts[0].cpu(), acts[1]), f"step {i}"
+        perm = torch.as_tensor(rng.permutation(t.num_agents)[None])
+        clip = ClipDraws(torch.as_tensor(rng.random(1) < 1 / max(t.clip_period, 1)),
+                         torch.as_tensor(rng.gumbel(size=(1, t.n_assembler_slots))
+                                         .astype(np.float32)),
+                         torch.as_tensor(rng.integers(0, max(t.n_unclip_protocols, 1), 1)))
+        outs = [env.step_no_reset(a[None], perm=perm, clip_draws=clip)
+                for env, a in zip(envs, acts)]
+        obs = [o[0] for o in outs]
+        for g, c in zip(*outs):
+            assert torch.equal(g.cpu(), c), f"step {i}"
+        sg, sc = (state_to_numpy(env.state.env) for env in envs)
+        for field in sc:
+            np.testing.assert_array_equal(sg[field], sc[field], err_msg=f"step {i}: {field}")

@@ -52,7 +52,11 @@ def test_port_imports_nothing_of_jax():
                  "tools.tool", "tools.train", "tools.run", "recipes.arena_basic_easy_shaped",
                  "recipes.navigation", "devops.stable", "policy.policy", "sim.grid_objects",
                  "sim.replay_writer", "sim.rollout", "sim.runner", "tools.evaluate",
-                 "tools.play", "renderer.miniscope", "envs.pettingzoo_env"):
+                 "tools.play", "renderer.miniscope", "envs.pettingzoo_env",
+                 "recipes.prod.cogs_v_clips", "mapgen.scenes", "mapgen.scenes_terrain",
+                 "mapgen.scenes_arena", "cogames.sites", "cogames.procedural",
+                 "cogames.difficulty", "cogames.scripted", "cogames.main",
+                 "cogames.__main__"):
         assert f"metta_tpu_torch.{name}" in res["modules"], name
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, bad

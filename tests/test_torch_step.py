@@ -143,10 +143,11 @@ def test_step_env_from_generator():
 
 
 def test_unsupported_names_what_the_sequential_step_lacks():
-    """``unsupported()`` still names the assembler chest search, bump
-    handlers, damage and AOE for the sequential step, each with its JAX
-    source, and no longer names chests, regen, the clipper, the step mode or
-    shared limit groups, which the port now runs."""
+    """``unsupported()`` still names bump handlers, damage and AOE for the
+    sequential step, each with its JAX source, and no longer names chests,
+    regen, the clipper, the step mode, shared limit groups or the assembler
+    chest search, which the port now runs there; the batched step names the
+    chest search (the env takes the sequential step for it)."""
     from types import SimpleNamespace
 
     from metta_tpu_torch.engine.step_batched import check_supported, unsupported
@@ -155,13 +156,14 @@ def test_unsupported_names_what_the_sequential_step_lacks():
                          has_chests=True, has_regen=True, has_damage=True, has_aoe=True,
                          clipper_enabled=True)
     seq = unsupported(on, "sequential")
-    for want in ("chest search", "bump_handlers_seq", "apply_damage", "apply_aoe"):
+    for want in ("bump_handlers_seq", "apply_damage", "apply_aoe"):
         assert any(want in name for name in seq), want
     for gone in ("chest_use", "_chest_phase", "apply_regen", "clipper_step", "limit groups",
-                 "step_mode"):
+                 "step_mode", "chest search"):
         assert not any(gone in name for name in seq), gone
     batched = unsupported(on, "batched")
     assert any("limit groups" in name for name in batched)
+    assert any("chest search in the batched step" in name for name in batched)
     assert not any("_chest_phase" in name or "apply_regen" in name or "clipper" in name
                    for name in batched)
     off = SimpleNamespace(inv_vector_ok=False, chest_search_distance=0, has_bump_handlers=False,
